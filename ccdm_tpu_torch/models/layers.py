@@ -1,0 +1,169 @@
+"""Building blocks of the denoiser, in PyTorch.
+
+Counterpart of ccdm_tpu/models/layers.py. Tensors are NCHW in channels_last
+memory format, so a [B, H, W, C] view of them is free. Parameters are f32;
+each layer casts its weights to the activation dtype at use, as flax's
+`dtype=` does, and the parameter names follow the flax tree so that
+utils/convert.py maps one onto the other.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ccdm_tpu_torch.ops import attn_block
+from ccdm_tpu_torch.ops.attn_block import _rms_norm
+from ccdm_tpu_torch.ops.resnet_block import resnet_block_reference
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computed in the input's dtype (flax nn.Conv(dtype=...))."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computed in the input's dtype (flax nn.Dense(dtype=...))."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class RMSNorm(nn.Module):
+    """Channel RMSNorm with a learned gain; f32 statistics, output in the
+    activation dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _rms_norm(x, self.g, dim=1)
+
+
+def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Timestep embedding sin||cos with frequencies exp(-log(1e4) i/(half-1))
+    (SinusoidalPosEmb)."""
+    t = t.reshape(-1).float()
+    half = dim // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device)
+                      * (-math.log(10000.0) / (half - 1)))
+    args = t[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+class FusedResnetBlock(nn.Module):
+    """Resnet block with FiLM from concat(t_emb, c_emb); the parameter tree
+    of the flax FusedResnetBlock, with conv kernels in OIHW."""
+
+    def __init__(self, dim_in: int, dim_out: int, cond_dim: int):
+        super().__init__()
+        self.tc_mlp = Linear(cond_dim, dim_out * 2)
+        self.conv1_weight = nn.Parameter(torch.empty(dim_out, dim_in, 3, 3))
+        self.conv1_bias = nn.Parameter(torch.zeros(dim_out))
+        self.norm1_g = nn.Parameter(torch.ones(dim_out))
+        self.conv2_weight = nn.Parameter(torch.empty(dim_out, dim_out, 3, 3))
+        self.conv2_bias = nn.Parameter(torch.zeros(dim_out))
+        self.norm2_g = nn.Parameter(torch.ones(dim_out))
+        if dim_in != dim_out:
+            self.res_weight = nn.Parameter(torch.empty(dim_out, dim_in, 1, 1))
+            self.res_bias = nn.Parameter(torch.zeros(dim_out))
+        else:
+            self.res_weight = self.res_bias = None
+
+    def forward(self, x: torch.Tensor, t_emb: torch.Tensor,
+                c_emb: torch.Tensor) -> torch.Tensor:
+        tc = self.tc_mlp(F.silu(torch.cat([t_emb, c_emb], dim=-1)))
+        scale, shift = tc.chunk(2, dim=-1)
+        return resnet_block_reference(
+            x, scale, shift, self.conv1_weight, self.conv1_bias, self.norm1_g,
+            self.conv2_weight, self.conv2_bias, self.norm2_g,
+            self.res_weight, self.res_bias)
+
+
+class FusedLinearAttentionBlock(nn.Module):
+    """x + out_norm(Wout . linattn(Wqkv . pre_norm(x))) through the fused
+    kernel; weights in the flax layout (qkv_kernel [C, 3F], out_kernel
+    [F, C])."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        hidden = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.norm_g = nn.Parameter(torch.ones(dim))
+        self.qkv_kernel = nn.Parameter(torch.empty(dim, 3 * hidden))
+        self.out_kernel = nn.Parameter(torch.empty(hidden, dim))
+        self.out_bias = nn.Parameter(torch.zeros(dim))
+        self.out_norm_g = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, hh, ww = x.shape
+        x2d = x.permute(0, 2, 3, 1).reshape(b, hh * ww, c).contiguous()
+        y = attn_block.fused_attn_block(x2d, self.norm_g, self.qkv_kernel,
+                                        self.out_kernel, self.out_bias,
+                                        self.out_norm_g, self.heads, self.dim_head)
+        return y.view(b, hh, ww, c).permute(0, 3, 1, 2)
+
+
+class Attention(nn.Module):
+    """Full softmax attention over the spatial map (the mid block); the
+    attention math runs in f32 whatever the activation dtype."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        hidden = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = Conv2d(hidden, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, hh, ww = x.shape
+        n = hh * ww
+        qkv = self.to_qkv(x).permute(0, 2, 3, 1).reshape(b, n, 3, self.heads, self.dim_head)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q = q.float() * (self.dim_head ** -0.5)
+        sim = torch.einsum("bihd,bjhd->bhij", q, k.float())
+        attn = torch.softmax(sim, dim=-1)
+        out = torch.einsum("bhij,bjhd->bihd", attn, v.float()).to(x.dtype)
+        return self.to_out(out.reshape(b, hh, ww, -1).permute(0, 3, 1, 2))
+
+
+class PreNormResidual(nn.Module):
+    """x + fn(RMSNorm(x))."""
+
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.norm = RMSNorm(dim)
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.fn(self.norm(x))
+
+
+class Upsample(nn.Module):
+    """Nearest 2x, then a 3x3 conv."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.conv = Conv2d(dim_in, dim_out, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+class Downsample(nn.Module):
+    """4x4 conv, stride 2, padding 1."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.conv = Conv2d(dim_in, dim_out, 4, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)

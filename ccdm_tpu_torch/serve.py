@@ -1,0 +1,177 @@
+"""Batched inference serving of the CFG-DDIM sampler, over HTTP.
+
+Counterpart of ccdm_tpu/serve.py:49-147 and 245-323, with the same API:
+
+    python -m ccdm_tpu_torch.serve --image_size 64 \
+        --model_channels 64 --channel_mult 1_2_2_4_8 --train_amp \
+        --pred_objective pred_x0 --serve_port 8600
+
+    GET  /healthz    -> {"status": "ok", "warm": true, "milestone": ...}
+    POST /generate   body {"labels": [...in [0,1]...], "cond_scale": 1.5?,
+                           "seed": 0?}
+                     -> {"images_b64": <base64 npz of uint8 [N,H,W,C] under
+                         key 'images'>, "labels": [...], "time_s": ...}
+
+Labels are normalized to [0,1]. Every request is padded to the service's
+batch. It runs on the card unless --device cpu is given. It serves the
+weights drawn from --seed (--serve_milestone 0) or a state_dict handed in,
+e.g. from utils/convert.py; loading milestones comes with the training
+slice (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import base64
+import io
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+class SamplerService:
+    """Owns the model, the diffusion and the lock around the card."""
+
+    def __init__(self, args, max_batch: int = 64, warm: bool = True,
+                 max_labels: int = 1024, device: Optional[str] = None,
+                 state_dict: Optional[dict] = None):
+        from ccdm_tpu_torch.diffusion.gaussian import DiffusionConfig, GaussianDiffusion
+        from ccdm_tpu_torch.embedding.resolve import build_label_embedding
+        from ccdm_tpu_torch.main import build_model, resolve_label_embed
+        from ccdm_tpu_torch.training.state import precast_sampling_params
+        from ccdm_tpu_torch.utils.device import resolve_device
+
+        self.device = resolve_device(device)
+        if args.serve_milestone > 0:
+            raise NotImplementedError("loading a milestone comes with the training "
+                                      "slice (ROADMAP.md); pass state_dict instead")
+        if args.sampler != "ddim":
+            raise NotImplementedError("the ancestral sampler (--sampler ddpm) comes "
+                                      "in a later slice (ROADMAP.md)")
+        resolve_label_embed(args)
+        self.fn_y2h = build_label_embedding(args)
+        model = build_model(args, args.image_size, args.num_channels)
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        model = model.to(self.device, memory_format=torch.channels_last).eval()
+        if args.samp_precast_bf16:
+            precast_sampling_params(model)
+        dcfg = DiffusionConfig(image_size=args.image_size, channels=args.num_channels,
+                               timesteps=args.train_timesteps,
+                               sampling_timesteps=args.sample_timesteps,
+                               objective=args.pred_objective,
+                               beta_schedule=args.beta_schedule)
+        self.diffusion = GaussianDiffusion(model, dcfg, device=self.device)
+        self.loaded_milestone: Optional[int] = None
+        self.max_batch = max_batch
+        self.max_labels = max_labels
+        self.cond_scale = args.sample_cond_scale
+        self.sample_timesteps = args.sample_timesteps
+        self._lock = threading.Lock()  # one card, one sampler at a time
+        self.warm = False
+        if warm:
+            self.generate(np.full((max_batch,), 0.5, np.float32))
+            self.warm = True
+
+    def generate(self, labels01: np.ndarray, cond_scale: Optional[float] = None,
+                 seed: Optional[int] = None) -> np.ndarray:
+        """labels01 [N] in [0,1] -> uint8 images [N,H,W,C]; thread-safe."""
+        from ccdm_tpu_torch.training.trainer import sample_given_labels
+
+        labels01 = np.asarray(labels01, np.float32)
+        if labels01.ndim != 1 or len(labels01) == 0:
+            raise ValueError("labels must be a non-empty 1-D list")
+        if len(labels01) > self.max_labels:
+            raise ValueError(f"request too large: {len(labels01)} labels "
+                             f"(cap {self.max_labels}); split into smaller requests")
+        if labels01.min() < 0.0 or labels01.max() > 1.0:
+            raise ValueError("labels must be normalized to [0,1]")
+        n = len(labels01)
+        pad = (-n) % self.max_batch
+        padded = np.concatenate([labels01, np.repeat(labels01[-1:], pad)])
+        with self._lock:
+            images, _ = sample_given_labels(
+                self.diffusion, padded, self.fn_y2h, batch_size=self.max_batch,
+                denorm=True, cond_scale=self.cond_scale if cond_scale is None else cond_scale,
+                sample_timesteps=self.sample_timesteps,
+                key_base=1 if seed is None else int(seed))
+        return np.asarray(images[:n], np.uint8)
+
+
+def _encode_images(images: np.ndarray) -> str:
+    buf = io.BytesIO()
+    np.savez_compressed(buf, images=images)
+    return base64.b64encode(buf.getvalue()).decode("ascii")
+
+
+def make_handler(service: SamplerService):
+    class Handler(BaseHTTPRequestHandler):
+        def _reply(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._reply(200, {"status": "ok", "warm": service.warm,
+                                  "milestone": service.loaded_milestone})
+            else:
+                self._reply(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            if self.path != "/generate":
+                return self._reply(404, {"error": "unknown path"})
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                t0 = time.perf_counter()
+                images = service.generate(np.asarray(req["labels"], np.float32),
+                                          cond_scale=req.get("cond_scale"),
+                                          seed=req.get("seed"))
+                self._reply(200, {"images_b64": _encode_images(images),
+                                  "labels": list(map(float, req["labels"])),
+                                  "time_s": round(time.perf_counter() - t0, 4)})
+            except (KeyError, ValueError, TypeError) as e:
+                self._reply(400, {"error": str(e)})
+
+        def log_message(self, fmt, *a):  # quiet by default
+            pass
+
+    return Handler
+
+
+def serve(service: SamplerService, port: int, host: str = "127.0.0.1",
+          block: bool = True) -> ThreadingHTTPServer:
+    """Bind the HTTP server. With `block` serve until interrupted, then
+    close; without, return the bound server for the caller to run
+    (serve_forever in a thread) and to shutdown() and server_close()."""
+    httpd = ThreadingHTTPServer((host, port), make_handler(service))
+    if block:
+        print(f" serving on {host}:{httpd.server_address[1]} "
+              f"(milestone={service.loaded_milestone})", flush=True)
+        try:
+            httpd.serve_forever()
+        finally:
+            httpd.server_close()
+    return httpd
+
+
+def main(argv=None):
+    from ccdm_tpu_torch.opts import parse_opts
+
+    args = parse_opts(argv)
+    service = SamplerService(args, max_batch=args.samp_batch_size,
+                             max_labels=args.serve_max_labels, device=args.device)
+    # binds loopback by default; --serve_host 0.0.0.0 is an explicit opt-in
+    serve(service, args.serve_port, host=args.serve_host)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,183 @@
+"""The CUDA source of the attention block, compiled for the CPU and emulated.
+
+There is no nvcc here, so csrc/attn_block.cu is compiled with g++ behind a
+small emulation of the CUDA built-ins it uses: each block runs as one OS
+thread per CUDA thread, `__syncthreads` and the warp shuffles are barriers,
+shared memory is memory shared by those threads, blocks run one after
+another. That checks the kernel's own indexing, tiling, masking and
+arithmetic against the plain PyTorch version on small shapes, at the bounds
+the card's checks use (f32 rtol 2e-3 / atol 2e-4; bf16 3e-2 relative to
+max(|y|, |y - x|)). It cannot show that nvcc accepts the source or how the
+card schedules it: chip_smoke.py does that on the card.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from ccdm_tpu_torch.ops import _build
+from ccdm_tpu_torch.ops.attn_block import attn_block_reference
+
+torch.set_num_threads(2)
+
+HEADS, F = 4, 128
+
+CUDA_RUNTIME_H = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstring>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __align__(n) __attribute__((aligned(n)))
+using std::min;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+struct alignas(16) float4 { float x, y, z, w; };
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <typename F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
+  return bytes > 232448 ? cudaErrorInvalidValue : cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated CUDA error"; }
+inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
+namespace emu {
+inline thread_local dim3 tid, bid;
+inline dim3 grid_dim;
+inline std::barrier<>* block_barrier = nullptr;
+inline std::vector<std::barrier<>*> warp_barriers;
+inline float exchange[64][32];
+inline float* dynamic_smem = nullptr;
+template <typename F>
+void launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F body) {
+  const int n = block.x;
+  grid_dim = grid;
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::barrier<> bar(n);
+      block_barrier = &bar;
+      std::vector<std::barrier<>*> warps;
+      for (int w = 0; w < n / 32; ++w) warps.push_back(new std::barrier<>(32));
+      warp_barriers = warps;
+      std::vector<float> shared(smem / sizeof(float) + 4, NAN);  // NaN: reads before writes show
+      dynamic_smem = shared.data();
+      std::vector<std::thread> threads;
+      for (int t = 0; t < n; ++t)
+        threads.emplace_back([&, t] { tid = dim3(t); bid = dim3(bx, by); body(); });
+      for (auto& th : threads) th.join();
+      for (auto* w : warps) delete w;
+    }
+}
+}  // namespace emu
+#define threadIdx emu::tid
+#define blockIdx emu::bid
+#define gridDim emu::grid_dim
+inline void __syncthreads() { emu::block_barrier->arrive_and_wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu::exchange[w][l] = v;
+  emu::warp_barriers[w]->arrive_and_wait();
+  const float r = emu::exchange[w][l ^ lane_mask];
+  emu::warp_barriers[w]->arrive_and_wait();
+  return r;
+}
+"""
+
+CUDA_BF16_H = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 b) {
+  uint32_t u = uint32_t(b.x) << 16; float f; std::memcpy(&f, &u, 4); return f;
+}
+inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
+  uint32_t u; std::memcpy(&u, &f, 4);
+  __nv_bfloat16 b; b.x = uint16_t((u + 0x7fff + ((u >> 16) & 1)) >> 16); return b;
+}
+"""
+
+
+def _to_cpp(src: str) -> str:
+    """Shared memory becomes memory shared by the block's threads, and each
+    `kernel<<<grid, block, smem, stream>>>(args)` an emu::launch call."""
+    src = src.replace("extern __shared__ __align__(16) float smem[];",
+                      "float* smem = emu::dynamic_smem;")
+    src = src.replace("__shared__", "static")
+    out, i = [], 0
+    while (j := src.find("<<<", i)) >= 0:
+        k = j
+        while src[k - 1] not in " \n":
+            k -= 1
+        end = src.index(">>>", j)
+        p = q = end + 3
+        depth = 0
+        while True:
+            depth += {"(": 1, ")": -1}.get(src[q], 0)
+            if depth == 0:
+                break
+            q += 1
+        out += [src[i:k], f"emu::launch({src[j + 3:end]}, [=]() {{ {src[k:j]}"
+                          f"({src[p + 1:q]}); }})"]
+        i = q + 1
+    return "".join(out) + src[i:]
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the emulated kernel")
+    d = tmp_path_factory.mktemp("cuda_emu")
+    (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (d / "cuda_bf16.h").write_text(CUDA_BF16_H)
+    (d / "attn_block.cpp").write_text(_to_cpp((_build.CSRC_DIR / "attn_block.cu").read_text()))
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{d}",
+                    "-include", "cuda_runtime.h", "-o", str(d / "libattn.so"),
+                    str(d / "attn_block.cpp")], check=True, timeout=300)
+    lib = ctypes.CDLL(str(d / "libattn.so"))
+    lib.ccdm_attn_block_forward.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                                            + [ctypes.c_void_p])
+    lib.ccdm_attn_block_forward.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,c", [(2, 64, 32), (2, 100, 64), (1, 16, 512)])
+def test_emulated_kernel_matches_plain_version(emulated, b, n, c, dtype):
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 2.0 if dtype == "float32" else 1.0, (b, n, c))
+    w = (1 + 0.5 * rng.normal(size=c), 0.1 * rng.normal(size=(c, 3 * F)),
+         0.1 * rng.normal(size=(F, c)), 0.1 * rng.normal(size=c), 1 + 0.5 * rng.normal(size=c))
+    dt = getattr(torch, dtype)
+    ins = [torch.from_numpy(a.astype(np.float32)).to(dt).contiguous() for a in (x, *w)]
+    y = torch.empty_like(ins[0])
+    qkv = torch.empty(b, n, 3 * F)
+    ctx = torch.empty(b, HEADS, 32, 32)
+    err = emulated.ccdm_attn_block_forward(*(t.data_ptr() for t in ins), y.data_ptr(),
+                                           qkv.data_ptr(), ctx.data_ptr(), b, n, c, HEADS,
+                                           int(dt == torch.bfloat16), None)
+    assert err == 0
+    want = attn_block_reference(*(t.float() for t in ins), HEADS, 32)
+    got = y.float()
+    assert bool(torch.isfinite(got).all())
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-4)
+    else:
+        scale = torch.maximum(want.abs(), (want - ins[0].float()).abs())
+        assert bool(((got - want).abs() <= 3e-2 + 3e-2 * scale).all())

@@ -1,0 +1,60 @@
+"""Port parity: the sinusoidal label and timestep embeddings.
+
+Both are f32 transcendental math on the same inputs, so 1e-6. The two
+embeddings differ on purpose (divisor half vs half-1, cos||sin vs sin||cos),
+and each is held against its own JAX counterpart.
+"""
+
+import argparse
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from ccdm_tpu.embedding.analytic import make_fn_y2h as jax_make_fn_y2h
+from ccdm_tpu.models.layers import SinusoidalPosEmb
+from ccdm_tpu_torch.embedding.analytic import make_fn_y2h
+from ccdm_tpu_torch.embedding.resolve import build_label_embedding
+from ccdm_tpu_torch.models.layers import sinusoidal_pos_emb
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("dim", [128, 33])
+def test_sinusoidal_y2h_matches(dim):
+    y = np.linspace(0.0, 1.0, 17).astype(np.float32)
+    want = np.asarray(jax_make_fn_y2h(dim)(jnp.asarray(y)))
+    got = make_fn_y2h(dim)(torch.from_numpy(y)).numpy()
+    assert got.shape == (17, dim)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dim", [8, 64])
+def test_sinusoidal_pos_emb_matches(dim):
+    t = np.array([0, 1, 17, 250, 999], dtype=np.int32)
+    want = np.asarray(SinusoidalPosEmb(dim).apply({}, jnp.asarray(t)))
+    got = sinusoidal_pos_emb(torch.from_numpy(t), dim).numpy()
+    # 1e-6, plus t times one f32 ulp of a frequency (<= 1.2e-7): XLA's and
+    # torch's exp may round a frequency differently, and the argument t*freq
+    # carries that ulp t-fold into sin and cos
+    bound = 1e-6 + t[:, None].astype(np.float64) * 1.2e-7
+    assert np.all(np.abs(got - want) <= bound)
+    np.testing.assert_allclose(got[t < 20], want[t < 20], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("embed_type", ["gaussian", "resnet"])
+def test_unported_embedding_types_raise(embed_type):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_fn_y2h(128, embed_type)
+
+
+def test_resolve_builds_sinusoidal_and_refuses_hy():
+    args = argparse.Namespace(dim_embed=128, y2h_embed_type="sinusoidal",
+                              label_dim=1, use_Hy=False)
+    emb = build_label_embedding(args)(torch.tensor([0.25, 0.75]))
+    assert emb.shape == (2, 128) and float(emb.min()) >= 0 and float(emb.max()) <= 1
+    args.use_Hy = True
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_label_embedding(args)

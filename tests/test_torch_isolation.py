@@ -1,0 +1,99 @@
+"""The port stands alone: no JAX, no ccdm_tpu, no quiet fallback to the CPU.
+
+The import check runs in a subprocess, because tests/conftest.py imports JAX
+into the test process.
+"""
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from ccdm_tpu_torch import serve
+from ccdm_tpu_torch.opts import parse_opts
+from ccdm_tpu_torch.utils.device import resolve_device
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+SMALL_ARGV = ["--image_size", "16", "--model_channels", "8", "--channel_mult", "1_2",
+              "--train_timesteps", "20", "--sample_timesteps", "2", "--device", "cpu"]
+
+_IMPORT_CHECK = """
+import ast, importlib, json, pkgutil, sys
+sys.path.insert(0, {root!r})
+before = set(sys.modules)
+import ccdm_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ccdm_tpu_torch.__path__, "ccdm_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+tree = ast.parse(open({smoke!r}).read())
+for node in tree.body:
+    if isinstance(node, (ast.Import, ast.ImportFrom)):
+        exec(compile(ast.Module([node], []), "chip_smoke.py", "exec"), {{}})
+print(json.dumps({{"modules": names, "new": sorted(set(sys.modules) - before)}}))
+"""
+
+
+def _is_jax(name):
+    return name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "ccdm_tpu")
+
+
+def test_port_and_smoke_script_import_no_jax():
+    code = _IMPORT_CHECK.format(root=str(ROOT), smoke=str(ROOT / "chip_smoke.py"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT, check=True)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(report["modules"]) >= 20, report["modules"]
+    assert "ccdm_tpu_torch.serve" in report["new"]
+    assert [m for m in report["new"] if _is_jax(m)] == []
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|ccdm_tpu)(\.|\s|$)", re.M)
+    files = [*sorted((ROOT / "ccdm_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
+    assert len(files) >= 20
+    for path in files:
+        assert not pattern.search(path.read_text()), path
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.SamplerService(parse_opts(SMALL_ARGV[:-2]), warm=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(SMALL_ARGV[:-2])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("flags", [["--sampler", "ddpm"], ["--architecture", "adm"],
+                                   ["--serve_milestone", "5"],
+                                   ["--y2h_embed_type", "gaussian"], ["--label_dim", "2"]])
+def test_options_of_later_slices_raise(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.SamplerService(parse_opts(SMALL_ARGV + flags), warm=False, device="cpu")
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+                          timeout=300, cwd=cwd)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the smoke script would run")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_without_the_repo(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
