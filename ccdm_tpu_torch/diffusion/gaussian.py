@@ -1,12 +1,17 @@
-"""Gaussian diffusion: the guided DDIM sampler.
+"""Gaussian diffusion: the vicinal training loss and the guided DDIM sampler.
 
-Counterpart of ccdm_tpu/diffusion/gaussian.py for sampling: DiffusionConfig,
+Counterpart of ccdm_tpu/diffusion/gaussian.py: DiffusionConfig, `loss`
+(gaussian.py:139-256: q_sample, the per-objective target, SNR weighting and
+the hard/soft, classic/sliced vicinal batch weights used as a gate),
+`weighted_loss` (:258-312, per-sample weights applied directly),
 `model_predictions` (the cond and null passes batched as one 2B forward,
-cond rows first, then `apply_cfg`) and `ddim_sample` (gaussian.py:384-448).
-The JAX sampler is one lax.scan; here it is a Python loop over the same
-(t, t_next) pairs. The training loss, the ancestral sampler
-(`--sampler ddpm`), CFG++ and the H(y) covariance come in later slices
-(ROADMAP.md).
+cond rows first, then `apply_cfg`) and `ddim_sample` (:384-448). The JAX
+sampler is one lax.scan; here it is a Python loop over the same (t, t_next)
+pairs. The losses draw t, the CFG keep mask, the noise and the projection
+directions from an explicit torch.Generator, or take them from `draws`
+(keys "t", "keep_mask", "noise", "proj"). The ancestral sampler
+(`--sampler ddpm`), CFG++, offset noise, the H(y) covariance and the
+elastic aux loss come in later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,12 +24,19 @@ import torch
 from torch import nn
 
 from ccdm_tpu_torch.ops.guidance import apply_cfg
-from ccdm_tpu_torch.ops.image import unnormalize_to_zero_to_one
+from ccdm_tpu_torch.ops.image import normalize_to_neg_one_to_one, unnormalize_to_zero_to_one
 from ccdm_tpu_torch.ops.schedule import (
     make_schedule,
     predict_noise_from_start,
     predict_start_from_noise,
     predict_start_from_v,
+    predict_v,
+    q_sample,
+)
+from ccdm_tpu_torch.ops.vicinal import (
+    classic_batch_weights,
+    random_projection_vectors,
+    sliced_batch_weights,
 )
 
 
@@ -37,6 +49,17 @@ class DiffusionConfig:
     objective: str = "pred_noise"
     beta_schedule: str = "cosine"
     ddim_sampling_eta: float = 0.0
+    cond_drop_prob: float = 0.5
+    use_Hy: bool = False
+    use_cfg_plus_plus: bool = False
+    offset_noise_strength: float = 0.0
+    min_snr_loss_weight: bool = False
+    min_snr_gamma: float = 5.0
+    vicinity_type: str = "shv"  # shv | ssv | hv | sv | none
+    distance: str = "l2"
+    vector_type: str = "gaussian"
+    num_projections: int = 1
+    hy_max_log: float = 4.0
 
     @property
     def effective_sampling_timesteps(self) -> int:
@@ -60,7 +83,75 @@ class GaussianDiffusion:
         self.config = config
         self.device = torch.device(device)
         self.schedule = make_schedule(config.timesteps, config.beta_schedule,
-                                      config.objective, device=self.device)
+                                      config.objective, config.min_snr_loss_weight,
+                                      config.min_snr_gamma, device=self.device)
+
+    # ------------------------------------------------------------- loss
+
+    def _per_sample_loss(self, images01, labels_emb, train, gen, draws):
+        """(per-sample SNR-weighted MSE [B], keep_mask [B]) for one batch."""
+        c = self.config
+        if c.use_Hy or c.offset_noise_strength > 0:
+            raise NotImplementedError("the H(y) covariance (--use_Hy) and offset noise "
+                                      "come in a later slice (ROADMAP.md)")
+        sched, dev = self.schedule, self.device
+        b = images01.shape[0]
+        x_start = normalize_to_neg_one_to_one(images01.to(dev))
+        t = draws.get("t")
+        if t is None:
+            t = torch.randint(0, c.timesteps, (b,), generator=gen, device=dev)
+        keep_mask = draws.get("keep_mask")
+        if keep_mask is None:
+            keep_mask = torch.rand(b, generator=gen, device=dev) < (1.0 - c.cond_drop_prob)
+        noise = draws.get("noise")
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=gen, device=dev)
+        t, keep_mask, noise = t.to(dev), keep_mask.to(dev), noise.to(dev)
+        x_t = q_sample(sched, x_start, t, noise)
+        model_out = self.model(x_t, t, labels_emb, keep_mask, train=train)
+        if c.objective == "pred_noise":
+            target = noise
+        elif c.objective == "pred_x0":
+            target = x_start
+        else:
+            target = predict_v(sched, x_start, t, noise)
+        sq = (model_out - target) ** 2
+        return sq.reshape(b, -1).mean(-1) * sched.loss_weight[t], keep_mask
+
+    def loss(self, images01: torch.Tensor, labels: torch.Tensor, labels_emb: torch.Tensor,
+             vicinal_weights: Optional[torch.Tensor] = None, kappa=0.01, train: bool = True,
+             gen: Optional[torch.Generator] = None, draws: Optional[dict] = None):
+        """Vicinal diffusion loss (gaussian.py:139-224). images01 NHWC in
+        [0, 1]; vicinal_weights acts as a gate, as in the JAX package: with
+        it, the batch is weighted by the intra-batch vicinal weights."""
+        c = self.config
+        draws = draws or {}
+        per_sample, keep_mask = self._per_sample_loss(images01, labels_emb, train, gen, draws)
+        if vicinal_weights is None or c.vicinity_type == "none":
+            return per_sample.mean()
+        b = per_sample.shape[0]
+        labels2d = labels.float().to(self.device)
+        labels2d = labels2d.reshape(b, -1) if labels2d.ndim < 2 else labels2d
+        is_hard = c.vicinity_type in ("hv", "shv")
+        if c.vicinity_type in ("shv", "ssv") and labels2d.shape[1] > 1:
+            vecs = draws.get("proj")
+            if vecs is None:
+                vecs = random_projection_vectors(c.vector_type, labels2d.shape[1],
+                                                 c.num_projections, gen, self.device)
+            w = sliced_batch_weights(labels2d, vecs.to(self.device), kappa, is_hard, ~keep_mask)
+        else:
+            w = classic_batch_weights(labels2d, kappa, is_hard, c.distance, ~keep_mask)
+        return (w * per_sample).sum() / b
+
+    def weighted_loss(self, images01: torch.Tensor, labels: torch.Tensor,
+                      labels_emb: torch.Tensor, weights: torch.Tensor, train: bool = True,
+                      gen: Optional[torch.Generator] = None, draws: Optional[dict] = None):
+        """Vanilla-tree reduction (gaussian.py:258-312): per-sample weights
+        applied directly, dropped-condition rows at weight 1."""
+        per_sample, keep_mask = self._per_sample_loss(images01, labels_emb, train, gen,
+                                                      draws or {})
+        w = torch.where(keep_mask, weights.to(self.device), torch.ones_like(per_sample))
+        return (w * per_sample).sum() / per_sample.shape[0]
 
     def model_predictions(self, x: torch.Tensor, t: torch.Tensor, labels_emb: torch.Tensor,
                           cond_scale: float = 6.0, rescaled_phi: float = 0.7,

@@ -5,8 +5,9 @@ Counterpart of ccdm_tpu/models/unet.py:45-151: init 7x7 conv -> per level
 [resnet block, full attention, resnet block] -> the mirrored up path with
 skip concats -> a final resnet block over concat(x, r) -> 1x1 out conv.
 Conditioning: sinusoidal time MLP and the label-embedding MLP pair with
-BatchNorm (running statistics), FiLM in every resnet block, and the null
-embedding substituted where keep_mask is False.
+BatchNorm (batch statistics when training, else running ones), FiLM in
+every resnet block, and the null embedding substituted where keep_mask is
+False.
 
 `forward` takes and returns NHWC like the JAX module; inside, tensors are
 NCHW in channels_last memory format.
@@ -113,21 +114,32 @@ class Unet(nn.Module):
             bn.reset_running_stats()
 
     @staticmethod
-    def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-        """Inference BatchNorm (running statistics) whatever the module mode."""
-        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                            False, 0.0, bn.eps)
+    def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """flax nn.BatchNorm (momentum 0.99, eps 1e-5) in f32. train: batch
+        statistics, with the variance mean(x^2) - mean(x)^2 (biased), and the
+        running statistics moved 1% towards them; else the running ones."""
+        x = x.float()
+        if not train:
+            return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                False, 0.0, bn.eps)
+        mean = x.mean(0)
+        var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(0.99).add_(0.01 * mean)
+            bn.running_var.mul_(0.99).add_(0.01 * var)
+        return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, labels_emb: torch.Tensor,
-                keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                keep_mask: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
         """x [B, H, W, Cin]; t [B] int; labels_emb [B, embed_input_dim];
         keep_mask [B] bool, False rows get the null condition (None keeps
-        all). Returns [B, H, W, Cout] f32."""
+        all); train: BatchNorm on batch statistics, updating the running
+        ones (flax's train=True). Returns [B, H, W, Cout] f32."""
         dt = self.dtype
-        c = F.relu(self._batch_norm(self.cond_bn_1, self.cond_dense_1(labels_emb.float())))
+        c = F.relu(self._batch_norm(self.cond_bn_1, self.cond_dense_1(labels_emb.float()), train))
         if keep_mask is not None:
             c = torch.where(keep_mask[:, None], c, self.null_cond_emb[None, :].to(c.dtype))
-        c_emb = F.relu(self._batch_norm(self.cond_bn_2, self.cond_dense_2(c)))
+        c_emb = F.relu(self._batch_norm(self.cond_bn_2, self.cond_dense_2(c), train))
         t_emb = self.time_dense_1(sinusoidal_pos_emb(t, self.dim))
         t_emb = self.time_dense_2(F.gelu(t_emb, approximate="tanh"))
         t_emb, c_emb = t_emb.to(dt), c_emb.to(dt)

@@ -1,6 +1,7 @@
 """Diffusion noise schedules and the closed-form conversions of sampling.
 
-Counterpart of ccdm_tpu/ops/schedule.py:26-185. The betas and every buffer
+Counterpart of ccdm_tpu/ops/schedule.py:26-185, with q_sample and predict_v
+for the training loss. The betas and every buffer
 are computed on the host in float64 with numpy and stored as float32 tensors,
 so they equal the JAX package's bit for bit.
 """
@@ -123,3 +124,17 @@ def predict_start_from_v(sched: Schedule, x_t: torch.Tensor, t: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     return (extract(sched.sqrt_alphas_cumprod, t, x_t.ndim) * x_t
             - extract(sched.sqrt_one_minus_alphas_cumprod, t, x_t.ndim) * v)
+
+
+def q_sample(sched: Schedule, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion x_t = sqrt(ac_t) x_0 + sqrt(1 - ac_t) eps (NHWC).
+    Offset noise (ccdm_tpu/ops/schedule.py:134-150) comes in a later slice."""
+    return (extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+            + extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)
+
+
+def predict_v(sched: Schedule, x_start: torch.Tensor, t: torch.Tensor,
+              noise: torch.Tensor) -> torch.Tensor:
+    return (extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * noise
+            - extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * x_start)

@@ -1,6 +1,7 @@
-"""CLI flags of the serving path, with ccdm_tpu/opts.py's names, defaults and
-choices, plus --device. Flags that nothing in the port reads yet (data,
-training, eval, the run's output folders) come with their slices."""
+"""CLI flags of the training and serving paths, with ccdm_tpu/opts.py's
+names, defaults and choices, plus --device. Flags that nothing in the port
+reads yet (eval, the ILI embeddings, the h5 sample dumps) come with their
+slices; --dump_fake_data and --lambda_aux are parsed and raise."""
 
 from __future__ import annotations
 
@@ -14,29 +15,66 @@ def parse_opts(argv=None):
                         help="cuda (the default; raises without a card) or cpu")
 
     # Overall
+    parser.add_argument("--root_path", type=str, default="./")
+    parser.add_argument("--data_name", type=str, default="synthetic",
+                        choices=["UTKFace", "RC-49", "Cell200", "SteeringAngle",
+                                 "synthetic", "power_vector", "synthetic_power"])
+    parser.add_argument("--data_path", type=str, default="./datasets")
     parser.add_argument("--seed", type=int, default=111)
+    parser.add_argument("--setting_name", type=str, default="Setup1")
     parser.add_argument("--architecture", type=str, default="unet",
                         choices=["unet", "vit", "adm"])
     parser.add_argument("--label_embed", type=str, default="ccdm2",
                         choices=["ccdm1", "ccdm2", "random"])
     parser.add_argument("--label_dim", type=int, default=1)
+    parser.add_argument("--vicinity_type", type=str, default=None,
+                        choices=["shv", "ssv", "hv", "sv", "none"])
+    parser.add_argument("--threshold_type", type=str, default=None, choices=["hard", "soft"],
+                        help="vanilla-tree alias: hard->hv, soft->sv")
+    parser.add_argument("--distance", type=str, default="l2", choices=["l1", "l2", "cosine"])
+    parser.add_argument("--vector_type", type=str, default="gaussian",
+                        choices=["gaussian", "rademacher", "sphere"])
+    parser.add_argument("--hyperparameter", type=str, default="rule_of_thumb",
+                        choices=["rule_of_thumb", "percentile"])
+    parser.add_argument("--adaptive_slicing", action="store_true", default=False)
+    parser.add_argument("--synthetic_n", type=int, default=0,
+                        help="sample count of the synthetic set; 0 keeps its default")
+    parser.add_argument("--percentile", type=float, default=5.0)
+    parser.add_argument("--num_projections", type=int, default=1)
 
     # Dataset and model
+    parser.add_argument("--min_label", type=float, default=0.0)
+    parser.add_argument("--max_label", type=float, default=90.0)
+    parser.add_argument("--max_num_img_per_label", type=int, default=int(1e30))
+    parser.add_argument("--num_img_per_label_after_replica", type=int, default=0)
+    parser.add_argument("--data_split", type=str, default="train", choices=["train", "all"])
+    parser.add_argument("--stepsize", type=int, default=2, help="Cell-200 label stride")
+    parser.add_argument("--num_imgs_per_label", type=int, default=10,
+                        help="Cell-200 per-label subset")
     parser.add_argument("--num_channels", type=int, default=3)
     parser.add_argument("--image_size", type=int, default=64)
     parser.add_argument("--model_channels", type=int, default=64)
     parser.add_argument("--num_heads", type=int, default=4)
     parser.add_argument("--channel_mult", type=str, default="1_2_4_8")
     parser.add_argument("--attn_dim_head", type=int, default=32)
+    parser.add_argument("--cond_drop_prob", type=float, default=0.1)
 
-    # Diffusion
+    # Diffusion and training
     parser.add_argument("--pred_objective", type=str, default="pred_noise",
                         choices=["pred_noise", "pred_x0", "pred_v"])
+    parser.add_argument("--niters", type=int, default=10)
+    parser.add_argument("--resume_niter", type=int, default=0)
     parser.add_argument("--train_timesteps", type=int, default=1000)
+    parser.add_argument("--train_batch_size", type=int, default=16)
+    parser.add_argument("--train_lr", type=float, default=1e-4)
     parser.add_argument("--train_amp", action="store_true", default=False,
-                        help="bf16 activations")
+                        help="bf16 activations (f32 master weights)")
+    parser.add_argument("--gradient_accumulate_every", type=int, default=1)
     parser.add_argument("--beta_schedule", type=str, default="cosine",
                         choices=["cosine", "linear"])
+    parser.add_argument("--save_every", type=int, default=10000)
+    parser.add_argument("--log_every", type=int, default=500,
+                        help="loss/throughput logging stride (reference logs every 500)")
 
     # Label embedding
     parser.add_argument("--y2h_embed_type", type=str, default="sinusoidal",
@@ -44,11 +82,21 @@ def parse_opts(argv=None):
     parser.add_argument("--use_Hy", action="store_true", default=False)
     parser.add_argument("--dim_embed", type=int, default=128)
 
+    # Auxiliary elastic loss: parsed, raises above 0 (ROADMAP.md)
+    parser.add_argument("--lambda_aux", type=float, default=0.0)
+
+    # Vicinal loss
+    parser.add_argument("--kernel_sigma", type=float, default=-1.0)
+    parser.add_argument("--kappa", type=float, default=-1.0)
+    parser.add_argument("--nonzero_soft_weight_threshold", type=float, default=1e-3)
+
     # Sampling
     parser.add_argument("--sampler", type=str, default="ddim", choices=["ddim", "ddpm"])
     parser.add_argument("--sample_timesteps", type=int, default=250)
     parser.add_argument("--sample_cond_scale", type=float, default=1.5)
     parser.add_argument("--samp_batch_size", type=int, default=100)
+    parser.add_argument("--dump_fake_data", action="store_true", default=False,
+                        help="the per-label h5 sample dumps: parsed, raises (ROADMAP.md)")
     parser.add_argument("--samp_precast_bf16", action="store_true", default=False,
                         help="cast the f32 weight tensors to bf16 once before "
                              "sampling (training/state.precast_sampling_params)")
@@ -61,7 +109,10 @@ def parse_opts(argv=None):
     parser.add_argument("--serve_max_labels", type=int, default=1024)
     parser.add_argument("--serve_milestone", type=int, default=0,
                         help="milestone to load (0 = weights from --seed)")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.vicinity_type is None:  # the threshold_type alias (ccdm_tpu/opts.py:241-248)
+        args.vicinity_type = {"hard": "hv", "soft": "sv"}.get(args.threshold_type, "shv")
+    return args
 
 
 def parse_channel_mult(s: str) -> tuple:

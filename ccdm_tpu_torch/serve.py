@@ -14,9 +14,10 @@ Counterpart of ccdm_tpu/serve.py:49-147 and 245-323, with the same API:
 
 Labels are normalized to [0,1]. Every request is padded to the service's
 batch. It runs on the card unless --device cpu is given. It serves the
-weights drawn from --seed (--serve_milestone 0) or a state_dict handed in,
-e.g. from utils/convert.py; loading milestones comes with the training
-slice (ROADMAP.md).
+EMA weights of the port's milestone --serve_milestone N, found under
+<root_path>/output/<data_name>_<image_size>/<setting_name>/results as
+main.py writes it, or with --serve_milestone 0 the weights drawn from
+--seed or a state_dict handed in (e.g. from utils/convert.py).
 """
 
 from __future__ import annotations
@@ -41,21 +42,24 @@ class SamplerService:
                  state_dict: Optional[dict] = None):
         from ccdm_tpu_torch.diffusion.gaussian import DiffusionConfig, GaussianDiffusion
         from ccdm_tpu_torch.embedding.resolve import build_label_embedding
-        from ccdm_tpu_torch.main import build_model, resolve_label_embed
+        from ccdm_tpu_torch.main import build_model, resolve_label_embed, results_folder
         from ccdm_tpu_torch.training.state import precast_sampling_params
         from ccdm_tpu_torch.utils.device import resolve_device
 
         self.device = resolve_device(device)
-        if args.serve_milestone > 0:
-            raise NotImplementedError("loading a milestone comes with the training "
-                                      "slice (ROADMAP.md); pass state_dict instead")
         if args.sampler != "ddim":
             raise NotImplementedError("the ancestral sampler (--sampler ddpm) comes "
                                       "in a later slice (ROADMAP.md)")
         resolve_label_embed(args)
         self.fn_y2h = build_label_embedding(args)
         model = build_model(args, args.image_size, args.num_channels)
-        if state_dict is not None:
+        self.loaded_milestone: Optional[int] = None
+        if args.serve_milestone > 0:
+            if state_dict is not None:
+                raise ValueError("pass either --serve_milestone or a state_dict, not both")
+            model = ema_model_from_milestone(model, results_folder(args), args.serve_milestone)
+            self.loaded_milestone = args.serve_milestone
+        elif state_dict is not None:
             model.load_state_dict(state_dict)
         model = model.to(self.device, memory_format=torch.channels_last).eval()
         if args.samp_precast_bf16:
@@ -66,7 +70,6 @@ class SamplerService:
                                objective=args.pred_objective,
                                beta_schedule=args.beta_schedule)
         self.diffusion = GaussianDiffusion(model, dcfg, device=self.device)
-        self.loaded_milestone: Optional[int] = None
         self.max_batch = max_batch
         self.max_labels = max_labels
         self.cond_scale = args.sample_cond_scale
@@ -100,6 +103,19 @@ class SamplerService:
                 sample_timesteps=self.sample_timesteps,
                 key_base=1 if seed is None else int(seed))
         return np.asarray(images[:n], np.uint8)
+
+
+def ema_model_from_milestone(model, results: str, milestone: int):
+    """`model` holding the EMA parameters and BatchNorm statistics of the
+    port's milestone (utils/ckpt.py); raises FileNotFoundError without it."""
+    from ccdm_tpu_torch.training.state import shadowed_tensors
+    from ccdm_tpu_torch.training.trainer import copy_tensors
+    from ccdm_tpu_torch.utils.ckpt import load_checkpoint
+
+    tree = load_checkpoint(results, milestone)
+    copy_tensors(shadowed_tensors(model), tree["ema_params"] + tree["ema_batch_stats"],
+                 "EMA weights")
+    return model
 
 
 def _encode_images(images: np.ndarray) -> str:

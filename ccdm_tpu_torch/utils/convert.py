@@ -13,6 +13,10 @@ state_dict of the port's Unet:
   and running statistics; null_cond_emb as it is.
 It raises on a leaf it does not consume and on a tensor of the port it
 leaves unset.
+
+`train_state_from_jax` carries a whole JAX TrainState (numpy leaves) into
+the port's training/state.TrainState: params and BatchNorm statistics, the
+EMA shadow of both, Adam's mu, nu and count, step and ema_step.
 """
 
 from __future__ import annotations
@@ -46,13 +50,11 @@ def _to_torch_layout(name: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
-def unet_state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> dict:
-    """The state_dict for `model` (a port Unet of the same config) holding
-    the JAX Unet's `variables`."""
-    target = model.state_dict()
+def _named_tensors(tree: Mapping[str, Any], target: dict) -> dict:
+    """{state_dict key: tensor} for the leaves of a flax params or
+    batch_stats tree, each checked against `target`'s shape."""
     out: dict[str, torch.Tensor] = {}
-    trees = [variables["params"], variables.get("batch_stats", {})]
-    for path, arr in (leaf for tree in trees for leaf in _leaves(tree)):
+    for path, arr in _leaves(tree):
         names = list(path)
         if names[0] == "mid_attn_inner":  # flax registers it beside mid_attn
             names[:1] = ["mid_attn", "fn"]
@@ -61,16 +63,67 @@ def unet_state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> 
         if key not in target or key in out:
             raise KeyError(f"JAX leaf {'/'.join(path)} has no place in the port "
                            f"(tried {key!r})")
-        value = torch.from_numpy(np.ascontiguousarray(_to_torch_layout(names[-1], arr)))
+        value = torch.from_numpy(np.array(_to_torch_layout(names[-1], arr)))
         if value.shape != target[key].shape:
             raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)} does not "
                              f"fit {key} {tuple(target[key].shape)}")
         out[key] = value
+    return out
+
+
+def unet_state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> dict:
+    """The state_dict for `model` (a port Unet of the same config) holding
+    the JAX Unet's `variables`."""
+    target = model.state_dict()
+    out = _named_tensors(variables["params"], target)
+    stats = _named_tensors(variables.get("batch_stats", {}), target)
+    if set(out) & set(stats):
+        raise KeyError(f"params and batch_stats share {sorted(set(out) & set(stats))}")
+    out.update(stats)
     for key, value in target.items():
         if key in out:
             continue
-        if key.endswith("num_batches_tracked"):  # unused at inference
+        if key.endswith("num_batches_tracked"):  # unused by the port
             out[key] = value
         else:
             raise KeyError(f"the JAX variables leave {key} unset")
     return out
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The optax ScaleByAdamState (count, mu, nu) inside a chain's state."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(jax_state: Any, model: nn.Module):
+    """The port's TrainState for `model` holding a JAX TrainState (with
+    numpy leaves, e.g. jax.device_get(trainer.state)). `model` receives the
+    online weights; the EMA model is a copy holding the shadow."""
+    from ccdm_tpu_torch.training.state import create_train_state
+
+    model.load_state_dict(unet_state_dict_from_jax(
+        {"params": jax_state.params, "batch_stats": jax_state.batch_stats}, model))
+    state = create_train_state(model)
+    state.ema_model.load_state_dict(unet_state_dict_from_jax(
+        {"params": jax_state.ema_params, "batch_stats": jax_state.ema_batch_stats}, model))
+    adam = _adam_state(jax_state.opt_state)
+    if adam is None:
+        raise ValueError("the JAX opt_state holds no Adam state (count, mu, nu)")
+    target = model.state_dict()
+    mu, nu = _named_tensors(adam.mu, target), _named_tensors(adam.nu, target)
+    names = [name for name, _ in model.named_parameters()]
+    if set(mu) != set(names) or set(nu) != set(names):
+        raise KeyError("the Adam moments do not cover the model's parameters")
+    device = next(model.parameters()).device
+    state.mu = [mu[k].to(device) for k in names]
+    state.nu = [nu[k].to(device) for k in names]
+    state.count = int(np.asarray(adam.count))
+    state.step, state.ema_step = int(np.asarray(jax_state.step)), int(np.asarray(jax_state.ema_step))
+    return state

@@ -7,16 +7,15 @@ its intermediates in f32 where the plain version rounds them to the
 activation dtype), and against JAX's plain `attn_block_reference` to 1e-5
 in f32 (the same composition in another framework). The CUDA kernel itself
 runs only on the card: the test marked `cuda` holds it against the plain
-version there and is skipped elsewhere.
+version there and is skipped elsewhere. JAX is imported only inside the
+tests that compare with it, so that on the card, which has no JAX, the file
+runs as `python -m pytest --noconftest tests/test_torch_attn_block.py -m cuda`.
 """
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
-from ccdm_tpu.ops import attn_block as jab
 from ccdm_tpu_torch.ops import _build, attn_block
 
 torch.set_num_threads(2)
@@ -36,8 +35,11 @@ def _inputs(rng, b, n, c, x_std=2.0):
 
 
 @pytest.fixture
-def interpret(monkeypatch):
+def jab(monkeypatch):
+    """The JAX module, with Pallas calls in interpret mode."""
     import jax.experimental.pallas as pl
+
+    from ccdm_tpu.ops import attn_block as jax_attn_block
 
     orig_call = pl.pallas_call
 
@@ -46,11 +48,14 @@ def interpret(monkeypatch):
         return orig_call(*args, **kw)
 
     monkeypatch.setattr(pl, "pallas_call", interp_call)
+    return jax_attn_block
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,c", [(64, 32), (256, 128)])
-def test_plain_version_matches_pallas_kernel(interpret, n, c, dtype):
+def test_plain_version_matches_pallas_kernel(jab, n, c, dtype):
+    import jax.numpy as jnp
+
     # x ~ N(0, 2) in f32 and N(0, 1) in bf16, as tests/test_attn_block.py:
     # the bf16 plain version rounds x + out_norm(o) at the operands' scale
     x, w = _inputs(np.random.default_rng(0), 2, n, c, 2.0 if dtype == "float32" else 1.0)
@@ -66,6 +71,9 @@ def test_plain_version_matches_pallas_kernel(interpret, n, c, dtype):
 
 @pytest.mark.parametrize("n,c", [(64, 32), (256, 128)])
 def test_plain_version_matches_jax_reference(n, c):
+    import jax.numpy as jnp
+
+    from ccdm_tpu.ops import attn_block as jab
     x, w = _inputs(np.random.default_rng(1), 2, n, c)
     want = np.asarray(jab.attn_block_reference(jnp.asarray(x), *map(jnp.asarray, w),
                                                HEADS, DIM_HEAD))

@@ -50,7 +50,10 @@ def test_port_and_smoke_script_import_no_jax():
                          timeout=300, cwd=ROOT, check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(report["modules"]) >= 20, report["modules"]
-    assert "ccdm_tpu_torch.serve" in report["new"]
+    for name in ("serve", "main", "ops.vicinal", "training.vicinity", "training.hyperparams",
+                 "training.trainer", "training.state", "utils.ckpt", "utils.logging",
+                 "data.datasets", "ops.attn_block"):
+        assert f"ccdm_tpu_torch.{name}" in report["new"], name
     assert [m for m in report["new"] if _is_jax(m)] == []
 
 
@@ -74,7 +77,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--sampler", "ddpm"], ["--architecture", "adm"],
-                                   ["--serve_milestone", "5"],
+                                   ["--use_Hy"],
                                    ["--y2h_embed_type", "gaussian"], ["--label_dim", "2"]])
 def test_options_of_later_slices_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
