@@ -56,13 +56,17 @@ class DatasetBundle:
         return self.images.shape[-1]
 
 
-def _h5py():
+def import_h5py(user: str):
+    """h5py, or an ImportError saying that `user` needs it."""
     try:
         import h5py
     except ImportError as e:
-        raise ImportError("the h5 datasets need the h5py package, which is not "
-                          "installed; --data_name synthetic needs no file") from e
+        raise ImportError(f"{user} needs the h5py package, which is not installed") from e
     return h5py
+
+
+def _h5py():
+    return import_h5py("reading the h5 datasets (--data_name synthetic needs no file)")
 
 
 def _to_nhwc(images: np.ndarray) -> np.ndarray:

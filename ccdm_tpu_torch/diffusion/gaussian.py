@@ -1,17 +1,21 @@
-"""Gaussian diffusion: the vicinal training loss and the guided DDIM sampler.
+"""Gaussian diffusion: the vicinal training loss and the guided samplers.
 
 Counterpart of ccdm_tpu/diffusion/gaussian.py: DiffusionConfig, `loss`
 (gaussian.py:139-256: q_sample, the per-objective target, SNR weighting and
 the hard/soft, classic/sliced vicinal batch weights used as a gate),
 `weighted_loss` (:258-312, per-sample weights applied directly),
-`model_predictions` (the cond and null passes batched as one 2B forward,
-cond rows first, then `apply_cfg`) and `ddim_sample` (:384-448). The JAX
-sampler is one lax.scan; here it is a Python loop over the same (t, t_next)
-pairs. The losses draw t, the CFG keep mask, the noise and the projection
+`model_predictions` (:318-371: the cond and null passes batched as one 2B
+forward, cond rows first, then `apply_cfg`, and CFG++), `ddim_sample`
+(:384-448) and the ancestral `p_sample_loop` and `sample` (:450-503). The
+JAX samplers are one lax.scan each; here each is a Python loop over the same
+steps. The losses draw t, the CFG keep mask, the noise and the projection
 directions from an explicit torch.Generator, or take them from `draws`
-(keys "t", "keep_mask", "noise", "proj"). The ancestral sampler
-(`--sampler ddpm`), CFG++, offset noise, the H(y) covariance and the
-elastic aux loss come in later slices (ROADMAP.md).
+(keys "t", "keep_mask", "noise", "proj"); the samplers draw their initial
+noise and their per-step noise [S, B, H, W, C] from a generator, or take
+them as `noise` and `step_noise` (so a test can hand in JAX's draws: the
+initial one from split(key)[0], step i's from split(split(key)[1], S)[i]).
+Offset noise, the H(y) covariance and the elastic aux loss come in later
+slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ccdm_tpu_torch.ops.schedule import (
     predict_start_from_noise,
     predict_start_from_v,
     predict_v,
+    q_posterior,
     q_sample,
 )
 from ccdm_tpu_torch.ops.vicinal import (
@@ -156,29 +161,49 @@ class GaussianDiffusion:
     def model_predictions(self, x: torch.Tensor, t: torch.Tensor, labels_emb: torch.Tensor,
                           cond_scale: float = 6.0, rescaled_phi: float = 0.7,
                           clip_x_start: bool = False):
-        """(pred_noise, x_start) with classifier-free guidance."""
+        """(pred_noise, x_start) with classifier-free guidance. Under CFG++
+        (use_cfg_plus_plus) the noise comes from the null branch
+        (gaussian.py:361-371): pred_noise takes null_out; pred_x0 derives it
+        from clip(null_out); pred_v from clip(predict_start_from_v(null_out))."""
         c = self.config
         sched = self.schedule
         b = x.shape[0]
         if float(cond_scale) == 1.0:
             keep = torch.ones(b, dtype=torch.bool, device=x.device)
-            guided = self.model(x, t, labels_emb, keep)
+            guided = null_out = self.model(x, t, labels_emb, keep)
         else:
             keep2 = torch.cat([torch.ones(b, dtype=torch.bool, device=x.device),
                                torch.zeros(b, dtype=torch.bool, device=x.device)])
             out2 = self.model(torch.cat([x, x]), torch.cat([t, t]),
                               torch.cat([labels_emb, labels_emb]), keep2)
-            guided, _ = apply_cfg(out2[:b], out2[b:], cond_scale, rescaled_phi)
+            guided, null_out = apply_cfg(out2[:b], out2[b:], cond_scale, rescaled_phi)
 
         clip = (lambda v: v.clamp(-1.0, 1.0)) if clip_x_start else (lambda v: v)
+        pp = c.use_cfg_plus_plus
         if c.objective == "pred_noise":
-            pred_noise = guided
+            pred_noise = null_out if pp else guided
             x_start = clip(predict_start_from_noise(sched, x, t, guided))
+            return pred_noise, x_start
+        if c.objective == "pred_x0":
+            x_start = clip(guided)
+            x_for_noise = clip(null_out) if pp else x_start
         else:
-            x_start = clip(guided if c.objective == "pred_x0"
-                           else predict_start_from_v(sched, x, t, guided))
-            pred_noise = predict_noise_from_start(sched, x, t, x_start)
-        return pred_noise, x_start
+            x_start = clip(predict_start_from_v(sched, x, t, guided))
+            x_for_noise = clip(predict_start_from_v(sched, x, t, null_out)) if pp else x_start
+        return predict_noise_from_start(sched, x, t, x_for_noise), x_start
+
+    def _draw(self, shape, given: Optional[torch.Tensor], generator, what: str) -> torch.Tensor:
+        """`given` (checked against `shape`) on the device in f32, else a draw
+        from `generator`."""
+        if given is None:
+            return torch.randn(shape, generator=generator, device=self.device)
+        if tuple(given.shape) != tuple(shape):
+            raise ValueError(f"{what} must have shape {tuple(shape)}, got {tuple(given.shape)}")
+        return given.to(self.device, torch.float32)
+
+    def _shape(self, labels_emb: torch.Tensor) -> tuple:
+        c = self.config
+        return (labels_emb.shape[0], c.image_size, c.image_size, c.channels)
 
     @torch.no_grad()
     def ddim_sample(self, labels_emb: torch.Tensor, cond_scale: float = 6.0,
@@ -186,22 +211,22 @@ class GaussianDiffusion:
                     sampling_timesteps: Optional[int] = None,
                     ddim_eta: Optional[float] = None,
                     noise: Optional[torch.Tensor] = None,
+                    step_noise: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """DDIM from `noise` (or a draw from `generator`) to images in [0, 1],
-        NHWC f32. `generator` also draws the per-step noise when eta > 0."""
+        NHWC f32. With eta > 0 step i adds sigma * step_noise[i] ([S, B, H,
+        W, C], or a draw from `generator`)."""
         c = self.config
         b = labels_emb.shape[0]
-        shape = (b, c.image_size, c.image_size, c.channels)
+        shape = self._shape(labels_emb)
         steps = sampling_timesteps or c.effective_sampling_timesteps
         eta = c.ddim_sampling_eta if ddim_eta is None else ddim_eta
         ac = self.schedule.alphas_cumprod
+        if step_noise is not None:
+            step_noise = self._draw((steps, *shape), step_noise, None, "step_noise")
 
-        if noise is None:
-            noise = torch.randn(shape, generator=generator, device=self.device)
-        elif tuple(noise.shape) != shape:
-            raise ValueError(f"noise must have shape {shape}, got {tuple(noise.shape)}")
-        img = noise.to(self.device, torch.float32)
-        for time, time_next in ddim_time_pairs(c.timesteps, steps):
+        img = self._draw(shape, noise, generator, "noise")
+        for i, (time, time_next) in enumerate(ddim_time_pairs(c.timesteps, steps)):
             t_cond = torch.full((b,), time, dtype=torch.long, device=self.device)
             pred_noise, x_start = self.model_predictions(
                 img, t_cond, labels_emb, cond_scale, rescaled_phi, clip_x_start=clip_denoised)
@@ -216,6 +241,51 @@ class GaussianDiffusion:
                 sigma = eta * torch.sqrt(torch.clamp(
                     (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha), min=0.0))
                 coef = torch.sqrt(torch.clamp(1 - alpha_next - sigma ** 2, min=0.0))
-                step_noise = torch.randn(shape, generator=generator, device=self.device)
-                img = x_start * torch.sqrt(alpha_next) + coef * pred_noise + sigma * step_noise
+                z = step_noise[i] if step_noise is not None else torch.randn(
+                    shape, generator=generator, device=self.device)
+                img = x_start * torch.sqrt(alpha_next) + coef * pred_noise + sigma * z
         return unnormalize_to_zero_to_one(img)
+
+    @torch.no_grad()
+    def p_sample_loop(self, labels_emb: torch.Tensor, cond_scale: float = 6.0,
+                      rescaled_phi: float = 0.7, clip_denoised: bool = True,
+                      sampling_timesteps: Optional[int] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      step_noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Ancestral DDPM (gaussian.py:450-494): t = S-1, ..., 0 against the
+        full schedule buffers (S < T is not a respaced schedule, as in the
+        JAX package and its reference), x_0 clipped after model_predictions,
+        the posterior mean plus exp(log_var / 2) * step_noise[i], no noise at
+        t = 0. Images in [0, 1], NHWC f32."""
+        c = self.config
+        b = labels_emb.shape[0]
+        shape = self._shape(labels_emb)
+        steps = sampling_timesteps or c.effective_sampling_timesteps
+        if steps > c.timesteps:
+            raise ValueError(f"the ancestral sampler runs at most the schedule's "
+                             f"{c.timesteps} steps, not {steps}")
+        if step_noise is not None:
+            step_noise = self._draw((steps, *shape), step_noise, None, "step_noise")
+
+        img = self._draw(shape, noise, generator, "noise")
+        for i, time in enumerate(range(steps - 1, -1, -1)):
+            t_cond = torch.full((b,), time, dtype=torch.long, device=self.device)
+            _, x_start = self.model_predictions(img, t_cond, labels_emb, cond_scale,
+                                                rescaled_phi, clip_x_start=False)
+            if clip_denoised:
+                x_start = x_start.clamp(-1.0, 1.0)
+            mean, _, log_var = q_posterior(self.schedule, x_start, img, t_cond)
+            if time == 0:
+                img = mean
+                continue
+            z = step_noise[i] if step_noise is not None else torch.randn(
+                shape, generator=generator, device=self.device)
+            img = mean + torch.exp(0.5 * log_var) * z
+        return unnormalize_to_zero_to_one(img)
+
+    def sample(self, labels_emb: torch.Tensor, cond_scale: float = 6.0,
+               rescaled_phi: float = 0.7, **kwargs) -> torch.Tensor:
+        """The reference's `sample()` (gaussian.py:496-503): always the
+        ancestral loop."""
+        return self.p_sample_loop(labels_emb, cond_scale, rescaled_phi, **kwargs)

@@ -15,9 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ccdm_tpu_torch.ops import attn_block
+from ccdm_tpu_torch.ops import attn_block, resnet_block
 from ccdm_tpu_torch.ops.attn_block import _rms_norm
-from ccdm_tpu_torch.ops.resnet_block import resnet_block_reference
 
 
 class Conv2d(nn.Conv2d):
@@ -61,7 +60,9 @@ def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 class FusedResnetBlock(nn.Module):
     """Resnet block with FiLM from concat(t_emb, c_emb); the parameter tree
-    of the flax FusedResnetBlock, with conv kernels in OIHW."""
+    of the flax FusedResnetBlock, with conv kernels in OIHW. The block runs
+    through ops/resnet_block.fused_resnet_block: kernels #10 + #11 with
+    CCDM_TPU_FUSED_RESBLOCK=1, else the cuDNN composition."""
 
     def __init__(self, dim_in: int, dim_out: int, cond_dim: int):
         super().__init__()
@@ -82,7 +83,7 @@ class FusedResnetBlock(nn.Module):
                 c_emb: torch.Tensor) -> torch.Tensor:
         tc = self.tc_mlp(F.silu(torch.cat([t_emb, c_emb], dim=-1)))
         scale, shift = tc.chunk(2, dim=-1)
-        return resnet_block_reference(
+        return resnet_block.fused_resnet_block(
             x, scale, shift, self.conv1_weight, self.conv1_bias, self.norm1_g,
             self.conv2_weight, self.conv2_bias, self.norm2_g,
             self.res_weight, self.res_bias)

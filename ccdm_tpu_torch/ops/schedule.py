@@ -1,7 +1,7 @@
 """Diffusion noise schedules and the closed-form conversions of sampling.
 
 Counterpart of ccdm_tpu/ops/schedule.py:26-185, with q_sample and predict_v
-for the training loss. The betas and every buffer
+for the training loss and q_posterior for the ancestral sampler. The betas and every buffer
 are computed on the host in float64 with numpy and stored as float32 tensors,
 so they equal the JAX package's bit for bit.
 """
@@ -138,3 +138,12 @@ def predict_v(sched: Schedule, x_start: torch.Tensor, t: torch.Tensor,
               noise: torch.Tensor) -> torch.Tensor:
     return (extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * noise
             - extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * x_start)
+
+
+def q_posterior(sched: Schedule, x_start: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor):
+    """(mean, variance, clipped log-variance) of q(x_{t-1} | x_t, x_0)
+    (ccdm_tpu/ops/schedule.py:177-185)."""
+    mean = (extract(sched.posterior_mean_coef1, t, x_t.ndim) * x_start
+            + extract(sched.posterior_mean_coef2, t, x_t.ndim) * x_t)
+    return (mean, extract(sched.posterior_variance, t, x_t.ndim),
+            extract(sched.posterior_log_variance_clipped, t, x_t.ndim))

@@ -1,7 +1,8 @@
-"""CLI flags of the training and serving paths, with ccdm_tpu/opts.py's
-names, defaults and choices, plus --device. Flags that nothing in the port
-reads yet (eval, the ILI embeddings, the h5 sample dumps) come with their
-slices; --dump_fake_data and --lambda_aux are parsed and raise."""
+"""CLI flags of the training, sampling and serving paths, with
+ccdm_tpu/opts.py's names, defaults and choices, plus --device. Flags that
+nothing in the port reads yet (most of eval, the ILI embeddings) come with
+their slices; --lambda_aux, --gif_trajectory, --interpolation, --comp_FID
+and --dump_fake_for_NIQE are parsed and raise."""
 
 from __future__ import annotations
 
@@ -72,6 +73,8 @@ def parse_opts(argv=None):
     parser.add_argument("--gradient_accumulate_every", type=int, default=1)
     parser.add_argument("--beta_schedule", type=str, default="cosine",
                         choices=["cosine", "linear"])
+    parser.add_argument("--sample_every", type=int, default=1000,
+                        help="stride of the EMA sample grids results/sample_<step>.png")
     parser.add_argument("--save_every", type=int, default=10000)
     parser.add_argument("--log_every", type=int, default=500,
                         help="loss/throughput logging stride (reference logs every 500)")
@@ -94,12 +97,26 @@ def parse_opts(argv=None):
     parser.add_argument("--sampler", type=str, default="ddim", choices=["ddim", "ddpm"])
     parser.add_argument("--sample_timesteps", type=int, default=250)
     parser.add_argument("--sample_cond_scale", type=float, default=1.5)
+    parser.add_argument("--ddim_eta", type=float, default=0.0)
+    parser.add_argument("--nfake_per_label", type=int, default=200)
     parser.add_argument("--samp_batch_size", type=int, default=100)
     parser.add_argument("--dump_fake_data", action="store_true", default=False,
-                        help="the per-label h5 sample dumps: parsed, raises (ROADMAP.md)")
+                        help="write the per-label h5 sample dumps (sampling runs "
+                             "either way); needs h5py")
     parser.add_argument("--samp_precast_bf16", action="store_true", default=False,
                         help="cast the f32 weight tensors to bf16 once before "
                              "sampling (training/state.precast_sampling_params)")
+
+    parser.add_argument("--gif_trajectory", action="store_true", default=False,
+                        help="parsed, raises (ROADMAP.md)")
+    parser.add_argument("--interpolation", action="store_true", default=False,
+                        help="parsed, raises (ROADMAP.md)")
+
+    # Evaluation: the eval label grid; FID and NIQE are parsed and raise
+    parser.add_argument("--comp_FID", action="store_true", default=False)
+    parser.add_argument("--eval_mode", type=int, default=2, choices=[1, 2, 3, 4])
+    parser.add_argument("--FID_num_centers", type=int, default=-1)
+    parser.add_argument("--dump_fake_for_NIQE", action="store_true", default=False)
 
     # Serving
     parser.add_argument("--serve_port", type=int, default=8600)

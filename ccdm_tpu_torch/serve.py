@@ -1,4 +1,5 @@
-"""Batched inference serving of the CFG-DDIM sampler, over HTTP.
+"""Batched inference serving of the guided samplers (DDIM, or the ancestral
+sampler with --sampler ddpm), over HTTP.
 
 Counterpart of ccdm_tpu/serve.py:49-147 and 245-323, with the same API:
 
@@ -47,9 +48,6 @@ class SamplerService:
         from ccdm_tpu_torch.utils.device import resolve_device
 
         self.device = resolve_device(device)
-        if args.sampler != "ddim":
-            raise NotImplementedError("the ancestral sampler (--sampler ddpm) comes "
-                                      "in a later slice (ROADMAP.md)")
         resolve_label_embed(args)
         self.fn_y2h = build_label_embedding(args)
         model = build_model(args, args.image_size, args.num_channels)
@@ -68,12 +66,14 @@ class SamplerService:
                                timesteps=args.train_timesteps,
                                sampling_timesteps=args.sample_timesteps,
                                objective=args.pred_objective,
-                               beta_schedule=args.beta_schedule)
+                               beta_schedule=args.beta_schedule,
+                               ddim_sampling_eta=args.ddim_eta)
         self.diffusion = GaussianDiffusion(model, dcfg, device=self.device)
         self.max_batch = max_batch
         self.max_labels = max_labels
         self.cond_scale = args.sample_cond_scale
         self.sample_timesteps = args.sample_timesteps
+        self.sampler, self.ddim_eta = args.sampler, args.ddim_eta
         self._lock = threading.Lock()  # one card, one sampler at a time
         self.warm = False
         if warm:
@@ -101,7 +101,8 @@ class SamplerService:
                 self.diffusion, padded, self.fn_y2h, batch_size=self.max_batch,
                 denorm=True, cond_scale=self.cond_scale if cond_scale is None else cond_scale,
                 sample_timesteps=self.sample_timesteps,
-                key_base=1 if seed is None else int(seed))
+                key_base=1 if seed is None else int(seed),
+                sampler=self.sampler, ddim_eta=self.ddim_eta)
         return np.asarray(images[:n], np.uint8)
 
 

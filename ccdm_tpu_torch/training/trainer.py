@@ -14,14 +14,18 @@ micro-batch; keys of `_make_batch`: "target_idx", "target_eps", "gumbel",
 "keep_mask", "noise", "proj").
 
 `sample_given_labels` (trainer.py:444-514) samples a list of labels with
-the diffusion's model in chunks; each chunk draws from its own generator
-seeded from (key_base, done), as the JAX version uses
-fold_in(PRNGKey(key_base), done).
+the diffusion's model in chunks, by DDIM or the ancestral sampler; each
+chunk draws from its own generator seeded from (key_base, done), as the JAX
+version uses fold_in(PRNGKey(key_base), done). With `y_visual` set, `train`
+writes a grid sampled from the EMA weights by DDIM every `sample_every`
+steps, as results_folder/sample_<step>.png (trainer.py:420-442).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import os
 import time
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -51,6 +55,7 @@ from ccdm_tpu_torch.training.vicinity import (
 )
 from ccdm_tpu_torch.utils.ckpt import load_checkpoint, save_checkpoint
 from ccdm_tpu_torch.utils.logging import StepTimer, TrainLogger
+from ccdm_tpu_torch.utils.viz import save_image_grid
 
 
 @dataclasses.dataclass
@@ -64,6 +69,7 @@ class TrainerConfig:
     ema_update_every: int = 10
     ema_decay: float = 0.995
     adam_betas: Tuple[float, float] = (0.9, 0.99)
+    sample_every: int = 1000
     save_every: int = 1000
     results_folder: str = "./results"
     max_grad_norm: float = 1.0
@@ -79,6 +85,10 @@ class TrainerConfig:
     condition_on_target: bool = False
     vicinal_mode: str = "batch"  # batch | target
     adaptive_slicing: bool = False
+    y_visual: Optional[np.ndarray] = None  # labels in [0, 1] of the grid, 6 a row
+    cond_scale_visual: float = 1.5
+    sample_timesteps_visual: Optional[int] = None
+    sample_precast_bf16: bool = False
     log_every: int = 500
     seed: int = 0
 
@@ -250,25 +260,57 @@ class Trainer:
                     print(f"step {step}/{cfg.train_num_steps} loss {loss_val:.4f} "
                           f"({per_step * 1e3:.0f} ms)", flush=True)
                 window_t0, window_start = time.perf_counter(), step
+            if cfg.y_visual is not None and step % cfg.sample_every == 0:
+                self._save_visual_grid(fn_y2h, step)
             if step % cfg.save_every == 0:
                 self.save(step)
+
+    def ema_diffusion(self):
+        """The diffusion over the EMA weights; with sample_precast_bf16 over
+        a copy of them with the weight tensors cast to bf16 (the EMA shadow
+        itself stays f32)."""
+        from ccdm_tpu_torch.diffusion.gaussian import GaussianDiffusion
+        from ccdm_tpu_torch.training.state import precast_sampling_params
+
+        model = self.state.ema_model
+        if self.config.sample_precast_bf16:
+            model = precast_sampling_params(copy.deepcopy(model))
+        return GaussianDiffusion(model, self.diffusion.config, device=self.device)
+
+    def _save_visual_grid(self, fn_y2h: Callable, step: int) -> None:
+        """DDIM from the EMA weights for the y_visual labels, drawn from a
+        generator seeded with `step`, as results_folder/sample_<step>.png."""
+        cfg = self.config
+        y = torch.from_numpy(np.asarray(cfg.y_visual, np.float32).reshape(
+            len(cfg.y_visual), -1)).to(self.device)
+        imgs = self.ema_diffusion().ddim_sample(
+            fn_y2h(y), cond_scale=cfg.cond_scale_visual,
+            sampling_timesteps=cfg.sample_timesteps_visual,
+            generator=torch.Generator(device=self.device).manual_seed(step))
+        save_image_grid(imgs.cpu().numpy(),
+                        os.path.join(cfg.results_folder, f"sample_{step}.png"),
+                        nrow=6)
 
     # --------------------------------------------------------- checkpoints
 
     def save(self, milestone) -> str:
-        s = self.state
-        cpu = lambda ts: [t.detach().cpu().clone() for t in ts]
-        n_params = len(list(s.model.parameters()))
-        online, ema = shadowed_tensors(s.model), shadowed_tensors(s.ema_model)
-        tree = {"step": s.step, "params": cpu(online[:n_params]),
-                "batch_stats": cpu(online[n_params:]),
-                "opt_state": {"mu": cpu(s.mu), "nu": cpu(s.nu), "count": s.count},
-                "ema_step": s.ema_step, "ema_params": cpu(ema[:n_params]),
-                "ema_batch_stats": cpu(ema[n_params:])}
-        return save_checkpoint(self.config.results_folder, milestone, tree)
+        return save_checkpoint(self.config.results_folder, milestone,
+                               checkpoint_tree(self.state))
 
     def load(self, milestone) -> None:
         load_train_state(self.state, load_checkpoint(self.config.results_folder, milestone))
+
+
+def checkpoint_tree(s: TrainState) -> dict:
+    """The milestone tree of `s` (utils/ckpt.py), tensors copied to the CPU."""
+    cpu = lambda ts: [t.detach().cpu().clone() for t in ts]
+    n_params = len(list(s.model.parameters()))
+    online, ema = shadowed_tensors(s.model), shadowed_tensors(s.ema_model)
+    return {"step": s.step, "params": cpu(online[:n_params]),
+            "batch_stats": cpu(online[n_params:]),
+            "opt_state": {"mu": cpu(s.mu), "nu": cpu(s.nu), "count": s.count},
+            "ema_step": s.ema_step, "ema_params": cpu(ema[:n_params]),
+            "ema_batch_stats": cpu(ema[n_params:])}
 
 
 @torch.no_grad()
@@ -304,12 +346,17 @@ def chunk_seed(key_base: int, done: int) -> int:
 
 def sample_given_labels(diffusion, given_labels: np.ndarray, fn_y2h: Callable,
                         batch_size: int, denorm: bool = True, cond_scale: float = 6.0,
-                        sample_timesteps: int = 1000, key_base: int = 1):
-    """Labels in [0, 1] -> (images [n, H, W, C] numpy, given_labels).
+                        sample_timesteps: int = 1000, key_base: int = 1,
+                        sampler: str = "ddim", ddim_eta: float = 0.0):
+    """Labels in [0, 1] -> (images [n, H, W, C] numpy, given_labels), by
+    `sampler` "ddim" (with `ddim_eta`) or "ddpm" (the ancestral loop over
+    the first `sample_timesteps` steps of the schedule).
 
     The last chunk is padded by repeating its last label. Images are uint8
     with `denorm`, else f32 in [0, 1]. Raises FloatingPointError if the
     sampler produced a non-finite value."""
+    if sampler not in ("ddim", "ddpm"):
+        raise ValueError(f"sampler must be ddim or ddpm, got {sampler!r}")
     labels = np.asarray(given_labels, dtype=np.float32)
     labels2d = labels[:, None] if labels.ndim == 1 else labels
     if labels2d.min() < 0 or labels2d.max() > 1.0:
@@ -327,8 +374,13 @@ def sample_given_labels(diffusion, given_labels: np.ndarray, fn_y2h: Callable,
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
         emb = fn_y2h(torch.from_numpy(chunk).to(device))
         gen = torch.Generator(device=device).manual_seed(chunk_seed(key_base, done))
-        imgs = diffusion.ddim_sample(emb, cond_scale=cond_scale,
-                                     sampling_timesteps=sample_timesteps, generator=gen)
+        if sampler == "ddim":
+            imgs = diffusion.ddim_sample(emb, cond_scale=cond_scale,
+                                         sampling_timesteps=sample_timesteps,
+                                         ddim_eta=ddim_eta, generator=gen)
+        else:
+            imgs = diffusion.p_sample_loop(emb, cond_scale=cond_scale,
+                                           sampling_timesteps=sample_timesteps, generator=gen)
         imgs = imgs[:len(chunk) - pad]
         if not bool(torch.isfinite(imgs).all()):
             raise FloatingPointError("the sampler produced non-finite values")

@@ -6,8 +6,8 @@ milestones do) and holds one file, state.pt, written with torch.save: the
 tree of the JAX milestone, {step, params, batch_stats, opt_state {mu, nu,
 count}, ema_step, ema_params, ema_batch_stats}, with tensors on the CPU.
 It is written to a temporary name and moved into place, so a milestone is
-either whole or absent. Importing a JAX (orbax) milestone comes later
-(ROADMAP.md).
+either whole or absent. A JAX (orbax) milestone is carried across offline
+by scripts/jax_milestone_to_torch.py.
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@
 
 Phases, each announced on a flushed line before it starts:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: both kernel libraries, one nvcc each, in parallel (seconds,
-     ptxas report);
+  2. build: the three kernel libraries, one nvcc each, in parallel
+     (seconds, ptxas report);
   3. kernel #1 (the single-pass attention block) against its plain PyTorch
      version at the shapes of the RC-49 64x64 UNet's ten attention blocks
      (B 64) and at N 16384: bf16 against the plain version in f32 on the same
@@ -22,7 +22,8 @@ Phases, each announced on a flushed line before it starts:
      127.0.0.1 in a daemon thread, GET /healthz and two POST /generate
      (uint8 [n, 64, 64, 3], not constant; the service refuses a sample that
      is not finite before quantising it); kernel #1's launch count over
-     this phase must be 10 x 250 x batches;
+     this phase must be 10 x 250 x batches; then one CFG forward of the
+     service's model (B 64) timed with CUDA events;
   6. kernels #2-#5 (two-pass forward, fused backward) against their plain
      versions at B 128, C 64, N 4096, 2048 and 16384, in bf16 and in f32:
      forward bounds as phase 3 (a and s relative to their largest value),
@@ -38,17 +39,48 @@ Phases, each announced on a flushed line before it starts:
      model's largest |g|), the loss to 1e-5;
   8. the training main path: `python -m ccdm_tpu_torch.main` at full width,
      batch 128, bf16, 30 steps, a milestone at the end (run folder
-     build/smoke_run, deleted after): losses finite, parameters moved,
-     ema_step 30, launches exactly 8 of #1 and 2 each of #2-#5 per step;
-     warm train images/s; then SamplerService --serve_milestone serves 4
-     labels x 25 DDIM steps from that milestone (uint8, not constant);
-  9. one JSON line {"kernels": [...]} with errors, times and bounds;
-  10. the card's name and power limit, then the last line
+     build/smoke_run, deleted after), then 2 eval labels x 4 images, 10
+     DDIM steps, as main.py samples after training: losses finite,
+     parameters moved, ema_step 30, launches exactly 8 of #1 and 2 each of
+     #2-#5 per step, 10 of #1 per sampling forward and none of #10 and
+     #11; warm train images/s; then SamplerService --serve_milestone serves
+     4 labels x 25 DDIM steps from that milestone (uint8, not constant);
+  9. kernels #10 and #11 (the fused resnet block's halves) against their
+     plain versions at the 11 shapes of the UNet's 23 resnet blocks, at
+     every batch the main paths give them (64 served, 128 trained, 72 for
+     the EMA grid, 8 for the eval sampling and the ddpm request): f32 with
+     TF32 off (rtol 2e-3, atol 2e-4) and bf16 (rtol = atol = 4e-2), the
+     bounds of tests/test_resnet_block.py; at B 64 (and B 128 at 64x64)
+     each shape timed in bf16 beside its plain versions and the cuDNN
+     composition of the whole block (resnet_block_reference in bf16, the
+     route of the switch off);
+  10. the full-width f32 UNet (TF32 off) with CCDM_TPU_FUSED_RESBLOCK on
+     against off: one forward and a 5-step CFG DDIM run from the same noise,
+     each within 1e-3 (phase 4's check); 23 launches of each kernel per
+     switch-on forward;
+  11. serving with the switch on: SamplerService at full width in bf16,
+     batch 32, 25 DDIM steps, over HTTP; launches exactly 23 x 25 x batches
+     of #10 and #11 (and 10 x 25 x batches of #1); phase 5's CFG forward
+     timed with the switch on; then one request to a --sampler ddpm
+     service with 10 ancestral steps (uint8, not constant);
+  12. training with the switch on: `python -m ccdm_tpu_torch.main` at full
+     width, batch 128, bf16, 5 steps, --sample_every 5 (one EMA grid of 36
+     images, 10 DDIM steps), a milestone, then 2 eval labels x 4 images,
+     10 DDIM steps: losses finite, the PNG grids decode to images that are
+     not constant, launches exactly 23 of #10 and #11 per UNet forward
+     (and #1-#5 as in phase 8, plus 10 of #1 per EMA-grid forward);
+  13. the share of the timed CFG forwards that the 23 blocks take (the
+     cuDNN composition with the switch off, #10 + #11 with it on, each
+     timed alone in phase 9), then one JSON line {"kernels": [...]} with
+     errors, times and bounds;
+  14. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
-TF32 is off for the whole run (it only touches the f32 checks and the f32
-convolutions). Any failed phase raises and the script exits non-zero; a
-hang becomes a stack dump and a non-zero exit after 900 s. It writes
-nothing outside build/.
+The three kernel libraries build in parallel, one nvcc each (phase 2). Each
+main path (phases 5, 8, 11, 12) starts from launch counts set to 0 and reads
+them just after. TF32 is off for the whole run (it only touches the f32
+checks and the f32 convolutions). Any failed phase raises and the script
+exits non-zero; a hang becomes a stack dump and a non-zero exit after
+1100 s. It writes nothing outside build/.
 """
 
 from __future__ import annotations
@@ -59,11 +91,13 @@ import faulthandler
 import io
 import json
 import shutil
+import struct
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -73,7 +107,7 @@ import torch
 from ccdm_tpu_torch.diffusion.gaussian import DiffusionConfig, GaussianDiffusion
 from ccdm_tpu_torch.embedding.analytic import make_fn_y2h
 from ccdm_tpu_torch.models.unet import Unet
-from ccdm_tpu_torch.ops import _build, attn_block
+from ccdm_tpu_torch.ops import _build, attn_block, resnet_block
 from ccdm_tpu_torch.opts import parse_opts
 from ccdm_tpu_torch.serve import SamplerService, serve
 
@@ -196,8 +230,11 @@ def plain_attention():
 
 
 @torch.no_grad()
-def model_parity(device) -> dict:
-    """Phase 4: the kernel inside the full-width f32 UNet and sampler."""
+def model_parity(device, kernels=contextlib.nullcontext, plain=plain_attention,
+                 what: str = "kernel and plain attention") -> dict:
+    """Phases 4 and 10: the full-width f32 UNet, one forward and a 5-step CFG
+    DDIM run from the same weights and noise, under `kernels()` and under
+    `plain()`; each within 1e-3."""
     model = Unet(**UNET, dtype=torch.float32, seed=0).to(
         device, memory_format=torch.channels_last).eval()
     g = torch.Generator().manual_seed(1)
@@ -206,8 +243,9 @@ def model_parity(device) -> dict:
     t = torch.tensor([0, 250, 500, 999], device=device)
     emb = make_fn_y2h(128)(torch.linspace(0.1, 0.9, b, device=device))
     keep = torch.tensor([True, False, True, False], device=device)
-    out_k = model(x, t, emb, keep)
-    with plain_attention():
+    with kernels():
+        out_k = model(x, t, emb, keep)
+    with plain():
         out_p = model(x, t, emb, keep)
     fwd = (out_k - out_p).abs().max().item()
 
@@ -215,14 +253,15 @@ def model_parity(device) -> dict:
         image_size=64, channels=3, timesteps=1000, sampling_timesteps=5,
         objective="pred_x0"), device=device)
     noise = torch.randn(2, 64, 64, 3, generator=g).to(device)
-    img_k = diffusion.ddim_sample(emb[:2], cond_scale=1.5, noise=noise)
-    with plain_attention():
+    with kernels():
+        img_k = diffusion.ddim_sample(emb[:2], cond_scale=1.5, noise=noise)
+    with plain():
         img_p = diffusion.ddim_sample(emb[:2], cond_scale=1.5, noise=noise)
     ddim = (img_k - img_p).abs().max().item()
     print(f"   forward max abs diff {fwd:.3e}; 5-step DDIM max abs diff {ddim:.3e}",
           flush=True)
     if not (fwd <= 1e-3 and ddim <= 1e-3):
-        raise AssertionError(f"kernel and plain attention disagree in the model: "
+        raise AssertionError(f"{what} disagree in the model: "
                              f"forward {fwd:.3e}, DDIM {ddim:.3e} (bound 1e-3)")
     return {"forward_max_abs_diff": fwd, "ddim5_max_abs_diff": ddim}
 
@@ -235,54 +274,83 @@ def _request(url: str, body: dict | None = None) -> dict:
         return json.loads(resp.read())
 
 
-def serve_main_path(device, card: str) -> dict:
-    """Phase 5: requests through the port's HTTP server; returns the
-    kernel's launch count over the phase and the throughput."""
-    args = parse_opts(SERVE_ARGV)
-    attn_block.fused_attn_block.launches = 0
-    t0 = time.perf_counter()
-    service = SamplerService(args, max_batch=SERVE_BATCH, warm=True, device=str(device))
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    batches = 1
+def _serve_requests(service: SamplerService, requests, image_size: int) -> tuple[int, int, float]:
+    """POST each (n labels, seed) of `requests` to /generate of `service`
+    behind its HTTP server on 127.0.0.1; checks /healthz and every reply
+    (uint8 [n, size, size, 3], not constant) and stops the server. Returns
+    (batches sampled, images, seconds spent in the requests)."""
     httpd = serve(service, 0, host="127.0.0.1", block=False)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    batches, n_images, req_s = 0, 0, 0.0
     try:
         health = _request(url + "/healthz")
-        if health.get("status") != "ok" or not health.get("warm"):
+        if health.get("status") != "ok" or health.get("warm") != service.warm:
             raise AssertionError(f"/healthz answered {health}")
-        n_images, req_s = 0, 0.0
-        for n, seed in ((5, 0), (40, 1)):
+        for n, seed in requests:
             labels = np.linspace(0.05, 0.95, n).round(4).tolist()
             t0 = time.perf_counter()
             reply = _request(url + "/generate", {"labels": labels, "seed": seed})
             req_s += time.perf_counter() - t0
             images = np.load(io.BytesIO(base64.b64decode(reply["images_b64"])))["images"]
-            if images.dtype != np.uint8 or images.shape != (n, args.image_size, args.image_size, 3):
+            if images.dtype != np.uint8 or images.shape != (n, image_size, image_size, 3):
                 raise AssertionError(f"/generate gave {images.dtype} {images.shape}")
             if images.std() == 0:
                 raise AssertionError("/generate gave constant images")
             n_images += n
-            batches += -(-n // SERVE_BATCH)
+            batches += -(-n // service.max_batch)
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=60)
     if thread.is_alive():
         raise AssertionError("the HTTP server thread did not stop")
-    launches = attn_block.fused_attn_block.launches
+    return batches, n_images, req_s
+
+
+@torch.no_grad()
+def cfg_forward_ms(service: SamplerService) -> float:
+    """One sampling step's CFG forward of `service`'s model: SERVE_BATCH
+    labels, so B = BATCH rows, timed with CUDA events."""
+    device, c = service.diffusion.device, service.diffusion.config
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(SERVE_BATCH, c.image_size, c.image_size, c.channels, generator=g).to(device)
+    t = torch.full((SERVE_BATCH,), 500, device=device)
+    emb = service.fn_y2h(torch.linspace(0.05, 0.95, SERVE_BATCH, device=device)[:, None])
+    return time_ms(lambda: service.diffusion.model_predictions(x, t, emb, cond_scale=1.5),
+                   reps=10)
+
+
+def serve_main_path(device, card: str) -> dict:
+    """Phase 5: requests through the port's HTTP server; returns the
+    kernel's launch count over the phase and the throughput."""
+    args = parse_opts(SERVE_ARGV)
+    _reset_counts()
+    t0 = time.perf_counter()
+    service = SamplerService(args, max_batch=SERVE_BATCH, warm=True, device=str(device))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    batches, n_images, req_s = _serve_requests(service, ((5, 0), (40, 1)), args.image_size)
+    batches += 1  # the warm-up batch
+    counts = _counts()
+    launches = counts["attn_block"]
     expected = 10 * STEPS * batches
     ips = n_images / req_s
     print(f"   {batches} batches of {SERVE_BATCH} (warm-up {warm_s:.1f} s), "
           f"{n_images} images in {req_s:.2f} s: {ips:.2f} images/s on {card}; "
-          f"attention kernel launches {launches} (expected {expected})", flush=True)
+          f"attention kernel launches {launches} (expected {expected}); resnet kernel "
+          f"launches {counts['resnet_half_a']}, {counts['resnet_half_b']} (expected 0)",
+          flush=True)
     if launches != expected:
         raise AssertionError(f"the serving path launched the attention kernel "
                              f"{launches} times, expected {expected}")
+    if counts["resnet_half_a"] or counts["resnet_half_b"]:
+        raise AssertionError(f"the switch is off, yet the resnet kernels ran: {counts}")
+    forward_ms = cfg_forward_ms(service)
+    print(f"   one CFG forward (B {BATCH}, bf16): {forward_ms:.4f} ms", flush=True)
     return {"launches": launches, "batches": batches, "images_per_s": ips,
-            "requested_images": n_images, "request_s": req_s}
+            "requested_images": n_images, "request_s": req_s, "cfg_forward_ms": forward_ms}
 
 
 # ------------------------------------------------- the training slice
@@ -304,7 +372,12 @@ TRAIN_ARGV = ["--data_name", "synthetic", "--image_size", "64", "--model_channel
               "--channel_mult", "1_2_2_4_8", "--train_amp", "--pred_objective", "pred_x0",
               "--vicinity_type", "hv", "--train_batch_size", str(TRAIN_BATCH),
               "--train_lr", "1e-4", "--niters", str(TRAIN_STEPS),
-              "--save_every", str(TRAIN_STEPS), "--log_every", "5", "--seed", "0"]
+              "--save_every", str(TRAIN_STEPS), "--log_every", "5", "--seed", "0",
+              # the sampling main.py runs after training: 2 eval labels x 4
+              # images in one batch each, 10 DDIM steps
+              "--eval_mode", "4", "--FID_num_centers", "2", "--nfake_per_label", "4",
+              "--sample_timesteps", "10"]
+EVAL_FORWARDS = 2 * 10  # UNet forwards of that sampling
 
 
 def large_bound_parts(name: str, n: int, c: int, batch: int = TRAIN_BATCH,
@@ -489,70 +562,349 @@ def grad_parity(device) -> dict:
     return {"loss": loss_k, "loss_plain": loss_p, "worst_leaf_rel_diff": worst}
 
 
+RESNET = ("resnet_half_a", "resnet_half_b")
+
+
 def _counts() -> dict:
     return {"attn_block": attn_block.fused_attn_block.launches,
-            **{name: getattr(attn_block, name).launches for name in LARGE}}
+            **{name: getattr(attn_block, name).launches for name in LARGE},
+            **{name: getattr(resnet_block, name).launches for name in RESNET}}
 
 
 def _reset_counts() -> None:
     attn_block.fused_attn_block.launches = 0
     for name in LARGE:
         getattr(attn_block, name).launches = 0
+    for name in RESNET:
+        getattr(resnet_block, name).launches = 0
 
 
-def train_main_path(device, card: str) -> dict:
-    """The port's training entry at full width (batch 128, bf16), then a
-    short request served from the milestone it wrote."""
+def train_main_path(device, card: str, argv_tail: list, steps: int, expected: dict,
+                    fused: bool, checks) -> dict:
+    """Phases 8 and 12: `python -m ccdm_tpu_torch.main` with `argv_tail` and
+    the resnet switch `fused`, in build/smoke_run[_fused] (deleted after).
+    The launch counts must be exactly `expected`, every loss finite and the
+    last logged step `steps`; `checks(trainer, argv, log)` runs the phase's
+    own checks and returns its entries of the result."""
     from ccdm_tpu_torch import main as port_main
 
-    run = Path(__file__).resolve().parent / "build" / "smoke_run"
+    run = Path(__file__).resolve().parent / "build" / ("smoke_run_fused" if fused else "smoke_run")
     shutil.rmtree(run, ignore_errors=True)
-    argv = ["--root_path", str(run), "--device", str(device), *TRAIN_ARGV]
-    initial = Unet(**UNET, dtype=torch.bfloat16, seed=0).state_dict()
+    argv = ["--root_path", str(run), "--device", str(device), *argv_tail]
     try:
-        _reset_counts()
-        trainer = port_main.main(argv)
-        torch.cuda.synchronize()
-        counts = _counts()
-        expected = {"attn_block": 8 * TRAIN_STEPS, **{k: 2 * TRAIN_STEPS for k in LARGE}}
-        results = port_main.results_folder(parse_opts(argv))
-        log = [json.loads(line) for line in open(Path(results) / "train_log.jsonl")]
+        with fused_resnet(fused):
+            _reset_counts()
+            trainer = port_main.main(argv)
+            torch.cuda.synchronize()
+            counts = _counts()
+        log = [json.loads(line) for line in
+               open(Path(port_main.results_folder(parse_opts(argv))) / "train_log.jsonl")]
+        print(f"   {steps} steps of batch {TRAIN_BATCH}: losses "
+              f"{[round(r['loss'], 4) for r in log]}; launches {counts} (expected {expected})",
+              flush=True)
+        if not all(np.isfinite(r["loss"]) for r in log) or log[-1]["step"] != steps:
+            raise AssertionError(f"training log {log}")
+        if counts != expected:
+            raise AssertionError(f"kernel launches {counts}, expected {expected}")
+        return {"launches": counts, "steps": steps, "losses": [r["loss"] for r in log],
+                **checks(trainer, argv, log)}
+    finally:
+        shutil.rmtree(run, ignore_errors=True)
+
+
+def train_checks(card: str):
+    """Phase 8's own checks: the parameters moved, the EMA took every step,
+    the warm images/s; then a short request served from the milestone."""
+    initial = Unet(**UNET, dtype=torch.bfloat16, seed=0).state_dict()
+
+    def checks(trainer, argv, log) -> dict:
         state = trainer.state
         moved = max(float((p.detach().cpu() - initial[name]).abs().max())
                     for name, p in state.model.named_parameters())
         warm = [r["imgs_per_sec"] for r in log if r["step"] > TRAIN_STEPS // 3]
         ips = sum(warm) / len(warm)
-        print(f"   {TRAIN_STEPS} steps of batch {TRAIN_BATCH}: losses "
-              f"{[round(r['loss'], 4) for r in log]}; params moved by up to {moved:.3e}; "
-              f"ema_step {state.ema_step}; launches {counts} (expected {expected})", flush=True)
-        print(f"   warm train {ips:.2f} images/s (steps {TRAIN_STEPS // 3 + 1}-{TRAIN_STEPS}, batch {TRAIN_BATCH}, "
-              f"bf16) on {card}", flush=True)
-        if not all(np.isfinite(r["loss"]) for r in log):
-            raise AssertionError("a training loss is not finite")
+        print(f"   params moved by up to {moved:.3e}; ema_step {state.ema_step}; warm train "
+              f"{ips:.2f} images/s (steps {TRAIN_STEPS // 3 + 1}-{TRAIN_STEPS}, batch "
+              f"{TRAIN_BATCH}, bf16) on {card}", flush=True)
         if not moved > 0 or state.step != TRAIN_STEPS or state.ema_step != TRAIN_STEPS:
             raise AssertionError(f"params moved {moved}, step {state.step}, "
                                  f"ema_step {state.ema_step}")
-        if counts != expected:
-            raise AssertionError(f"kernel launches {counts}, expected {expected}")
-
-        args = parse_opts(["--root_path", str(run), *TRAIN_ARGV,
-                           "--serve_milestone", str(TRAIN_STEPS), "--sample_timesteps", "25",
-                           "--sample_cond_scale", "1.5"])
-        service = SamplerService(args, max_batch=4, warm=False, device=str(device))
+        args = parse_opts([*argv, "--serve_milestone", str(TRAIN_STEPS),
+                           "--sample_timesteps", "25", "--sample_cond_scale", "1.5"])
+        service = SamplerService(args, max_batch=4, warm=False, device=args.device)
         images = service.generate(np.linspace(0.1, 0.9, 4).astype(np.float32))
         if images.dtype != np.uint8 or images.shape != (4, 64, 64, 3) or images.std() == 0:
             raise AssertionError(f"serving milestone {TRAIN_STEPS} gave {images.dtype} "
                                  f"{images.shape}, std {images.std()}")
         print(f"   served 4 labels x 25 DDIM steps from milestone {TRAIN_STEPS}: uint8 "
               f"{images.shape}, std {images.std():.2f}", flush=True)
-        return {"launches": counts, "train_images_per_s": ips, "steps": TRAIN_STEPS,
-                "losses": [r["loss"] for r in log]}
+        return {"train_images_per_s": ips}
+
+    return checks
+
+
+# ------------------------------------------- the fused resnet block slice
+
+# (H = W, Cin, Cout) of the 23 resnet blocks of one RC-49 64x64 UNet forward
+# (dim 64, mults 1_2_2_4_8), with the blocks that share each shape
+RESNET_SHAPES = {(64, 64, 64): 2, (64, 128, 64): 3, (32, 64, 64): 2, (32, 192, 128): 2,
+                 (16, 128, 128): 2, (16, 256, 128): 2, (8, 128, 128): 2, (8, 384, 256): 2,
+                 (4, 256, 256): 2, (4, 512, 512): 2, (4, 768, 512): 2}
+RESNET_BLOCKS = sum(RESNET_SHAPES.values())  # 23: launches of #10 and of #11 per forward
+ATTN_BLOCKS = 10  # launches of #1 per sampling forward (FORWARD_SHAPES)
+RESNET_REPLACES = {"resnet_half_a": "ccdm_tpu/ops/resnet_block.py:106",
+                   "resnet_half_b": "ccdm_tpu/ops/resnet_block.py:130"}
+# the batches the main paths give #10 and #11: a CFG forward of 32 served
+# labels; a training step; the EMA grid's CFG forward of 36 labels; the
+# eval sampling's and the ddpm request's CFG forward of 4 labels
+RESNET_BATCHES = (BATCH, TRAIN_BATCH, 2 * 36, 2 * 4)
+FUSED_STEPS = 25   # DDIM steps of the switch-on serving phase
+DDPM_STEPS = 10
+FUSED_TRAIN_STEPS = 5
+FUSED_TRAIN_ARGV = [*TRAIN_ARGV, "--niters", str(FUSED_TRAIN_STEPS), "--save_every",
+                    str(FUSED_TRAIN_STEPS), "--sample_every", str(FUSED_TRAIN_STEPS),
+                    "--log_every", "1"]
+# UNet forwards of that run: one per step, the 10 DDIM steps of the EMA grid
+# (36 images in one batch), then EVAL_FORWARDS
+FUSED_TRAIN_FORWARDS = FUSED_TRAIN_STEPS + 10 + EVAL_FORWARDS
+
+
+@contextlib.contextmanager
+def fused_resnet(on: bool):
+    """Set CCDM_TPU_FUSED_RESBLOCK's module switch for the block."""
+    before = resnet_block.USE_FUSED
+    resnet_block.USE_FUSED = on
+    try:
+        yield
     finally:
-        shutil.rmtree(run, ignore_errors=True)
+        resnet_block.USE_FUSED = before
+
+
+def resnet_bound_parts(name: str, hw: int, cin: int, cout: int, batch: int,
+                       itemsize: int = 2) -> tuple[float, float]:
+    """Least times (ms) of one call of kernel `name`: each input read and each
+    output written once (activations and matrices in the activation type,
+    scale/shift and the vectors in f32), over HBM bandwidth; its products'
+    operations over the bf16 peak."""
+    act = lambda c: batch * hw * c * itemsize
+    has_res = cin != cout
+    if name == "resnet_half_a":
+        nbytes = act(cin) + act(cout) + 9 * cin * cout * itemsize + 2 * batch * cout * 4 \
+            + 2 * cout * 4
+        flops = 2 * batch * hw * 9 * cin * cout
+    else:
+        nbytes = 2 * act(cout) + act(cin) + 9 * cout * cout * itemsize + 2 * cout * 4 \
+            + (cin * cout * itemsize + cout * 4 if has_res else 0)
+        flops = 2 * batch * hw * (9 * cout * cout + (cin * cout if has_res else 0))
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+
+
+def resnet_inputs(hh: int, cin: int, cout: int, batch: int, device, seed: int):
+    """Kernel inputs in the JAX layout, f32: x ~ N(0, 1) [B, HW, Cin]; conv
+    weights tap-major at 1/sqrt(fan-in); gains 1 + N(0, 0.5); FiLM N(0, 0.3)."""
+    g = torch.Generator().manual_seed(seed)
+    n = lambda *shape, s=1.0: torch.randn(*shape, generator=g) * s
+    has_res = cin != cout
+    t = {"x": n(batch, hh * hh, cin), "scale": n(batch, cout, s=0.3),
+         "shift": n(batch, cout, s=0.3), "w1": n(9 * cin, cout, s=(9 * cin) ** -0.5),
+         "b1": n(cout, s=0.1), "g1": 1 + n(cout, s=0.5),
+         "w2": n(9 * cout, cout, s=(9 * cout) ** -0.5), "b2": n(cout, s=0.1),
+         "g2": 1 + n(cout, s=0.5), "wres": n(cin, cout, s=cin ** -0.5) if has_res else None,
+         "bres": n(cout, s=0.1) if has_res else None}
+    return {k: None if v is None else v.to(device) for k, v in t.items()}
+
+
+def _as_block(t: dict, hh: int, dt):
+    """The same inputs as resnet_block_reference takes them: x NCHW
+    (channels_last) in dt, OIHW kernels."""
+    b, _, cin = t["x"].shape
+    cout = t["b1"].shape[0]
+    oihw = lambda w, ci: w.reshape(3, 3, ci, cout).permute(3, 2, 0, 1).contiguous()
+    return (t["x"].to(dt).view(b, hh, hh, cin).permute(0, 3, 1, 2), t["scale"], t["shift"],
+            oihw(t["w1"], cin), t["b1"], t["g1"], oihw(t["w2"], cout), t["b2"], t["g2"],
+            None if t["wres"] is None else t["wres"].t().reshape(cout, cin, 1, 1), t["bres"])
+
+
+@torch.no_grad()
+def resnet_vs_plain(device) -> dict:
+    """Phase 9: #10 and #11 against their plain versions per shape, f32 and
+    bf16, at every batch the main paths give them (RESNET_BATCHES); bf16
+    times at B 64 (and B 128 at 64x64) beside the plain versions and the
+    cuDNN composition of the whole block."""
+    rows = {}
+    cases = [(shape, batch) for batch in RESNET_BATCHES for shape in RESNET_SHAPES]
+    for i, ((hh, cin, cout), batch) in enumerate(cases):
+        timed = batch == BATCH or (batch == TRAIN_BATCH and hh == 64)
+        t = resnet_inputs(hh, cin, cout, batch, device, seed=80 + i)
+        row = {"max_err": {}}
+        for dt in (torch.float32, torch.bfloat16):
+            tol = (2e-3, 2e-4) if dt == torch.float32 else (4e-2, 4e-2)
+            tag = f"H={hh} Cin={cin} Cout={cout} B={batch} {str(dt)[6:]}"
+            x = t["x"].to(dt)
+            w1, w2 = t["w1"].to(dt), t["w2"].to(dt)
+            wres = None if t["wres"] is None else t["wres"].to(dt)
+            a_args = (x, t["scale"], t["shift"], w1, t["b1"], t["g1"], hh, hh)
+            h1 = resnet_block.resnet_half_a(*a_args)
+            b_args = (h1, x, w2, t["b2"], t["g2"], wres, t["bres"], hh, hh)
+            key = str(dt)[6:]
+            row["max_err"][f"h1_{key}"] = check_close(
+                h1, resnet_block.half_a_reference(*a_args), *tol, f"#10 {tag}")
+            row["max_err"][f"y_{key}"] = check_close(
+                resnet_block.resnet_half_b(*b_args), resnet_block.half_b_reference(*b_args),
+                *tol, f"#11 {tag}")
+            if dt == torch.bfloat16 and timed:
+                block = _as_block(t, hh, dt)
+                calls = {"resnet_half_a": (lambda: resnet_block.resnet_half_a(*a_args),
+                                           lambda: resnet_block.half_a_reference(*a_args)),
+                         "resnet_half_b": (lambda: resnet_block.resnet_half_b(*b_args),
+                                           lambda: resnet_block.half_b_reference(*b_args))}
+                for name, (kernel, plain) in calls.items():
+                    t_bytes, t_ops = resnet_bound_parts(name, hh * hh, cin, cout, batch)
+                    row[name] = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                                 "bound_ms": max(t_bytes, t_ops),
+                                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                row["cudnn_block_ms"] = time_ms(
+                    lambda: resnet_block.resnet_block_reference(*block))
+        rows[f"H{hh}_Cin{cin}_Cout{cout}_B{batch}"] = row
+        print(f"   H={hh:2d} Cin={cin:3d} Cout={cout:3d} B={batch}: {json.dumps(row)}",
+              flush=True)
+        del t, x, h1, a_args, b_args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fused_model_parity(device) -> dict:
+    """Phase 10: model_parity with the switch on against off; the six
+    switch-on forwards launch each kernel 23 times."""
+    _reset_counts()
+    out = model_parity(device, lambda: fused_resnet(True), lambda: fused_resnet(False),
+                       "switch on and off")
+    counts = {k: _counts()[k] for k in RESNET}
+    if counts != {k: 6 * RESNET_BLOCKS for k in RESNET}:
+        raise AssertionError(f"six switch-on forwards launched {counts}, expected "
+                             f"{RESNET_BLOCKS} of each kernel per forward")
+    return out
+
+
+def fused_serve_main_path(device, card: str) -> dict:
+    """Phase 11: the serving main path with the switch on, then one request
+    to an ancestral (--sampler ddpm) service."""
+    argv = [*SERVE_ARGV, "--sample_timesteps", str(FUSED_STEPS)]
+    with fused_resnet(True):
+        _reset_counts()
+        service = SamplerService(parse_opts(argv), max_batch=SERVE_BATCH, warm=True,
+                                 device=str(device))
+        batches, n_images, req_s = _serve_requests(service, ((40, 2),), 64)
+        batches += 1  # the warm-up batch
+        counts = _counts()
+        expected = {"attn_block": ATTN_BLOCKS * FUSED_STEPS * batches,
+                    "resnet_half_a": RESNET_BLOCKS * FUSED_STEPS * batches,
+                    "resnet_half_b": RESNET_BLOCKS * FUSED_STEPS * batches}
+        got = {k: counts[k] for k in expected}
+        ips = n_images / req_s
+        print(f"   {batches} batches of {SERVE_BATCH} x {FUSED_STEPS} DDIM steps, {n_images} "
+              f"images in {req_s:.2f} s: {ips:.2f} images/s on {card}; launches {got} "
+              f"(expected {expected})", flush=True)
+        if got != expected:
+            raise AssertionError(f"switch-on serving launched {got}, expected {expected}")
+        forward_ms = cfg_forward_ms(service)
+        print(f"   one CFG forward (B {BATCH}, bf16): {forward_ms:.4f} ms", flush=True)
+
+        ddpm = SamplerService(parse_opts([*argv, "--sampler", "ddpm", "--sample_timesteps",
+                                          str(DDPM_STEPS)]),
+                              max_batch=4, warm=False, device=str(device))
+        ddpm_batches, _, ddpm_s = _serve_requests(ddpm, ((4, 3),), 64)
+        print(f"   --sampler ddpm: 4 labels x {DDPM_STEPS} ancestral steps over HTTP in "
+              f"{ddpm_s:.2f} s: uint8, not constant", flush=True)
+    return {"launches": got, "batches": batches, "images_per_s": ips,
+            "requested_images": n_images, "request_s": req_s, "ddpm_request_s": ddpm_s,
+            "cfg_forward_ms": forward_ms}
+
+
+def read_png(path: Path) -> np.ndarray:
+    """The pixels of an 8-bit RGB PNG with one IDAT chunk and no filters, as
+    utils/viz.py writes it (the card's machine has no PIL)."""
+    data = path.read_bytes()
+    w, h, depth, color = struct.unpack(">IIBB", data[16:26])
+    if data[12:16] != b"IHDR" or depth != 8 or color != 2 or data[37:41] != b"IDAT":
+        raise AssertionError(f"{path.name} is not the RGB PNG the port writes")
+    size = struct.unpack(">I", data[33:37])[0]
+    rows = np.frombuffer(zlib.decompress(data[41:41 + size]), np.uint8).reshape(h, 1 + 3 * w)
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def fused_train_checks(card: str):
+    """Phase 12's own checks: the EMA grid and the eval labels' grids decode
+    to images that are not constant."""
+    from ccdm_tpu_torch import main as port_main
+
+    def checks(trainer, argv, log) -> dict:
+        args = parse_opts(argv)
+        results = Path(port_main.results_folder(args))
+        grids = [results / f"sample_{FUSED_TRAIN_STEPS}.png",
+                 *sorted(Path(port_main.fake_data_folder(args, 2)).glob("sample_*.png"))]
+        stds = [float(read_png(p).std()) for p in grids]
+        print(f"   {log[-1]['imgs_per_sec']:.2f} train images/s at step {FUSED_TRAIN_STEPS} "
+              f"on {card}; grids {[p.name for p in grids]} (pixel std "
+              f"{[round(v, 2) for v in stds]})", flush=True)
+        if len(log) != FUSED_TRAIN_STEPS or len(grids) != 3 or not all(v > 0 for v in stds):
+            raise AssertionError(f"{len(log)} log lines, grids {grids}, pixel std {stds}")
+        return {"forwards": FUSED_TRAIN_FORWARDS, "grid_std": stds,
+                "train_images_per_s_last_step": log[-1]["imgs_per_sec"]}
+
+    return checks
+
+
+def resnet_kernel_rows(rows: dict, served: dict, trained: dict, parity: dict, card: str,
+                       forward_off_ms: float):
+    """The kernels-line entries of #10 and #11: times summed over the 23
+    launches of one B-64 forward, and their share of that forward, timed
+    whole with the switch off (phase 5) and on (phase 11)."""
+    out = []
+    fwd = [(rows[f"H{h}_Cin{ci}_Cout{co}_B{BATCH}"], k)
+           for (h, ci, co), k in RESNET_SHAPES.items()]
+    for name in RESNET:
+        total = lambda key: sum(r[name][key] * k for r, k in fwd)
+        by_bytes = sum(r[name]["bound_ms"] * k for r, k in fwd if r[name]["bound_by"] == "bytes")
+        out.append({
+            "name": name, "route": "cuda", "source": "ccdm_tpu_torch/csrc/resnet_block.cu",
+            "replaces": RESNET_REPLACES[name], "launches": served["launches"][name],
+            "max_abs_err": max(r["max_err"]["h1_bfloat16" if name == "resnet_half_a"
+                                            else "y_bfloat16"] for r in rows.values()),
+            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "bytes" if 2 * by_bytes >= total("bound_ms") else "operations",
+            "library_ms": None,
+            "cudnn_block_ms": sum(r["cudnn_block_ms"] * k for r, k in fwd),
+            "cudnn_block_ms_is": "the whole block (both halves) as resnet_block_reference "
+                                 "in bf16 (cuDNN convs), summed over the 23 blocks",
+            "ms_is": f"sum over the 23 launches of one UNet forward, B {BATCH}, bf16",
+            "launches_in_training": trained["launches"][name],
+            "max_err_f32": max(r["max_err"]["h1_float32" if name == "resnet_half_a"
+                                            else "y_float32"] for r in rows.values()),
+            "by_shape": {tag: {**r.get(name, {}), "max_err": r["max_err"]}
+                         for tag, r in rows.items()},
+            "card": card})
+    cudnn = out[0]["cudnn_block_ms"]
+    kernels = out[0]["ms"] + out[1]["ms"]
+    out[0]["cfg_forward"] = {
+        "switch_off_ms": forward_off_ms, "switch_on_ms": served["cfg_forward_ms"],
+        "cudnn_blocks_share_of_switch_off": cudnn / forward_off_ms,
+        "kernels_share_of_switch_on": kernels / served["cfg_forward_ms"]}
+    print(f"   one CFG forward (B {BATCH}, bf16): {forward_off_ms:.4f} ms with the switch off, "
+          f"of which the 23 blocks' cuDNN composition (timed alone) {cudnn:.4f} ms "
+          f"({100 * cudnn / forward_off_ms:.1f}%); {served['cfg_forward_ms']:.4f} ms with "
+          f"the switch on, of which #10 + #11 (timed alone) {kernels:.4f} ms "
+          f"({100 * kernels / served['cfg_forward_ms']:.1f}%)", flush=True)
+    out[0]["model_parity"] = parity
+    out[0]["serve"] = served
+    out[1]["train"] = trained
+    out[0]["by_shape_cudnn_block_ms"] = {tag: r["cudnn_block_ms"] for tag, r in rows.items()
+                                         if "cudnn_block_ms" in r}
+    return out
 
 
 def main() -> int:
-    faulthandler.dump_traceback_later(900, exit=True)
+    faulthandler.dump_traceback_later(1100, exit=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
@@ -561,13 +913,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/10 device")
+    phase("1/14 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/10 build")
-    libraries = ("attn_block", "attn_block_large")
+    phase("2/14 build")
+    libraries = ("attn_block", "attn_block_large", "resnet_block")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, libraries))
@@ -580,27 +932,52 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/10 attn_block kernel against its plain version")
+    phase("3/14 attn_block kernel against its plain version")
     rows = kernel_vs_plain(device)
 
-    phase("4/10 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/14 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/10 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/14 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/10 kernels #2-#5 against their plain versions, B 128, bf16 and f32")
+    phase("6/14 kernels #2-#5 against their plain versions, B 128, bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
 
-    phase("7/10 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/14 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
 
-    phase(f"8/10 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/14 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
-    trained = train_main_path(device, card)
+    trained = train_main_path(
+        device, card, TRAIN_ARGV, TRAIN_STEPS,
+        {"attn_block": 8 * TRAIN_STEPS + ATTN_BLOCKS * EVAL_FORWARDS,
+         **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in RESNET}},
+        False, train_checks(card))
 
-    phase("9/10 kernels")
+    phase("9/14 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+          "f32 and bf16")
+    resnet_rows = resnet_vs_plain(device)
+
+    phase("10/14 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    fused_parity = fused_model_parity(device)
+
+    phase(f"11/14 main path with the switch on: SamplerService over HTTP, bf16, batch "
+          f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
+    fused_served = fused_serve_main_path(device, card)
+
+    phase(f"12/14 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+          f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
+    fused_trained = train_main_path(
+        device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
+        {"attn_block": 8 * FUSED_TRAIN_STEPS
+         + ATTN_BLOCKS * (FUSED_TRAIN_FORWARDS - FUSED_TRAIN_STEPS),
+         **{k: 2 * FUSED_TRAIN_STEPS for k in LARGE},
+         **{k: RESNET_BLOCKS * FUSED_TRAIN_FORWARDS for k in RESNET}},
+        True, fused_train_checks(card))
+
+    phase("13/14 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -643,9 +1020,11 @@ def main() -> int:
     kernels[3]["grad_parity"] = grads
     kernels[3]["max_err_by_shape"] = {tag: r["max_err"] for tag, r in large_rows.items()}
     kernels[4]["train"] = trained
+    kernels += resnet_kernel_rows(resnet_rows, fused_served, fused_trained, fused_parity, card,
+                                  served["cfg_forward_ms"])
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("10/10 done")
+    phase("14/14 done")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,90 @@
+#!/usr/bin/env python3
+"""Carry a JAX (orbax) training milestone across to the PyTorch port.
+
+Runs offline on the CPU, where both packages are installed (the port itself
+imports nothing of JAX, so this lives outside it):
+
+    python scripts/jax_milestone_to_torch.py \
+        --jax_results <folder holding model-<N>/> --jax_milestone N \
+        --root_path <port run> --data_name SteeringAngle --image_size 64 \
+        --model_channels 32 --channel_mult 1_2_2_4 --num_channels 3
+
+Every flag but the first two is the port's (ccdm_tpu_torch/opts.py) and
+names the model and the port's results folder,
+<root_path>/output/<data_name>_<image_size>/<setting_name>/results, where
+the milestone N is written as main.py writes it; `python -m
+ccdm_tpu_torch.serve` with the same flags and --serve_milestone N serves its
+EMA weights. The JAX milestone is restored with
+ccdm_tpu.utils.ckpt.load_checkpoint against the train state of the JAX Unet
+of those flags (legacy parameter layouts are migrated there), and converted
+with ccdm_tpu_torch.utils.convert.train_state_from_jax: online and EMA
+weights, BatchNorm statistics, Adam's moments and count, step and ema_step.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import types
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+
+def restore_jax_state(jax_results: str, milestone: int, args):
+    """The JAX milestone as a namespace of numpy trees (the TrainState's
+    fields), restored against the train state of the JAX Unet of `args`."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+
+    from ccdm_tpu.models import Unet as JaxUnet
+    from ccdm_tpu.opts import parse_channel_mult
+    from ccdm_tpu.training.state import create_train_state
+    from ccdm_tpu.utils.ckpt import load_checkpoint
+
+    model = JaxUnet(dim=args.model_channels, dim_mults=parse_channel_mult(args.channel_mult),
+                    in_channels=args.num_channels, attn_heads=args.num_heads,
+                    attn_dim_head=args.attn_dim_head)
+    size, ch = args.image_size, args.num_channels
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(args.train_lr, b1=0.9, b2=0.99))
+    shapes = jax.eval_shape(lambda key: create_train_state(model.init(
+        key, jnp.zeros((2, size, size, ch)), jnp.zeros((2,), jnp.int32),
+        jnp.zeros((2, args.dim_embed)), None, train=False), tx), jax.random.PRNGKey(0))
+    zeros = lambda tree: jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), tree)
+    target = {name: zeros(getattr(shapes, name)) for name in
+              ("step", "params", "batch_stats", "opt_state", "ema_step", "ema_params",
+               "ema_batch_stats")}
+    return types.SimpleNamespace(**load_checkpoint(jax_results, milestone, target))
+
+
+def convert(jax_results: str, milestone: int, argv: list[str]) -> str:
+    """Write the port's milestone `milestone` from the JAX one; returns its path."""
+    from ccdm_tpu_torch.main import build_model, results_folder
+    from ccdm_tpu_torch.opts import parse_opts
+    from ccdm_tpu_torch.training.trainer import checkpoint_tree
+    from ccdm_tpu_torch.utils.ckpt import save_checkpoint
+    from ccdm_tpu_torch.utils.convert import train_state_from_jax
+
+    args = parse_opts(argv)
+    jax_state = restore_jax_state(jax_results, milestone, args)
+    state = train_state_from_jax(jax_state, build_model(args, args.image_size, args.num_channels))
+    return save_checkpoint(results_folder(args), milestone, checkpoint_tree(state))
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--jax_results", required=True,
+                        help="the JAX run's results folder, holding model-<N>/")
+    parser.add_argument("--jax_milestone", type=int, required=True)
+    ours, port_argv = parser.parse_known_args(argv)
+    path = convert(ours.jax_results, ours.jax_milestone, port_argv)
+    print(f"wrote {path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -325,3 +325,62 @@ def test_emulated_fused_backward_matches_plain(emulated_large, b, n, c, dtype):
                               k["wout"], k["kmax"], k["d_a"], k["d_s"], HEADS)
     for name, got, w in zip(("dx", "d_wqkv", "d_gpre"), (dx, d_wqkv, d_gpre), want):
         _close(got, w, dtype, name)
+
+
+# --------------------------------------- kernels #10 and #11 (resnet block)
+
+RESNET_FNS = {"ccdm_resnet_half_a": (7, 6), "ccdm_resnet_half_b": (8, 7)}
+
+
+@pytest.fixture(scope="module")
+def emulated_resnet(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the emulated kernels")
+    lib = _compile(tmp_path_factory.mktemp("cuda_emu_resnet"), "resnet_block")
+    for name, (n_ptr, n_int) in RESNET_FNS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hh,ww,cin,cout", [
+    (2, 9, 9, 24, 64),   # projection residual; 162 pixels over two 128-pixel tiles
+    (2, 6, 6, 128, 128),  # identity residual; 72 pixels over two 64-pixel tiles
+    (3, 4, 5, 20, 40),   # Cout 40: one thread of the block idle, a part K slice
+])
+def test_emulated_resnet_halves_match_plain(emulated_resnet, b, hh, ww, cin, cout, dtype):
+    """Kernels #10 and #11 against their plain versions: tiles that cross
+    an image and the map border, part K slices, both residuals. Bounds of
+    tests/test_resnet_block.py: f32 rtol 2e-3 / atol 2e-4, bf16 4e-2."""
+    from ccdm_tpu_torch.ops import resnet_block as rb
+
+    rng = np.random.default_rng(b * 1000 + cin)
+    dt = getattr(torch, dtype)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    x = f32(rng.normal(size=(b, hh * ww, cin))).to(dt)
+    scale, shift = f32(0.3 * rng.normal(size=(b, cout))), f32(0.3 * rng.normal(size=(b, cout)))
+    w1 = f32(rng.normal(0, 0.2, (9 * cin, cout))).to(dt)
+    w2 = f32(rng.normal(0, 0.2, (9 * cout, cout))).to(dt)
+    b1, b2 = f32(0.1 * rng.normal(size=cout)), f32(0.1 * rng.normal(size=cout))
+    g1, g2 = f32(1 + 0.5 * rng.normal(size=cout)), f32(1 + 0.5 * rng.normal(size=cout))
+    has_res = cin != cout
+    wres = f32(rng.normal(0, 0.2, (cin, cout))).to(dt) if has_res else None
+    bres = f32(0.1 * rng.normal(size=cout)) if has_res else None
+    bf16 = int(dtype == "bfloat16")
+    tol = dict(rtol=2e-3, atol=2e-4) if dtype == "float32" else dict(rtol=4e-2, atol=4e-2)
+
+    h1 = torch.empty(b, hh * ww, cout, dtype=dt)
+    _call(emulated_resnet, "ccdm_resnet_half_a", x, scale, shift, w1, b1, g1, h1,
+          b, hh, ww, cin, cout, bf16)
+    want_h1 = rb.half_a_reference(x, scale, shift, w1, b1, g1, hh, ww)
+    assert bool(torch.isfinite(h1.float()).all())
+    torch.testing.assert_close(h1.float(), want_h1.float(), **tol)
+
+    y = torch.empty(b, hh * ww, cout, dtype=dt)
+    _call(emulated_resnet, "ccdm_resnet_half_b", want_h1, x, w2, b2, g2, wres, bres, y,
+          b, hh, ww, cin, cout, int(has_res), bf16)
+    want = rb.half_b_reference(want_h1, x, w2, b2, g2, wres, bres, hh, ww)
+    assert bool(torch.isfinite(y.float()).all())
+    torch.testing.assert_close(y.float(), want.float(), **tol)

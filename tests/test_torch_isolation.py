@@ -76,7 +76,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("flags", [["--sampler", "ddpm"], ["--architecture", "adm"],
+@pytest.mark.parametrize("flags", [["--architecture", "vit"], ["--architecture", "adm"],
                                    ["--use_Hy"],
                                    ["--y2h_embed_type", "gaussian"], ["--label_dim", "2"]])
 def test_options_of_later_slices_raise(flags):

@@ -24,7 +24,10 @@ torch.set_num_threads(2)
 MODEL = ["--image_size", "16", "--model_channels", "8", "--channel_mult", "1_2",
          "--train_timesteps", "20", "--pred_objective", "pred_x0", "--device", "cpu"]
 TRAIN = ["--data_name", "synthetic", "--synthetic_n", "64", "--train_batch_size", "8",
-         "--vicinity_type", "hv", "--log_every", "1", "--save_every", "3"]
+         "--vicinity_type", "hv", "--log_every", "1", "--save_every", "3",
+         # the sampling after training: 2 eval labels x 2 images, 2 DDIM steps
+         "--eval_mode", "4", "--FID_num_centers", "2", "--nfake_per_label", "2",
+         "--sample_timesteps", "2"]
 
 
 @pytest.fixture(scope="module")
@@ -78,8 +81,9 @@ def test_missing_milestone_raises(trained):
         SamplerService(args, warm=False, device="cpu")
 
 
-@pytest.mark.parametrize("flags", [["--dump_fake_data"], ["--lambda_aux", "0.5"],
-                                   ["--data_name", "synthetic_power"]])
+@pytest.mark.parametrize("flags", [["--gif_trajectory"], ["--lambda_aux", "0.5"],
+                                   ["--data_name", "synthetic_power"], ["--interpolation"],
+                                   ["--comp_FID"], ["--dump_fake_for_NIQE"]])
 def test_options_of_later_slices_raise(tmp_path, flags):
     argv = ["--root_path", str(tmp_path), *MODEL, *TRAIN, "--niters", "1", *flags]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
