@@ -17,6 +17,7 @@ from torch import nn
 
 from ccdm_tpu_torch.ops import attn_block, resnet_block
 from ccdm_tpu_torch.ops.attn_block import _rms_norm
+from ccdm_tpu_torch.ops.linear_attention import linear_attention
 
 
 class Conv2d(nn.Conv2d):
@@ -87,6 +88,29 @@ class FusedResnetBlock(nn.Module):
             x, scale, shift, self.conv1_weight, self.conv1_bias, self.norm1_g,
             self.conv2_weight, self.conv2_bias, self.norm2_g,
             self.res_weight, self.res_bias)
+
+
+class LinearAttention(nn.Module):
+    """Linear attention over the spatial map: 1x1 conv to q, k, v (no bias),
+    `ops/linear_attention.linear_attention` on [B, N, H, D] (kernel #6 on the
+    card), 1x1 conv out, RMSNorm. No model builds it: the Unet's blocks are
+    `FusedLinearAttentionBlock`, which computes PreNormResidual(this)."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        hidden = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = Conv2d(hidden, dim, 1)
+        self.out_norm = RMSNorm(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, hh, ww = x.shape
+        qkv = self.to_qkv(x).permute(0, 2, 3, 1).reshape(b, hh * ww, 3, self.heads,
+                                                          self.dim_head)
+        out = linear_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        out = out.reshape(b, hh, ww, -1).permute(0, 3, 1, 2)
+        return self.out_norm(self.to_out(out))
 
 
 class FusedLinearAttentionBlock(nn.Module):

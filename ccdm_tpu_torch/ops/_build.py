@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "ccdm_tpu_torch"
@@ -90,3 +92,12 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({lib.ccdm_cuda_error_string(err).decode()})")
+
+
+def run(lib: ctypes.CDLL, fn_name: str, what: str, dev, *args) -> None:
+    """Call `fn_name` of `lib` on `dev`'s current stream: tensors pass as
+    their data pointers, None as a null pointer, anything else as it is."""
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn_name)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    check(lib, err, what)

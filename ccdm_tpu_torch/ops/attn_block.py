@@ -34,7 +34,7 @@ import math
 import torch
 
 from ccdm_tpu_torch.ops import _build
-from ccdm_tpu_torch.ops.linear_attention import linear_attention_reference
+from ccdm_tpu_torch.ops.linear_attention import _op, finalize_ctx, linear_attention_reference
 
 DIM_HEAD = 32  # the kernels map one warp lane to each channel of a head
 TWO_PASS_CHUNK = 2048  # N % 2048 == 0 takes the two-pass training path (as JAX)
@@ -69,11 +69,6 @@ def attn_block_reference(x2d: torch.Tensor, g_pre: torch.Tensor, wqkv: torch.Ten
 # ------------------------------------------------- plain kernels #2 - #5
 
 
-def _op(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """Round to the products' operand dtype; compute on in f32."""
-    return t.to(dt).float()
-
-
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], heads, -1)
 
@@ -104,12 +99,6 @@ def ctx_large_reference(x2d, g_pre, wqkv, heads):
     e = torch.exp(k - kmax[:, None])
     a = torch.einsum("bnhd,bnhe->bhde", _heads(_op(e, dt), heads), _heads(_op(v, dt), heads))
     return a, e.sum(dim=1), kmax
-
-
-def finalize_ctx(a, s, dtype):
-    """ctx = a / s per k channel, in the operand dtype
-    (ccdm_tpu/ops/linear_attention.py:36-43, diagonal blocks only)."""
-    return (a / s.clamp_min(1e-30).view(*a.shape[:3], 1)).to(dtype)
 
 
 def finalize_ctx_backward(d_ctx, a, s):
@@ -223,13 +212,6 @@ def _wgrad_splits(m: int, rows: int, cols: int) -> int:
     return max(1, min(math.ceil(_BLOCKS / tiles), math.ceil(m / 32)))
 
 
-def _run(lib, fn_name, what, dev, *args):
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        err = getattr(lib, fn_name)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, what)
-
-
 def _launch(x2d, g_pre, wqkv, wout, bout, g_out, heads, dim_head):
     """Kernel #1 on the card."""
     _check_activation(x2d, dim_head)
@@ -243,8 +225,8 @@ def _launch(x2d, g_pre, wqkv, wout, bout, g_out, heads, dim_head):
     y = torch.empty_like(x2d)
     qkv = torch.empty((b, n, 3 * f), dtype=torch.float32, device=dev)
     ctx = torch.empty((b, heads, dim_head, dim_head), dtype=torch.float32, device=dev)
-    _run(_library(), "ccdm_attn_block_forward", "attn_block kernel launch", dev,
-         x2d, *weights, y, qkv, ctx, b, n, c, heads, int(dt == torch.bfloat16))
+    _build.run(_library(), "ccdm_attn_block_forward", "attn_block kernel launch", dev,
+               x2d, *weights, y, qkv, ctx, b, n, c, heads, int(dt == torch.bfloat16))
     fused_attn_block.launches += 1
     return y
 
@@ -275,9 +257,9 @@ def attn_ctx_large(x2d, g_pre, wqkv, heads):
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x2d.device)
     m_part, s_part, a_part = new(b * nsplit, f), new(b * nsplit, f), new(b * nsplit, f, DIM_HEAD)
     kmax, s, a = new(b, f), new(b, f), new(b, heads, DIM_HEAD, DIM_HEAD)
-    _run(_large_library(), "ccdm_attn_ctx_large", "attn_ctx_large kernel launch", x2d.device,
-         x2d, g_pre, wqkv, m_part, s_part, a_part, kmax, s, a, b, n, c, heads, nsplit,
-         int(x2d.dtype == torch.bfloat16))
+    _build.run(_large_library(), "ccdm_attn_ctx_large", "attn_ctx_large kernel launch", x2d.device,
+               x2d, g_pre, wqkv, m_part, s_part, a_part, kmax, s, a, b, n, c, heads, nsplit,
+               int(x2d.dtype == torch.bfloat16))
     attn_ctx_large.launches += 1
     return a, s, kmax
 
@@ -290,8 +272,8 @@ def attn_out_large(x2d, g_pre, wqkv, ctx, wout, bout, g_out, heads):
                                      ("wout", wout), ("bout", bout), ("g_out", g_out)))
     b, n, c = x2d.shape
     y = torch.empty_like(x2d)
-    _run(_large_library(), "ccdm_attn_out_large", "attn_out_large kernel launch", x2d.device,
-         x2d, *ins, y, b, n, c, heads, int(x2d.dtype == torch.bfloat16))
+    _build.run(_large_library(), "ccdm_attn_out_large", "attn_out_large kernel launch", x2d.device,
+               x2d, *ins, y, b, n, c, heads, int(x2d.dtype == torch.bfloat16))
     attn_out_large.launches += 1
     return y
 
@@ -313,9 +295,9 @@ def attn_bwd_a(x2d, dy, g_pre, wqkv, ctx, wout, bout, g_out, heads):
     dctx_part, db_part, dg_part = new(b * nsplit, f, DIM_HEAD), new(b * nsplit, c), new(b * nsplit, c)
     wg_part = new(nsplit_w, f, c)
     d_ctx, d_wout, d_bout, d_gout = new(b, heads, DIM_HEAD, DIM_HEAD), new(f, c), new(c), new(c)
-    _run(_large_library(), "ccdm_attn_bwd_a", "attn_bwd_a kernel launch", dev,
-         x2d, *ins, do, out_g, dctx_part, db_part, dg_part, wg_part, d_ctx, d_wout, d_bout,
-         d_gout, b, n, c, heads, nsplit, nsplit_w, int(x2d.dtype == torch.bfloat16))
+    _build.run(_large_library(), "ccdm_attn_bwd_a", "attn_bwd_a kernel launch", dev,
+               x2d, *ins, do, out_g, dctx_part, db_part, dg_part, wg_part, d_ctx, d_wout, d_bout,
+               d_gout, b, n, c, heads, nsplit, nsplit_w, int(x2d.dtype == torch.bfloat16))
     attn_bwd_a.launches += 1
     return do, d_ctx, d_wout, d_bout, d_gout
 
@@ -336,9 +318,9 @@ def attn_bwd_b(x2d, dy, do, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, heads):
         b, n, 3 * f, dtype=x2d.dtype)
     dg_part, wg_part = new(b * nsplit, c), new(nsplit_w, c, 3 * f)
     d_wqkv, d_gpre = new(c, 3 * f), new(c)
-    _run(_large_library(), "ccdm_attn_bwd_b", "attn_bwd_b kernel launch", dev,
-         x2d, *ins, dx, xn_g, dqkv_g, dg_part, wg_part, d_wqkv, d_gpre, b, n, c, heads,
-         nsplit, nsplit_w, int(x2d.dtype == torch.bfloat16))
+    _build.run(_large_library(), "ccdm_attn_bwd_b", "attn_bwd_b kernel launch", dev,
+               x2d, *ins, dx, xn_g, dqkv_g, dg_part, wg_part, d_wqkv, d_gpre, b, n, c, heads,
+               nsplit, nsplit_w, int(x2d.dtype == torch.bfloat16))
     attn_bwd_b.launches += 1
     return dx, d_wqkv, d_gpre
 

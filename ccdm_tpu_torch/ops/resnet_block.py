@@ -37,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from ccdm_tpu_torch.ops import _build
-from ccdm_tpu_torch.ops.attn_block import _op, _operand, _rms_norm, _run
+from ccdm_tpu_torch.ops.attn_block import _operand, _rms_norm
+from ccdm_tpu_torch.ops.linear_attention import _op
 
 USE_FUSED = os.environ.get("CCDM_TPU_FUSED_RESBLOCK", "0") == "1"
 
@@ -148,8 +149,8 @@ def resnet_half_a(x2d, scale, shift, w1, b1, g1, hh: int, ww: int) -> torch.Tens
            _operand("b1", b1, (cout,), dev, torch.float32),
            _operand("g1", g1, (cout,), dev, torch.float32)]
     h1 = torch.empty((b, hh * ww, cout), dtype=dt, device=dev)
-    _run(_library(), "ccdm_resnet_half_a", "resnet_half_a kernel launch", dev,
-         x2d, *ins, h1, b, hh, ww, cin, cout, int(dt == torch.bfloat16))
+    _build.run(_library(), "ccdm_resnet_half_a", "resnet_half_a kernel launch", dev,
+               x2d, *ins, h1, b, hh, ww, cin, cout, int(dt == torch.bfloat16))
     resnet_half_a.launches += 1
     return h1
 
@@ -174,9 +175,9 @@ def resnet_half_b(h1, x2d, w2, b2, g2, wres, bres, hh: int, ww: int) -> torch.Te
     res = ([_operand("wres", wres, (cin, cout), dev, dt),
             _operand("bres", bres, (cout,), dev, torch.float32)] if has_res else [None, None])
     y = torch.empty((b, n, cout), dtype=dt, device=dev)
-    _run(_library(), "ccdm_resnet_half_b", "resnet_half_b kernel launch", dev,
-         ins[0], x2d, *ins[1:], *res, y, b, hh, ww, cin, cout, int(has_res),
-         int(dt == torch.bfloat16))
+    _build.run(_library(), "ccdm_resnet_half_b", "resnet_half_b kernel launch", dev,
+               ins[0], x2d, *ins[1:], *res, y, b, hh, ww, cin, cout, int(has_res),
+               int(dt == torch.bfloat16))
     resnet_half_b.launches += 1
     return y
 

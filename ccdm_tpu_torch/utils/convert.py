@@ -1,8 +1,10 @@
-"""Carry the JAX Unet's weights across to the port.
+"""Carry JAX weights across to the port.
 
-`unet_state_dict_from_jax` turns the flax variables of a ccdm_tpu Unet
+`state_dict_from_jax` turns the flax variables of a ccdm_tpu module
 ({"params": ..., "batch_stats": ...}, nested dicts of numpy arrays) into a
-state_dict of the port's Unet:
+state_dict of the port's module of the same name tree (the Unet, or a layer
+such as LinearAttention or PreNormResidual(LinearAttention));
+`unet_state_dict_from_jax` does it for a Unet:
 - conv kernels HWIO -> OIHW (init_conv, the down/up convs, final_conv, the
   resnet blocks' conv1_kernel/conv2_kernel -> conv1_weight/conv2_weight);
 - dense kernels [in, out] -> Linear.weight [out, in];
@@ -71,9 +73,9 @@ def _named_tensors(tree: Mapping[str, Any], target: dict) -> dict:
     return out
 
 
-def unet_state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> dict:
-    """The state_dict for `model` (a port Unet of the same config) holding
-    the JAX Unet's `variables`."""
+def state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> dict:
+    """The state_dict for `model` (the port's module of the same config)
+    holding the JAX module's `variables`."""
     target = model.state_dict()
     out = _named_tensors(variables["params"], target)
     stats = _named_tensors(variables.get("batch_stats", {}), target)
@@ -88,6 +90,23 @@ def unet_state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> 
         else:
             raise KeyError(f"the JAX variables leave {key} unset")
     return out
+
+
+def unet_state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> dict:
+    """The state_dict for `model` (a port Unet of the same config) holding
+    the JAX Unet's `variables`."""
+    return state_dict_from_jax(variables, model)
+
+
+def prenorm_linear_attention_from_fused(block: Mapping[str, torch.Tensor]) -> dict:
+    """The state_dict of PreNormResidual(dim, LinearAttention(dim, ...)) that
+    computes what a FusedLinearAttentionBlock with state_dict `block` computes:
+    the port's copy of the mapping of ccdm_tpu/utils/ckpt.py:82-92, run the
+    other way."""
+    conv = lambda w: w.t().reshape(*w.t().shape, 1, 1)  # [in, out] -> OIHW 1x1
+    return {"norm.g": block["norm_g"], "fn.to_qkv.weight": conv(block["qkv_kernel"]),
+            "fn.to_out.weight": conv(block["out_kernel"]), "fn.to_out.bias": block["out_bias"],
+            "fn.out_norm.g": block["out_norm_g"]}
 
 
 def _adam_state(opt_state: Any) -> Any:

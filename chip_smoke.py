@@ -5,7 +5,7 @@
 
 Phases, each announced on a flushed line before it starts:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: the three kernel libraries, one nvcc each, in parallel
+  2. build: the five kernel libraries, one nvcc each, in parallel
      (seconds, ptxas report);
   3. kernel #1 (the single-pass attention block) against its plain PyTorch
      version at the shapes of the RC-49 64x64 UNet's ten attention blocks
@@ -69,15 +69,45 @@ Phases, each announced on a flushed line before it starts:
      10 DDIM steps: losses finite, the PNG grids decode to images that are
      not constant, launches exactly 23 of #10 and #11 per UNet forward
      (and #1-#5 as in phase 8, plus 10 of #1 per EMA-grid forward);
-  13. the share of the timed CFG forwards that the 23 blocks take (the
+  13. kernels #6 and #9 (standalone linear attention) against their plain
+     versions at the UNet's attention levels (N 4096 to 16, H 4, D 32) at
+     B 64 and B 128, and at (H, D) (2, 64), (8, 16), (1, 128), N 1024: f32
+     with TF32 off (rtol 2e-3, atol 1e-4) and bf16 (rtol 3e-2, atol 3e-2 of
+     the largest |y|), the bounds of tests/test_linear_attention.py; in
+     bf16 each kernel's mean distance to its plain version at most a quarter
+     of that to the other's, which rounds at other points; timed in bf16 at
+     B 64, with each wrapper's host time;
+  14. kernels #7 + #8 (its two-pass form) against their plain versions at
+     (B 64, N 16384), (B 128, N 4096), (B 16, N 36864), (B 16, N 6144) and
+     (B 16, N 4096, chunks of 1024), same bounds (a and s relative to their
+     largest value) and the same test of rounding points (a from the
+     unrounded exp(k - m), s from the rounded one, q' of #8 in f32); timed
+     at B 64, N 16384 beside the dispatcher's two-pass route, the plain
+     reference and #9 on the same q, k, v;
+  15. kernel #12 (bias_act) against its plain version: all 9 activations,
+     bias or not, clamp none or 1.5, default gain or 0.5, f32 (rtol 1e-5,
+     atol 1e-6) and bf16 (8e-3, one unit), at GAN feature maps of batch 64
+     and 1003 rows; lrelu timed per shape, and beside F.leaky_relu where
+     the case is that one call;
+  16. this slice's path (module docstring of la_main_path): the
+     PreNormResidual(LinearAttention) module at the UNet's ten attention
+     levels (#6), the module on the two-pass route (#7 + #8),
+     linear_attention_per_head (#9), bias_act(impl="auto") (#12); exact
+     launch counts; in f32 the module within 1e-4 of kernel #1's
+     FusedLinearAttentionBlock on the same weights;
+  17. one f32 loss + backward through the module at B 128, N 4096 (#6
+     forward, plain backward) against the all-plain route: every gradient
+     within 1e-3 of its largest |g|;
+  18. the share of the timed CFG forwards that the 23 blocks take (the
      cuDNN composition with the switch off, #10 + #11 with it on, each
      timed alone in phase 9), then one JSON line {"kernels": [...]} with
-     errors, times and bounds;
-  14. the card's name and power limit, then the last line
+     errors, times and bounds of all 12 kernels;
+  19. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
-The three kernel libraries build in parallel, one nvcc each (phase 2). Each
-main path (phases 5, 8, 11, 12) starts from launch counts set to 0 and reads
-them just after. TF32 is off for the whole run (it only touches the f32
+The five kernel libraries build in parallel, one nvcc each (phase 2). Each
+main path (phases 5, 8, 11, 12, 16) starts from launch counts set to 0 and
+reads them just after; the paths of phases 5, 8, 11 and 12 launch none of
+#6-#9 and #12. TF32 is off for the whole run (it only touches the f32
 checks and the f32 convolutions). Any failed phase raises and the script
 exits non-zero; a hang becomes a stack dump and a non-zero exit after
 1100 s. It writes nothing outside build/.
@@ -90,6 +120,7 @@ import contextlib
 import faulthandler
 import io
 import json
+import math
 import shutil
 import struct
 import subprocess
@@ -106,10 +137,14 @@ import torch
 
 from ccdm_tpu_torch.diffusion.gaussian import DiffusionConfig, GaussianDiffusion
 from ccdm_tpu_torch.embedding.analytic import make_fn_y2h
+from ccdm_tpu_torch.models.layers import FusedLinearAttentionBlock, LinearAttention, PreNormResidual
 from ccdm_tpu_torch.models.unet import Unet
 from ccdm_tpu_torch.ops import _build, attn_block, resnet_block
+from ccdm_tpu_torch.ops import linear_attention as la
+from ccdm_tpu_torch.ops import style_ops as so
 from ccdm_tpu_torch.opts import parse_opts
 from ccdm_tpu_torch.serve import SamplerService, serve
+from ccdm_tpu_torch.utils.convert import prenorm_linear_attention_from_fused
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same source
@@ -152,6 +187,21 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """The host's time per call (Python, checks, allocation, the launch),
+    with no synchronisation inside the loop: where time_ms is no larger,
+    the card waited on the host between back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
 
 
 def bound_parts(n: int, c: int, batch: int = BATCH, itemsize: int = 2) -> tuple[float, float]:
@@ -345,8 +395,8 @@ def serve_main_path(device, card: str) -> dict:
     if launches != expected:
         raise AssertionError(f"the serving path launched the attention kernel "
                              f"{launches} times, expected {expected}")
-    if counts["resnet_half_a"] or counts["resnet_half_b"]:
-        raise AssertionError(f"the switch is off, yet the resnet kernels ran: {counts}")
+    if any(counts[name] for name in (*RESNET, *NEW_KERNELS)):
+        raise AssertionError(f"the serving path ran a kernel not on it: {counts}")
     forward_ms = cfg_forward_ms(service)
     print(f"   one CFG forward (B {BATCH}, bf16): {forward_ms:.4f} ms", flush=True)
     return {"launches": launches, "batches": batches, "images_per_s": ips,
@@ -565,18 +615,21 @@ def grad_parity(device) -> dict:
 RESNET = ("resnet_half_a", "resnet_half_b")
 
 
+def _counters() -> dict:
+    """Every kernel wrapper by its name in the kernels line."""
+    return {"attn_block": attn_block.fused_attn_block,
+            **{name: getattr(attn_block, name) for name in LARGE},
+            **{name: getattr(resnet_block, name) for name in RESNET},
+            **{name: getattr(la, name) for name in LA}, "bias_act_fused": so.bias_act_fused}
+
+
 def _counts() -> dict:
-    return {"attn_block": attn_block.fused_attn_block.launches,
-            **{name: getattr(attn_block, name).launches for name in LARGE},
-            **{name: getattr(resnet_block, name).launches for name in RESNET}}
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def _reset_counts() -> None:
-    attn_block.fused_attn_block.launches = 0
-    for name in LARGE:
-        getattr(attn_block, name).launches = 0
-    for name in RESNET:
-        getattr(resnet_block, name).launches = 0
+    for fn in _counters().values():
+        fn.launches = 0
 
 
 def train_main_path(device, card: str, argv_tail: list, steps: int, expected: dict,
@@ -799,7 +852,8 @@ def fused_serve_main_path(device, card: str) -> dict:
         counts = _counts()
         expected = {"attn_block": ATTN_BLOCKS * FUSED_STEPS * batches,
                     "resnet_half_a": RESNET_BLOCKS * FUSED_STEPS * batches,
-                    "resnet_half_b": RESNET_BLOCKS * FUSED_STEPS * batches}
+                    "resnet_half_b": RESNET_BLOCKS * FUSED_STEPS * batches,
+                    **{k: 0 for k in NEW_KERNELS}}
         got = {k: counts[k] for k in expected}
         ips = n_images / req_s
         print(f"   {batches} batches of {SERVE_BATCH} x {FUSED_STEPS} DDIM steps, {n_images} "
@@ -903,6 +957,435 @@ def resnet_kernel_rows(rows: dict, served: dict, trained: dict, parity: dict, ca
     return out
 
 
+# ------------------ standalone linear attention (#6-#9) and bias_act (#12)
+
+LA = ("linear_attention_fulllane", "linear_attention_ctx_twopass",
+      "linear_attention_out_twopass", "linear_attention_per_head")
+LA_REPLACES = {"linear_attention_fulllane": "ccdm_tpu/ops/linear_attention.py:106",
+               "linear_attention_ctx_twopass": "ccdm_tpu/ops/linear_attention.py:180",
+               "linear_attention_out_twopass": "ccdm_tpu/ops/linear_attention.py:222",
+               "linear_attention_per_head": "ccdm_tpu/ops/linear_attention.py:56"}
+NEW_KERNELS = (*LA, "bias_act_fused")
+F32_FLOPS = 67e12  # f32 outside the tensor cores, same data sheet
+# (B, N, H, D) of #6 and #9: the UNet's attention levels, served (B 64) and
+# trained (B 128), then the other head widths JAX's route takes, at N 1024
+LA_SHAPES = ([(b, n, HEADS, DIM_HEAD) for b in (BATCH, TRAIN_BATCH)
+              for n in sorted({n for n, _ in FORWARD_SHAPES}, reverse=True)]
+             + [(BATCH, 1024, h, d) for h, d in ((2, 64), (8, 16), (1, 128))])
+LA_MAIN = (BATCH, 4096, HEADS, DIM_HEAD)  # the shape of the kernels line
+# (B, N, chunk) of #7 + #8: the 128x128 top level when sampling (the
+# kernels line), the 64x64 level when training, the 192x192 top level, three
+# chunks, chunks of 1024
+TWOPASS_SHAPES = [(BATCH, 16384, 2048), (TRAIN_BATCH, 4096, 2048), (16, 36864, 2048),
+                  (16, 6144, 2048), (16, 4096, 1024)]
+# [rows, C] of #12: GAN feature maps at batch 64 (64x64x128, 32x32x256 for the
+# kernels line, 8x8x512), then a row count off the kernel's 256-thread tile
+BIAS_ACT_SHAPES = [(64 * 64 * 64, 128), (64 * 32 * 32, 256), (64 * 8 * 8, 512), (1003, 128)]
+BIAS_ACT_MAIN = (64 * 32 * 32, 256)
+
+
+def la_bound_parts(name: str, b: int, n: int, h: int, d: int,
+                   itemsize: int = 2) -> tuple[float, float]:
+    """Least times (ms) of one call of kernel `name`: each input read and each
+    output written once over HBM bandwidth (q, k, v, out and ctx in the
+    operand type; m, a and s in f32), and its per-head products (the H
+    blocks of D x D, not the TPU kernels' F x F) over the bf16 peak."""
+    act, f = b * n * h * d * itemsize, h * d
+    nbytes = {"linear_attention_fulllane": 4 * act, "linear_attention_per_head": 4 * act,
+              "linear_attention_ctx_twopass": 2 * act + 2 * b * f * 4 + b * f * d * 4,
+              "linear_attention_out_twopass": 2 * act + b * f * d * itemsize}[name]
+    products = 2 if name in ("linear_attention_fulllane", "linear_attention_per_head") else 1
+    return nbytes / HBM_BYTES_PER_S * 1e3, 2 * products * b * n * f * d / BF16_FLOPS * 1e3
+
+
+def bias_act_bound_parts(rows: int, c: int, bias: bool, gain: bool,
+                         itemsize: int = 2) -> tuple[float, float]:
+    """Least times (ms) of one lrelu call of #12: x read and y written once
+    (and the bias), over HBM bandwidth; its f32 operations (compare and
+    multiply of lrelu, the bias add, the gain) over the f32 peak."""
+    nbytes = (2 * rows * c + (c if bias else 0)) * itemsize
+    return nbytes / HBM_BYTES_PER_S * 1e3, rows * c * (2 + bias + gain) / F32_FLOPS * 1e3
+
+
+def timing(kernel, plain, parts: tuple[float, float], reps: int = 20, library=None) -> dict:
+    """The kernel's and its plain version's times (and a library call's),
+    with the bound of `parts` (bytes, operations) and the wrapper's host time."""
+    t_bytes, t_ops = parts
+    row = {"ms": time_ms(kernel, reps=reps), "host_ms": host_ms(kernel, reps=reps),
+           "plain_ms": time_ms(plain, reps=reps),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if library is not None:
+        row["library_ms"] = time_ms(library, reps=reps)
+    return row
+
+
+def la_inputs(shape, dt, device, seed: int) -> list:
+    """q, k, v ~ N(0, 2) in f32 and N(0, 1) in bf16 (the inputs of
+    tests/test_linear_attention.py), drawn on the card."""
+    g = torch.Generator(device).manual_seed(seed)
+    std = 2.0 if dt == torch.float32 else 1.0
+    return [(torch.randn(*shape, generator=g, device=device) * std).to(dt) for _ in range(3)]
+
+
+def la_check(got: torch.Tensor, want: torch.Tensor, what: str, scale_atol: bool = True) -> float:
+    """The bounds of tests/test_linear_attention.py: f32 (TF32 off) rtol
+    2e-3, atol 1e-4; bf16 rtol 3e-2 and atol 3e-2 of max |want|. Outputs of
+    N(0, 1) inputs lie near 1e-2, so a fixed bf16 atol of 3e-2 would pass a
+    kernel that wrote zeros. With scale_atol (a and s of #7) the f32 atol
+    is taken of max |want| too. Returns the max abs error."""
+    rtol, atol = (2e-3, 1e-4) if want.dtype == torch.float32 else (3e-2, 3e-2)
+    if want.dtype != torch.float32 or scale_atol:
+        atol *= float(want.float().abs().max())
+    return check_close(got, want, rtol, atol, what)
+
+
+def check_rounding(got: torch.Tensor, own: torch.Tensor, other: torch.Tensor,
+                   what: str) -> float:
+    """In bf16 a kernel keeps its own rounding points: its mean abs difference
+    to `own` (its plain version) is at most a quarter of that to `other`, the
+    same function on the same inputs rounded at other points. The outputs'
+    own rounding hides such a change from an elementwise bound. Returns the
+    ratio of the two means."""
+    near = float((got.float() - own.float()).abs().mean())
+    far = float((got.float() - other.float()).abs().mean())
+    if not near <= 0.25 * far:
+        raise AssertionError(f"{what}: mean abs diff {near:.3e} to its plain version, "
+                             f"{far:.3e} to the other rounding points; beyond a quarter")
+    return near / far if far > 0 else 0.0
+
+
+@torch.no_grad()
+def la_vs_plain(device) -> dict:
+    """Phase 13: #6 and #9 against their plain versions at LA_SHAPES, f32
+    with TF32 off and bf16 (la_check), and in bf16 each nearer its own plain
+    version than the other's, which rounds elsewhere (check_rounding); at
+    B 64 each timed in bf16."""
+    rows = {}
+    for i, shape in enumerate(LA_SHAPES):
+        b, n, h, d = shape
+        row = {"max_err": {}}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = la_inputs(shape, dt, device, seed=100 + i)
+            key, tag = str(dt)[6:], f"B={b} N={n} H={h} D={d} {str(dt)[6:]}"
+            calls = {"linear_attention_fulllane": (
+                         lambda: la.linear_attention_fulllane(q, k, v),
+                         lambda: la.fulllane_reference(q, k, v)),
+                     "linear_attention_per_head": (
+                         lambda: la.linear_attention_per_head(q, k, v),
+                         lambda: la.linear_attention_reference(q, k, v))}
+            # #6 rounds k', v, ctx and q'; #9 only its output: each is the
+            # other's plain version rounded elsewhere
+            others = {"linear_attention_fulllane": la.linear_attention_reference,
+                      "linear_attention_per_head": la.fulllane_reference}
+            for name, (kernel, plain) in calls.items():
+                got, want = kernel(), plain()
+                row["max_err"][f"{name}_{key}"] = la_check(got, want, f"{name} {tag}")
+                if dt == torch.bfloat16:
+                    row.setdefault("rounding", {})[name] = check_rounding(
+                        got, want, others[name](q, k, v), f"{name} {tag}")
+                if dt == torch.bfloat16 and b == BATCH:
+                    row[name] = timing(kernel, plain, la_bound_parts(name, *shape))
+        rows[f"B{b}_N{n}_H{h}_D{d}"] = row
+        print(f"   B={b} N={n:5d} H={h} D={d:3d}: {json.dumps(row)}", flush=True)
+    return rows
+
+
+@torch.no_grad()
+def twopass_vs_plain(device) -> dict:
+    """Phase 14: #7 and #8 against their plain versions at TWOPASS_SHAPES, f32
+    (TF32 off) and bf16 (la_check; a and s relative to their largest value),
+    and in bf16 each nearer its plain version than a version rounded
+    elsewhere (check_rounding); at B 64, N 16384 each timed in bf16, and
+    the dispatcher's two-pass route against the plain reference (and #9) on
+    the same q, k, v."""
+    rows = {}
+    for i, (b, n, chunk) in enumerate(TWOPASS_SHAPES):
+        shape = (b, n, HEADS, DIM_HEAD)
+        row = {"max_err": {}}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = la_inputs(shape, dt, device, seed=150 + i)
+            key, tag = str(dt)[6:], f"B={b} N={n} chunk={chunk} {str(dt)[6:]}"
+            m = k.amax(1).float().reshape(b, F)
+            a, s = la.linear_attention_ctx_twopass(k, v, m, chunk)
+            ra, rs = la.ctx_twopass_reference(k, v, m)
+            row["max_err"][f"a_{key}"] = la_check(a, ra, f"#7 a {tag}")
+            row["max_err"][f"s_{key}"] = la_check(s, rs, f"#7 s {tag}")
+            ctx = la.finalize_ctx(ra, rs, dt)
+            out, want = la.linear_attention_out_twopass(q, ctx), la.out_twopass_reference(q, ctx)
+            row["max_err"][f"out_{key}"] = la_check(out, want, f"#8 {tag}", scale_atol=False)
+            if dt == torch.bfloat16:
+                # the other rounding points: #7's a from the unrounded exp(k - m)
+                # and s from the rounded one; #8's q' in f32
+                e = torch.exp(k.float() - m.view(b, 1, HEADS, DIM_HEAD))
+                row["rounding"] = {
+                    "a": check_rounding(a, ra, torch.einsum("bnhd,bnhe->bhde", e, v.float()),
+                                        f"#7 a {tag}"),
+                    "s": check_rounding(s, rs, e.bfloat16().float().sum(1).reshape(b, F),
+                                        f"#7 s {tag}"),
+                    "out": check_rounding(out, want, torch.einsum(
+                        "bnhd,bhde->bnhe", la._q_prime(q, torch.float32), ctx.float()).to(dt),
+                        f"#8 {tag}")}
+                del e
+            if dt == torch.bfloat16 and i == 0:
+                row["linear_attention_ctx_twopass"] = timing(
+                    lambda: la.linear_attention_ctx_twopass(k, v, m, chunk),
+                    lambda: la.ctx_twopass_reference(k, v, m),
+                    la_bound_parts("linear_attention_ctx_twopass", *shape), reps=10)
+                row["linear_attention_out_twopass"] = timing(
+                    lambda: la.linear_attention_out_twopass(q, ctx),
+                    lambda: la.out_twopass_reference(q, ctx),
+                    la_bound_parts("linear_attention_out_twopass", *shape), reps=10)
+                row["route_ms"] = {
+                    "twopass": time_ms(lambda: la.linear_attention_twopass(q, k, v, chunk), 10),
+                    "reference": time_ms(lambda: la.linear_attention_reference(q, k, v), 10),
+                    "per_head": time_ms(lambda: la.linear_attention_per_head(q, k, v), 10)}
+            del q, k, v, m, a, s, ra, rs, ctx, out, want
+            torch.cuda.empty_cache()
+        rows[f"B{b}_N{n}_chunk{chunk}"] = row
+        print(f"   B={b} N={n:5d} chunk={chunk}: {json.dumps(row)}", flush=True)
+    return rows
+
+
+@torch.no_grad()
+def bias_act_vs_plain(device) -> dict:
+    """Phase 15: #12 against its plain version at BIAS_ACT_SHAPES, f32 (rtol
+    1e-5, atol 1e-6) and bf16 (rtol = atol = 8e-3: both compute in f32 and
+    round once, so a rounding may flip one unit): all 9 activations, with
+    and without bias, clamp none and 1.5, default gain and 0.5. lrelu timed
+    in bf16 per shape: the StyleGAN default (bias, gain sqrt 2) beside its
+    plain version, and no bias, gain 1, no clamp beside F.leaky_relu, the one
+    PyTorch call of that function."""
+    rows = {}
+    for i, (r, c) in enumerate(BIAS_ACT_SHAPES):
+        g = torch.Generator(device).manual_seed(200 + i)
+        x32 = 2 * torch.randn(r, c, generator=g, device=device)
+        b = torch.randn(c, generator=g, device=device)
+        row = {"max_err": {}}
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            tol = (1e-5, 1e-6) if dt == torch.float32 else (8e-3, 8e-3)
+            worst = 0.0
+            for act in so.activation_funcs:
+                for bias in (None, b):
+                    for clamp in (None, 1.5):
+                        for gain in (None, 0.5):
+                            _, alpha, gn, cl = so._resolve(act, None, gain, clamp)
+                            worst = max(worst, check_close(
+                                so.bias_act_fused(x, bias, act, alpha, gn, cl),
+                                so.bias_act_fused_reference(x, bias, act, alpha, gn, cl), *tol,
+                                f"#12 {act} bias={bias is not None} clamp={clamp} gain={gain} "
+                                f"[{r}, {c}] {str(dt)[6:]}"))
+            row["max_err"][str(dt)[6:]] = worst
+        xb, gain = x32.bfloat16(), math.sqrt(2)
+        row["lrelu_default"] = timing(
+            lambda: so.bias_act_fused(xb, b, "lrelu", 0.2, gain, -1.0),
+            lambda: so.bias_act_fused_reference(xb, b, "lrelu", 0.2, gain, -1.0),
+            bias_act_bound_parts(r, c, True, True))
+        row["bias_act_fused"] = timing(
+            lambda: so.bias_act_fused(xb, None, "lrelu", 0.2, 1.0, -1.0),
+            lambda: so.bias_act_fused_reference(xb, None, "lrelu", 0.2, 1.0, -1.0),
+            bias_act_bound_parts(r, c, False, False),
+            library=lambda: torch.nn.functional.leaky_relu(xb, 0.2))
+        rows[f"{r}x{c}"] = row
+        print(f"   [{r}, {c}]: {json.dumps(row)}", flush=True)
+    return rows
+
+
+@contextlib.contextmanager
+def la_switches(kernels: bool = True, twopass: bool = False):
+    """Set CCDM_TPU_FUSED_ATTN's and CCDM_TPU_TWOPASS_ATTN's module switches
+    for the block."""
+    before = la.USE_KERNELS, la.USE_TWOPASS
+    la.USE_KERNELS, la.USE_TWOPASS = kernels, twopass
+    try:
+        yield
+    finally:
+        la.USE_KERNELS, la.USE_TWOPASS = before
+
+
+def la_modules(c: int, seed: int, device):
+    """FusedLinearAttentionBlock(c) with phase 3's weights (f32), and
+    PreNormResidual(c, LinearAttention(c, 4, 32)) holding the same function
+    (utils/convert.prenorm_linear_attention_from_fused)."""
+    g = torch.Generator().manual_seed(seed)
+    block = FusedLinearAttentionBlock(c, HEADS, DIM_HEAD)
+    block.load_state_dict({"norm_g": 1 + 0.5 * torch.randn(c, generator=g),
+                           "qkv_kernel": 0.1 * torch.randn(c, 3 * F, generator=g),
+                           "out_kernel": 0.1 * torch.randn(F, c, generator=g),
+                           "out_bias": 0.1 * torch.randn(c, generator=g),
+                           "out_norm_g": 1 + 0.5 * torch.randn(c, generator=g)})
+    module = PreNormResidual(c, LinearAttention(c, HEADS, DIM_HEAD))
+    module.load_state_dict(prenorm_linear_attention_from_fused(block.state_dict()))
+    return block.to(device), module.to(device)
+
+
+def _image(batch: int, n: int, c: int, device, seed: int) -> torch.Tensor:
+    """x ~ N(0, 1) [B, C, H, W] in channels_last memory, H = W = sqrt(N)."""
+    side = math.isqrt(n)
+    g = torch.Generator(device).manual_seed(seed)
+    return torch.randn(batch, side, side, c, generator=g, device=device).permute(0, 3, 1, 2)
+
+
+TWOPASS_MODULE = (16, 16384, 64)  # B, N, C of the module on the two-pass route
+
+
+@torch.no_grad()
+def la_main_path(device) -> dict:
+    """Phase 16: this slice's path through its public entry points, launch
+    counts set to 0 just before and read just after:
+    - PreNormResidual(LinearAttention) (the UNet's attention before its fused
+      block) at the ten attention levels of the UNet, B 64, f32 and bf16:
+      the dispatcher's default route, #6;
+    - the module at N 16384 (B 16, C 64) with CCDM_TPU_TWOPASS_ATTN's switch
+      on: #7 + #8;
+    - linear_attention_per_head on q, k, v at B 64, N 4096, bf16: #9;
+    - bias_act(impl="auto") (lrelu, bias, default gain) at the three GAN
+      maps, bf16: #12.
+    Exactly one launch per call, none of #1-#5, #10, #11. Then the checks:
+    per level, the module in f32 (TF32 off) against FusedLinearAttentionBlock
+    on the same weights and x (kernel #6 against kernel #1), max abs diff
+    <= 1e-4; in bf16 the module against itself on the plain route
+    (CCDM_TPU_FUSED_ATTN=0) at phase 3's bound (rtol = atol = 3e-2, relative
+    to max(|y|, |y - x|)), and its distance to #1's block recorded (the
+    module's own bf16 layers round where #1 does not); the two-pass module
+    against the plain route at the same bound; #9 and #12 against their
+    plain versions as in phases 13 and 15."""
+    levels = [(la_modules(c, 300 + i, device), _image(BATCH, n, c, device, 320 + i))
+              for i, (n, c) in enumerate(FORWARD_SHAPES)]
+    tb, tn, tc = TWOPASS_MODULE
+    (_, tp_module), tp_x = la_modules(tc, 340, device), _image(tb, tn, tc, device, 341).bfloat16()
+    q, k, v = la_inputs(LA_MAIN, torch.bfloat16, device, seed=342)
+    g = torch.Generator(device).manual_seed(343)
+    gan = [(torch.randn(64, math.isqrt(r // 64), math.isqrt(r // 64), c, generator=g,
+                        device=device).bfloat16(), torch.randn(c, generator=g, device=device))
+           for r, c in BIAS_ACT_SHAPES[:3]]
+
+    _reset_counts()
+    outs = [(module(x), module(x.bfloat16())) for (_, module), x in levels]
+    with la_switches(twopass=True):
+        tp_y = tp_module(tp_x)
+    y9 = la.linear_attention_per_head(q, k, v)
+    y12 = [so.bias_act(x, b, act="lrelu") for x, b in gan]
+    torch.cuda.synchronize()
+    counts = _counts()
+
+    expected = {**{name: 0 for name in counts}, "linear_attention_fulllane": 2 * len(levels),
+                "linear_attention_ctx_twopass": 1, "linear_attention_out_twopass": 1,
+                "linear_attention_per_head": 1, "bias_act_fused": len(gan)}
+    print(f"   launches {counts}", flush=True)
+    if counts != expected:
+        raise AssertionError(f"this slice's path launched {counts}, expected {expected}")
+
+    result = {"launches": counts, "levels": {}}
+    for i, (((block, module), x), (y32, y16), (n, c)) in enumerate(zip(levels, outs,
+                                                                      FORWARD_SHAPES)):
+        xb = x.bfloat16()
+        f32 = float((y32 - block(x)).abs().max())
+        if not f32 <= 1e-4:
+            raise AssertionError(f"module through #6 against #1's block, N={n} C={c}: f32 max "
+                                 f"abs diff {f32:.3e} beyond 1e-4")
+        with la_switches(kernels=False):
+            want = module(xb)
+        scale = torch.maximum(want.float().abs(), (want.float() - xb.float()).abs())
+        bf16 = check_close(y16, want, 3e-2, 3e-2, f"module bf16 N={n} C={c}", scale=scale)
+        result["levels"][f"{i}_N{n}_C{c}"] = {
+            "f32_vs_block": f32, "bf16_vs_plain_route": bf16,
+            "bf16_vs_block": float((y16.float() - block(xb).float()).abs().max())}
+    with la_switches(kernels=False):
+        want = tp_module(tp_x)
+    scale = torch.maximum(want.float().abs(), (want.float() - tp_x.float()).abs())
+    result["twopass_module_bf16_vs_plain_route"] = check_close(
+        tp_y, want, 3e-2, 3e-2, "module on the two-pass route", scale=scale)
+    want = la.linear_attention_reference(q, k, v)
+    result["per_head_max_err"] = la_check(y9, want, "#9 on the path")
+    result["per_head_rounding"] = check_rounding(y9, want, la.fulllane_reference(q, k, v),
+                                                 "#9 on the path")
+    result["bias_act_max_err"] = max(
+        check_close(y, so.bias_act_fused_reference(x, b, "lrelu", 0.2, math.sqrt(2), -1.0),
+                    8e-3, 8e-3, "#12 on the path") for y, (x, b) in zip(y12, gan))
+    print(f"   {json.dumps(result)}", flush=True)
+    return result
+
+
+def la_grad_parity(device) -> dict:
+    """Phase 17: one loss (mean squared error to a drawn target) + backward
+    of PreNormResidual(LinearAttention(64)) at B 128 on the 64x64 map (N
+    4096), f32 with TF32 off: kernel #6 forward with the plain backward
+    against the all-plain route (CCDM_TPU_FUSED_ATTN=0) on the same x and
+    target; every gradient (x and the five parameters) within 1e-3 of its
+    largest |g|, the loss to 1e-5; one launch of #6, none on the plain route."""
+    _, module = la_modules(64, 400, device)
+    x = _image(TRAIN_BATCH, 4096, 64, device, 401)
+    target = _image(TRAIN_BATCH, 4096, 64, device, 402)
+
+    def loss_and_grads():
+        module.zero_grad(set_to_none=True)
+        xx = x.detach().clone().requires_grad_()
+        loss = (module(xx) - target).square().mean()
+        loss.backward()
+        return loss.item(), {"x": xx.grad, **{name: p.grad.clone()
+                                              for name, p in module.named_parameters()}}
+
+    before = la.linear_attention_fulllane.launches
+    loss_k, grads_k = loss_and_grads()
+    with la_switches(kernels=False):
+        loss_p, grads_p = loss_and_grads()
+    if la.linear_attention_fulllane.launches - before != 1:
+        raise AssertionError("the training step did not launch #6 exactly once")
+    worst = 0.0
+    for name, want in grads_p.items():
+        scale = float(want.abs().max())
+        diff = float((grads_k[name] - want).abs().max())
+        if not diff <= 1e-3 * scale:
+            raise AssertionError(f"grad {name}: max abs diff {diff:.3e} beyond 1e-3 x {scale:.3e}")
+        worst = max(worst, diff / max(scale, 1e-30))
+    print(f"   loss {loss_k:.6f} (plain {loss_p:.6f}); worst gradient {worst:.3e} of its "
+          f"largest |g|", flush=True)
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
+        raise AssertionError(f"loss {loss_k} against plain {loss_p}")
+    return {"loss": loss_k, "loss_plain": loss_p, "worst_grad_rel_diff": worst}
+
+
+def slice4_kernel_rows(la_rows: dict, tp_rows: dict, ba_rows: dict, path: dict, grads: dict,
+                       card: str) -> list:
+    """The kernels-line entries of #6-#9 and #12."""
+    b, n, h, d = LA_MAIN
+    main = la_rows[f"B{b}_N{n}_H{h}_D{d}"]
+    tp_main = tp_rows["B{}_N{}_chunk{}".format(*TWOPASS_SHAPES[0])]
+    worst = lambda rows, keys: max(v for r in rows.values() for k, v in r["max_err"].items()
+                                   if any(k.startswith(p) for p in keys) and k.endswith("bfloat16"))
+    out = []
+    for name in LA:
+        timed = tp_main[name] if "twopass" in name else main[name]
+        rows = tp_rows if "twopass" in name else la_rows
+        keys = {"linear_attention_ctx_twopass": ("a_", "s_"),
+                "linear_attention_out_twopass": ("out_",)}.get(name, (name,))
+        out.append({
+            "name": name, "route": "cuda", "source": "ccdm_tpu_torch/csrc/linear_attention.cu",
+            "replaces": LA_REPLACES[name], "launches": path["launches"][name],
+            "max_abs_err": worst(rows, keys), **timed, "library_ms": None,
+            "ms_is": ("one call at B {}, N {}, H 4, D 32, chunk {}, bf16".format(
+                *TWOPASS_SHAPES[0]) if "twopass" in name
+                else f"one call at B {b}, N {n}, H {h}, D {d}, bf16"),
+            "by_shape": {tag: {**r.get(name, {}), "max_err": r["max_err"]}
+                         for tag, r in rows.items()},
+            "card": card})
+    out[0]["module_path"] = path
+    out[0]["module_grad_parity"] = grads
+    out[1]["route_ms"] = tp_main["route_ms"]
+    ba = ba_rows["{}x{}".format(*BIAS_ACT_MAIN)]
+    out.append({
+        "name": "bias_act_fused", "route": "cuda", "source": "ccdm_tpu_torch/csrc/style_ops.cu",
+        "replaces": "ccdm_tpu/ops/style_ops.py:92", "launches": path["launches"]["bias_act_fused"],
+        "max_abs_err": max(r["max_err"]["bfloat16"] for r in ba_rows.values()),
+        **ba["bias_act_fused"],
+        "ms_is": "one lrelu call, no bias, gain 1, no clamp (F.leaky_relu's function), "
+                 "[{}, {}] bf16".format(*BIAS_ACT_MAIN),
+        "by_shape": ba_rows, "card": card})
+    return out
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)
     if not torch.cuda.is_available():
@@ -913,13 +1396,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/14 device")
+    phase("1/19 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/14 build")
-    libraries = ("attn_block", "attn_block_large", "resnet_block")
+    phase("2/19 build")
+    libraries = ("attn_block", "attn_block_large", "resnet_block", "linear_attention",
+                 "style_ops")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, libraries))
@@ -932,52 +1416,70 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/14 attn_block kernel against its plain version")
+    phase("3/19 attn_block kernel against its plain version")
     rows = kernel_vs_plain(device)
 
-    phase("4/14 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/19 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/14 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/19 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/14 kernels #2-#5 against their plain versions, B 128, bf16 and f32")
+    phase("6/19 kernels #2-#5 against their plain versions, B 128, bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
 
-    phase("7/14 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/19 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
 
-    phase(f"8/14 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/19 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
     trained = train_main_path(
         device, card, TRAIN_ARGV, TRAIN_STEPS,
         {"attn_block": 8 * TRAIN_STEPS + ATTN_BLOCKS * EVAL_FORWARDS,
-         **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in RESNET}},
+         **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, train_checks(card))
 
-    phase("9/14 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+    phase("9/19 kernels #10 and #11 (the fused resnet block) against their plain versions, "
           "f32 and bf16")
     resnet_rows = resnet_vs_plain(device)
 
-    phase("10/14 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    phase("10/19 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
     fused_parity = fused_model_parity(device)
 
-    phase(f"11/14 main path with the switch on: SamplerService over HTTP, bf16, batch "
+    phase(f"11/19 main path with the switch on: SamplerService over HTTP, bf16, batch "
           f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
     fused_served = fused_serve_main_path(device, card)
 
-    phase(f"12/14 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+    phase(f"12/19 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
           f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
     fused_trained = train_main_path(
         device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
         {"attn_block": 8 * FUSED_TRAIN_STEPS
          + ATTN_BLOCKS * (FUSED_TRAIN_FORWARDS - FUSED_TRAIN_STEPS),
          **{k: 2 * FUSED_TRAIN_STEPS for k in LARGE},
-         **{k: RESNET_BLOCKS * FUSED_TRAIN_FORWARDS for k in RESNET}},
+         **{k: RESNET_BLOCKS * FUSED_TRAIN_FORWARDS for k in RESNET},
+         **{k: 0 for k in NEW_KERNELS}},
         True, fused_train_checks(card))
 
-    phase("13/14 kernels")
+    phase("13/19 kernels #6 and #9 (standalone linear attention) against their plain versions")
+    la_rows = la_vs_plain(device)
+
+    phase("14/19 kernels #7 + #8 (its two-pass form) against their plain versions")
+    tp_rows = twopass_vs_plain(device)
+
+    phase("15/19 kernel #12 (bias_act) against its plain version")
+    ba_rows = bias_act_vs_plain(device)
+
+    phase("16/19 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
+          "the two-pass route, linear_attention_per_head, bias_act")
+    la_path = la_main_path(device)
+
+    phase("17/19 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
+          "kernel forward against the plain route")
+    la_grads = la_grad_parity(device)
+
+    phase("18/19 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -1022,9 +1524,10 @@ def main() -> int:
     kernels[4]["train"] = trained
     kernels += resnet_kernel_rows(resnet_rows, fused_served, fused_trained, fused_parity, card,
                                   served["cfg_forward_ms"])
+    kernels += slice4_kernel_rows(la_rows, tp_rows, ba_rows, la_path, la_grads, card)
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("14/14 done")
+    phase("19/19 done")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

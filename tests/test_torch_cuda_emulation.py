@@ -57,6 +57,7 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   return bytes > 232448 ? cudaErrorInvalidValue : cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* device) { *device = 0; return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated CUDA error"; }
 inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
 namespace emu {
@@ -384,3 +385,153 @@ def test_emulated_resnet_halves_match_plain(emulated_resnet, b, hh, ww, cin, cou
     want = rb.half_b_reference(want_h1, x, w2, b2, g2, wres, bres, hh, ww)
     assert bool(torch.isfinite(y.float()).all())
     torch.testing.assert_close(y.float(), want.float(), **tol)
+
+
+# ---------------------------------- kernels #6-#9 (standalone linear attention)
+
+LA_FNS = {"ccdm_la_fulllane": (5, 5), "ccdm_la_per_head": (4, 5),
+          "ccdm_la_ctx_twopass": (7, 6), "ccdm_la_out_twopass": (3, 5)}
+
+
+@pytest.fixture(scope="module")
+def emulated_la(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the emulated kernels")
+    lib = _compile(tmp_path_factory.mktemp("cuda_emu_la"), "linear_attention")
+    for name, (n_ptr, n_int) in LA_FNS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _la_inputs(b, n, h, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    std = 2.0 if dtype == "float32" else 1.0
+    return [torch.from_numpy(rng.normal(0, std, (b, n, h, d)).astype(np.float32))
+            .to(getattr(torch, dtype)) for _ in range(3)]
+
+
+def _la_close(got, want, dtype):
+    """The bounds of tests/test_linear_attention.py: f32 rtol 2e-3, atol
+    1e-4; bf16 rtol 3e-2 and atol 3e-2 of max |want| (the outputs lie near
+    1e-2)."""
+    tol = (dict(rtol=2e-3, atol=1e-4) if dtype == "float32"
+           else dict(rtol=3e-2, atol=3e-2 * float(want.float().abs().max())))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _la_rounding(got, own, other):
+    """In bf16 a kernel keeps its plain version's rounding points: its mean
+    abs difference to `own` is at most a quarter of that to `other`, the
+    same function rounded at other points."""
+    near = float((got.float() - own.float()).abs().mean())
+    far = float((got.float() - other.float()).abs().mean())
+    assert near <= 0.25 * far, (near, far)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,h,d", [
+    (2, 100, 4, 32),  # N past one 64-token tile and 3 context tiles, short last tile
+    (1, 70, 2, 64),
+    (1, 33, 8, 16),
+    (1, 20, 1, 128),
+    (1, 40, 3, 24),   # D 24 in the width-32 instantiation: padded channels
+])
+def test_emulated_fulllane_and_per_head_match_plain(emulated_la, b, n, h, d, dtype):
+    """Kernels #6 and #9 against their plain versions (bounds of
+    tests/test_linear_attention.py), in bf16 each nearer its own rounding
+    points than the other's."""
+    from ccdm_tpu_torch.ops import linear_attention as la
+
+    q, k, v = _la_inputs(b, n, h, d, dtype, seed=n + d)
+    bf16 = int(dtype == "bfloat16")
+    out, ctx = torch.empty_like(q), torch.empty(b, h, d, d, dtype=q.dtype)
+    _call(emulated_la, "ccdm_la_fulllane", q, k, v, ctx, out, b, n, h, d, bf16)
+    assert bool(torch.isfinite(out.float()).all())
+    want6, want9 = la.fulllane_reference(q, k, v), la.linear_attention_reference(q, k, v)
+    _la_close(out, want6, dtype)
+    out9 = torch.empty_like(q)
+    _call(emulated_la, "ccdm_la_per_head", q, k, v, out9, b, n, h, d, bf16)
+    _la_close(out9, want9, dtype)
+    if bf16:  # #6 rounds k', v, ctx and q'; #9 only its output
+        _la_rounding(out, want6, want9)
+        _la_rounding(out9, want9, want6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,h,d,chunk", [
+    (2, 300, 4, 32, 128),  # three chunks, the last one 44 tokens
+    (1, 256, 2, 64, 256),  # one chunk
+    (1, 90, 8, 16, 64),
+    (1, 50, 1, 128, 32),
+])
+def test_emulated_twopass_matches_plain(emulated_la, b, n, h, d, chunk, dtype):
+    """Kernel #7 (partials per chunk, then their sum in order) and #8
+    against their plain versions; a and s relative to their largest value;
+    in bf16 each nearer its own rounding points than another's."""
+    from ccdm_tpu_torch.ops import linear_attention as la
+
+    q, k, v = _la_inputs(b, n, h, d, dtype, seed=n * 3 + d)
+    bf16 = int(dtype == "bfloat16")
+    f, nc = h * d, -(-n // chunk)
+    m = k.float().amax(1).reshape(b, f).contiguous()
+    a, s = torch.empty(b, h, d, d), torch.empty(b, f)
+    _call(emulated_la, "ccdm_la_ctx_twopass", k, v, m, torch.empty(b, nc, h, d, d),
+          torch.empty(b, nc, f), a, s, b, n, h, d, chunk, bf16)
+    ra, rs = la.ctx_twopass_reference(k, v, m)
+    for got, want in ((a, ra), (s, rs)):
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=1e-4 * float(want.abs().max()))
+    ctx = la.finalize_ctx(ra, rs, q.dtype)
+    out = torch.empty_like(q)
+    _call(emulated_la, "ccdm_la_out_twopass", q, ctx, out, b, n, h, d, bf16)
+    want = la.out_twopass_reference(q, ctx)
+    _la_close(out, want, dtype)
+    if bf16:  # #7 rounds exp(k - m), s sums it unrounded; #8 rounds q'
+        e = torch.exp(k.float() - m.view(b, 1, h, d))
+        _la_rounding(a, ra, torch.einsum("bnhd,bnhe->bhde", e, v.float()))
+        _la_rounding(s, rs, e.bfloat16().float().sum(1).reshape(b, f))
+        _la_rounding(out, want, torch.einsum("bnhd,bhde->bnhe", la._q_prime(q, torch.float32),
+                                             ctx.float()).to(q.dtype))
+
+
+# ------------------------------------------------------ kernel #12 (bias_act)
+
+
+@pytest.fixture(scope="module")
+def emulated_style(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the emulated kernel")
+    lib = _compile(tmp_path_factory.mktemp("cuda_emu_style"), "style_ops")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ccdm_bias_act.argtypes = [p, p, p, ctypes.c_longlong, i, i, ctypes.c_float,
+                                  ctypes.c_float, ctypes.c_float, i, i, p]
+    lib.ccdm_bias_act.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,c,vec", [(37, 128, 0), (5, 24, 0), (3, 13, 1)])
+def test_emulated_bias_act_matches_plain(emulated_style, rows, c, vec, dtype):
+    """Kernel #12, every activation, with and without bias, clamp and an
+    explicit gain; a row count off the 256-thread tile; 16-byte vectors
+    (vec 0) and one value a thread (vec 1). Both compute in f32 and round
+    once: f32 to 1e-5, bf16 to one unit where a rounding flips (8e-3)."""
+    from ccdm_tpu_torch.ops import style_ops as so
+
+    rng = np.random.default_rng(rows * c)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(0, 2, (rows, c)).astype(np.float32)).to(dt)
+    b = torch.from_numpy(rng.normal(0, 1, c).astype(np.float32)).to(dt)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == "float32" else dict(rtol=8e-3, atol=8e-3)
+    for act in so.activation_funcs:
+        for bias, gain, clamp in ((None, None, None), (b, 0.5, 1.5)):
+            _, alpha, gain, clamp = so._resolve(act, None, gain, clamp)
+            y = torch.empty_like(x)
+            err = emulated_style.ccdm_bias_act(
+                x.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
+                x.numel(), c, so._ACT_INDEX[act], alpha, gain, clamp, vec,
+                int(dt == torch.bfloat16), None)
+            assert err == 0, act
+            want = so.bias_act_fused_reference(x, bias, act, alpha, gain, clamp)
+            torch.testing.assert_close(y.float(), want.float(), **tol, msg=act)

@@ -52,7 +52,7 @@ def test_port_and_smoke_script_import_no_jax():
     assert len(report["modules"]) >= 20, report["modules"]
     for name in ("serve", "main", "ops.vicinal", "training.vicinity", "training.hyperparams",
                  "training.trainer", "training.state", "utils.ckpt", "utils.logging",
-                 "data.datasets", "ops.attn_block"):
+                 "data.datasets", "ops.attn_block", "ops.linear_attention", "ops.style_ops"):
         assert f"ccdm_tpu_torch.{name}" in report["new"], name
     assert [m for m in report["new"] if _is_jax(m)] == []
 
