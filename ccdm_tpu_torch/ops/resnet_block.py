@@ -16,7 +16,11 @@ CCDM_TPU_FUSED_RESBLOCK=1, read once at import into `USE_FUSED`:
   have no backward kernel).
 Each kernel wrapper launches its kernel on a CUDA tensor and runs its plain
 PyTorch version (beside it here) on a CPU tensor; nothing falls back from
-one to the other.
+one to the other. On the card the kernels choose their route by dtype and
+shape (`plan`): f32 on the CUDA cores; bf16 on the tensor cores, fused (one
+launch, a block owning whole pixel rows) where Cout <= 128 fills the card,
+else split (K split over blocks into an f32 workspace the wrapper
+allocates, then an epilogue launch).
 
 The kernels take the JAX layout: x [B, H*W, C] token-major (the port's
 channels_last memory read as [B, H, W, C]), conv weights tap-major
@@ -30,8 +34,9 @@ which runs the convs in the activation dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +48,26 @@ from ccdm_tpu_torch.ops.linear_attention import _op
 USE_FUSED = os.environ.get("CCDM_TPU_FUSED_RESBLOCK", "0") == "1"
 
 
+def reference_half_a(x, scale, shift, w1, b1, g1) -> torch.Tensor:
+    """The first half of `resnet_block_reference`, the function of #10:
+    SiLU(FiLM(RMSNorm_g1(conv3x3(x) + b1))), NCHW."""
+    dt = x.dtype
+    film = lambda v: v.to(dt)[:, :, None, None]
+    h = F.conv2d(x, w1.to(dt), b1.to(dt), padding=1)
+    h = _rms_norm(h, g1, dim=1)
+    return F.silu(h * (film(scale) + 1.0) + film(shift))
+
+
+def reference_half_b(h, x, w2, b2, g2, wres, bres) -> torch.Tensor:
+    """The second half, the function of #11: SiLU(RMSNorm_g2(conv3x3(h) +
+    b2)) + x, or + conv1x1(x) with wres [Cout, Cin, 1, 1]."""
+    dt = x.dtype
+    h = F.conv2d(h, w2.to(dt), b2.to(dt), padding=1)
+    h = F.silu(_rms_norm(h, g2, dim=1))
+    res = x if wres is None else F.conv2d(x, wres.to(dt), bres.to(dt))
+    return h + res
+
+
 def resnet_block_reference(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                            w1: torch.Tensor, b1: torch.Tensor, g1: torch.Tensor,
                            w2: torch.Tensor, b2: torch.Tensor, g2: torch.Tensor,
@@ -51,15 +76,8 @@ def resnet_block_reference(x: torch.Tensor, scale: torch.Tensor, shift: torch.Te
     """x [B, Cin, H, W]; scale/shift [B, Cout]; w1 [Cout, Cin, 3, 3];
     w2 [Cout, Cout, 3, 3]; wres [Cout, Cin, 1, 1] or None (identity
     residual). Conv compute dtype follows x (ccdm_tpu/ops/resnet_block.py:33-64)."""
-    dt = x.dtype
-    film = lambda v: v.to(dt)[:, :, None, None]
-    h = F.conv2d(x, w1.to(dt), b1.to(dt), padding=1)
-    h = _rms_norm(h, g1, dim=1)
-    h = F.silu(h * (film(scale) + 1.0) + film(shift))
-    h = F.conv2d(h, w2.to(dt), b2.to(dt), padding=1)
-    h = F.silu(_rms_norm(h, g2, dim=1))
-    res = x if wres is None else F.conv2d(x, wres.to(dt), bres.to(dt))
-    return h + res
+    return reference_half_b(reference_half_a(x, scale, shift, w1, b1, g1), x, w2, b2, g2,
+                            wres, bres)
 
 
 # ------------------------------------------------------ plain kernels
@@ -108,14 +126,53 @@ def half_b_reference(h1, x2d, w2, b2, g2, wres, bres, hh: int, ww: int) -> torch
 # ------------------------------------------------------------ launches
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("resnet_block")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptr, n_int in (("ccdm_resnet_half_a", 7, 6), ("ccdm_resnet_half_b", 8, 7)):
-        fn = getattr(lib, name)
-        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
-        fn.restype = ctypes.c_int
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the ctypes signatures of csrc/resnet_block.cu's entry points on a
+    library built from it (here, in the g++ emulation or as a variant)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ccdm_resnet_half_a.argtypes = [p] * 8 + [i] * 6 + [ll, p]
+    lib.ccdm_resnet_half_b.argtypes = [p] * 9 + [i] * 7 + [ll, p]
+    lib.ccdm_resnet_half_a.restype = lib.ccdm_resnet_half_b.restype = ctypes.c_int
+    lib.ccdm_resnet_plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ccdm_resnet_plan.restype = ll
+    lib.ccdm_resnet_set_wave.argtypes = [i]
+    lib.ccdm_cuda_error_string.argtypes = [i]
+    lib.ccdm_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The library, declared once."""
+    return declare(_build.load("resnet_block"))
+
+
+class Plan(NamedTuple):
+    """How csrc/resnet_block.cu runs one call: route "f32" (CUDA cores),
+    "fused" (tensor cores, one launch) or "split" (tensor cores, K split
+    over blocks, then an epilogue launch); the tile's pixels and channels,
+    the K splits, and the f32 workspace bytes the split route needs."""
+    route: str
+    tile: tuple
+    splits: int
+    workspace_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(half: str, batch: int, hh: int, ww: int, cin: int, cout: int, has_res: bool,
+         dtype: torch.dtype) -> Plan:
+    """The kernel's plan for half "a" (#10) or "b" (#11) at this shape, as
+    the C code computes it (a function of the shape alone)."""
+    out = (ctypes.c_int * 4)()
+    nbytes = _library().ccdm_resnet_plan(int(half == "b"), batch, hh, ww, cin, cout,
+                                         int(has_res), int(dtype == torch.bfloat16), out)
+    return Plan(("f32", "fused", "split")[out[0]], (out[1], out[2]), out[3], nbytes)
+
+
+def _workspace(pl: Plan, dev) -> Optional[torch.Tensor]:
+    if not pl.workspace_bytes:
+        return None
+    return torch.empty(pl.workspace_bytes // 4, dtype=torch.float32, device=dev)
 
 
 def _check_activation(x2d, hh, ww):
@@ -149,8 +206,10 @@ def resnet_half_a(x2d, scale, shift, w1, b1, g1, hh: int, ww: int) -> torch.Tens
            _operand("b1", b1, (cout,), dev, torch.float32),
            _operand("g1", g1, (cout,), dev, torch.float32)]
     h1 = torch.empty((b, hh * ww, cout), dtype=dt, device=dev)
+    pl = plan("a", b, hh, ww, cin, cout, False, dt)
     _build.run(_library(), "ccdm_resnet_half_a", "resnet_half_a kernel launch", dev,
-               x2d, *ins, h1, b, hh, ww, cin, cout, int(dt == torch.bfloat16))
+               x2d, *ins, h1, _workspace(pl, dev), b, hh, ww, cin, cout,
+               int(dt == torch.bfloat16), pl.workspace_bytes)
     resnet_half_a.launches += 1
     return h1
 
@@ -175,9 +234,10 @@ def resnet_half_b(h1, x2d, w2, b2, g2, wres, bres, hh: int, ww: int) -> torch.Te
     res = ([_operand("wres", wres, (cin, cout), dev, dt),
             _operand("bres", bres, (cout,), dev, torch.float32)] if has_res else [None, None])
     y = torch.empty((b, n, cout), dtype=dt, device=dev)
+    pl = plan("b", b, hh, ww, cin, cout, has_res, dt)
     _build.run(_library(), "ccdm_resnet_half_b", "resnet_half_b kernel launch", dev,
-               ins[0], x2d, *ins[1:], *res, y, b, hh, ww, cin, cout, int(has_res),
-               int(dt == torch.bfloat16))
+               ins[0], x2d, *ins[1:], *res, y, _workspace(pl, dev), b, hh, ww, cin, cout,
+               int(has_res), int(dt == torch.bfloat16), pl.workspace_bytes)
     resnet_half_b.launches += 1
     return y
 

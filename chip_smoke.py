@@ -51,9 +51,12 @@ Phases, each announced on a flushed line before it starts:
      the EMA grid, 8 for the eval sampling and the ddpm request): f32 with
      TF32 off (rtol 2e-3, atol 2e-4) and bf16 (rtol = atol = 4e-2), the
      bounds of tests/test_resnet_block.py; at B 64 (and B 128 at 64x64)
-     each shape timed in bf16 beside its plain versions and the cuDNN
-     composition of the whole block (resnet_block_reference in bf16, the
-     route of the switch off);
+     each shape timed in bf16 beside its plain versions, each half's
+     composition in resnet_block_reference (library_ms), its bare cuDNN
+     convs (cudnn_conv_ms) and the cuDNN composition of the whole block (the
+     route of the switch off), with the route the kernels took (fused or
+     split, tile, K splits), the wrappers' host time, TFLOP/s and the share
+     of the bound; then the same per level (H = W) over one B-64 forward;
   10. the full-width f32 UNet (TF32 off) with CCDM_TPU_FUSED_RESBLOCK on
      against off: one forward and a 5-step CFG DDIM run from the same noise,
      each within 1e-3 (phase 4's check); 23 launches of each kernel per
@@ -61,8 +64,9 @@ Phases, each announced on a flushed line before it starts:
   11. serving with the switch on: SamplerService at full width in bf16,
      batch 32, 25 DDIM steps, over HTTP; launches exactly 23 x 25 x batches
      of #10 and #11 (and 10 x 25 x batches of #1); phase 5's CFG forward
-     timed with the switch on; then one request to a --sampler ddpm
-     service with 10 ancestral steps (uint8, not constant);
+     timed with the switch on, then with the switch off and on in turns
+     (event and host time); then one request to a --sampler ddpm service
+     with 10 ancestral steps (uint8, not constant);
   12. training with the switch on: `python -m ccdm_tpu_torch.main` at full
      width, batch 128, bf16, 5 steps, --sample_every 5 (one EMA grid of 36
      images, 10 DDIM steps), a milestone, then 2 eval labels x 4 images,
@@ -100,8 +104,9 @@ Phases, each announced on a flushed line before it starts:
      within 1e-3 of its largest |g|;
   18. the share of the timed CFG forwards that the 23 blocks take (the
      cuDNN composition with the switch off, #10 + #11 with it on, each
-     timed alone in phase 9), then one JSON line {"kernels": [...]} with
-     errors, times and bounds of all 12 kernels;
+     timed alone in phase 9), #10 + #11 against that composition and per
+     level, then one JSON line {"kernels": [...]} with errors, times and
+     bounds of all 12 kernels;
   19. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
@@ -370,6 +375,26 @@ def cfg_forward_ms(service: SamplerService) -> float:
     emb = service.fn_y2h(torch.linspace(0.05, 0.95, SERVE_BATCH, device=device)[:, None])
     return time_ms(lambda: service.diffusion.model_predictions(x, t, emb, cond_scale=1.5),
                    reps=10)
+
+
+def cfg_forward_turns(service: SamplerService) -> dict:
+    """The same CFG forward with the resnet switch off and on in turns (off,
+    on, on, off): per switch, the mean event time and the mean host time
+    (the Python and the enqueue of 10 forwards, no synchronisation inside).
+    Where the two are equal, the forward waits on the host."""
+    device, c = service.diffusion.device, service.diffusion.config
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(SERVE_BATCH, c.image_size, c.image_size, c.channels, generator=g).to(device)
+    t = torch.full((SERVE_BATCH,), 500, device=device)
+    emb = service.fn_y2h(torch.linspace(0.05, 0.95, SERVE_BATCH, device=device)[:, None])
+    fwd = lambda: service.diffusion.model_predictions(x, t, emb, cond_scale=1.5)
+    out = {"off": {"ms": [], "host_ms": []}, "on": {"ms": [], "host_ms": []}}
+    for on in (False, True, True, False):
+        with fused_resnet(on):
+            r = out["on" if on else "off"]
+            r["ms"].append(time_ms(fwd, reps=10))
+            r["host_ms"].append(host_ms(fwd, reps=10))
+    return {k: {m: sum(v) / len(v) for m, v in r.items()} for k, r in out.items()}
 
 
 def serve_main_path(device, card: str) -> dict:
@@ -778,18 +803,40 @@ def _as_block(t: dict, hh: int, dt):
             None if t["wres"] is None else t["wres"].t().reshape(cout, cin, 1, 1), t["bres"])
 
 
+def resnet_yardsticks(t: dict, hh: int, dt) -> dict:
+    """Per half, (its composition in resnet_block_reference, its bare convs)
+    as callables on the same inputs in NCHW channels_last: cuDNN convs plus
+    the eager norm, FiLM, SiLU and residual; and the products alone."""
+    x, scale, shift, w1, b1, g1, w2, b2, g2, wres, bres = _as_block(t, hh, dt)
+    h = resnet_block.reference_half_a(x, scale, shift, w1, b1, g1)
+    w1c, w2c = w1.to(dt), w2.to(dt)
+    wresc = None if wres is None else wres.to(dt)
+    conv = torch.nn.functional.conv2d
+    return {"resnet_half_a": (
+                lambda: resnet_block.reference_half_a(x, scale, shift, w1, b1, g1),
+                lambda: conv(x, w1c, padding=1)),
+            "resnet_half_b": (
+                lambda: resnet_block.reference_half_b(h, x, w2, b2, g2, wres, bres),
+                (lambda: conv(h, w2c, padding=1)) if wresc is None else
+                (lambda: (conv(h, w2c, padding=1), conv(x, wresc))))}
+
+
 @torch.no_grad()
 def resnet_vs_plain(device) -> dict:
     """Phase 9: #10 and #11 against their plain versions per shape, f32 and
     bf16, at every batch the main paths give them (RESNET_BATCHES); bf16
-    times at B 64 (and B 128 at 64x64) beside the plain versions and the
-    cuDNN composition of the whole block."""
+    times at B 64 (and B 128 at 64x64) beside the plain versions, each
+    half's composition (library_ms), its bare cuDNN convs (cudnn_conv_ms)
+    and the cuDNN composition of the whole block, with the route taken, the
+    wrapper's host time, TFLOP/s and the share of the bound."""
     rows = {}
     cases = [(shape, batch) for batch in RESNET_BATCHES for shape in RESNET_SHAPES]
     for i, ((hh, cin, cout), batch) in enumerate(cases):
         timed = batch == BATCH or (batch == TRAIN_BATCH and hh == 64)
         t = resnet_inputs(hh, cin, cout, batch, device, seed=80 + i)
-        row = {"max_err": {}}
+        row = {"max_err": {}, "plan": {
+            name: resnet_block.plan(name[-1], batch, hh, hh, cin, cout, cin != cout,
+                                    torch.bfloat16)._asdict() for name in RESNET}}
         for dt in (torch.float32, torch.bfloat16):
             tol = (2e-3, 2e-4) if dt == torch.float32 else (4e-2, 4e-2)
             tag = f"H={hh} Cin={cin} Cout={cout} B={batch} {str(dt)[6:]}"
@@ -806,16 +853,19 @@ def resnet_vs_plain(device) -> dict:
                 resnet_block.resnet_half_b(*b_args), resnet_block.half_b_reference(*b_args),
                 *tol, f"#11 {tag}")
             if dt == torch.bfloat16 and timed:
-                block = _as_block(t, hh, dt)
+                yard = resnet_yardsticks(t, hh, dt)
                 calls = {"resnet_half_a": (lambda: resnet_block.resnet_half_a(*a_args),
                                            lambda: resnet_block.half_a_reference(*a_args)),
                          "resnet_half_b": (lambda: resnet_block.resnet_half_b(*b_args),
                                            lambda: resnet_block.half_b_reference(*b_args))}
                 for name, (kernel, plain) in calls.items():
-                    t_bytes, t_ops = resnet_bound_parts(name, hh * hh, cin, cout, batch)
-                    row[name] = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
-                                 "bound_ms": max(t_bytes, t_ops),
-                                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                    parts = resnet_bound_parts(name, hh * hh, cin, cout, batch)
+                    r = timing(kernel, plain, parts, library=yard[name][0])
+                    r["cudnn_conv_ms"] = time_ms(yard[name][1])
+                    r["tflops"] = parts[1] * BF16_FLOPS / r["ms"] / 1e12
+                    r["bound_share"] = r["bound_ms"] / r["ms"]
+                    row[name] = r
+                block = _as_block(t, hh, dt)
                 row["cudnn_block_ms"] = time_ms(
                     lambda: resnet_block.resnet_block_reference(*block))
         rows[f"H{hh}_Cin{cin}_Cout{cout}_B{batch}"] = row
@@ -823,7 +873,40 @@ def resnet_vs_plain(device) -> dict:
               flush=True)
         del t, x, h1, a_args, b_args
         torch.cuda.empty_cache()
+    print_resnet_levels(resnet_levels(rows))
     return rows
+
+
+def resnet_levels(rows: dict) -> dict:
+    """Per level (H = W) and half, over the blocks of one B-64 forward: the
+    summed times, bound, TFLOP/s, share of the bound, host time and routes."""
+    levels = {}
+    for (hh, cin, cout), k in RESNET_SHAPES.items():
+        r = rows[f"H{hh}_Cin{cin}_Cout{cout}_B{BATCH}"]
+        for name in RESNET:
+            lv = levels.setdefault(f"H{hh}", {}).setdefault(name, {
+                "ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "cudnn_conv_ms": 0.0,
+                "host_ms": 0.0, "tflop": 0.0, "routes": []})
+            for key in ("ms", "bound_ms", "library_ms", "cudnn_conv_ms", "host_ms"):
+                lv[key] += k * r[name][key]
+            lv["tflop"] += k * r[name]["tflops"] * r[name]["ms"] * 1e-3
+            pl = r["plan"][name]
+            lv["routes"].append(f"{k}x Cin {cin} Cout {cout}: {pl['route']} "
+                                f"{pl['tile'][0]}x{pl['tile'][1]} splits {pl['splits']}")
+    for lv in levels.values():
+        for r in lv.values():
+            r["tflops"] = r["tflop"] / (r["ms"] * 1e-3)
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+    return levels
+
+
+def print_resnet_levels(levels: dict) -> None:
+    for level, halves in levels.items():
+        for name, r in halves.items():
+            print(f"   {level} {name}: {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+                  f"{100 * r['bound_share']:.1f}% of the bound {r['bound_ms']:.4f}); composition "
+                  f"{r['library_ms']:.4f}, bare cuDNN convs {r['cudnn_conv_ms']:.4f}, host "
+                  f"{r['host_ms']:.4f} ms; {'; '.join(r['routes'])}", flush=True)
 
 
 def fused_model_parity(device) -> dict:
@@ -863,6 +946,10 @@ def fused_serve_main_path(device, card: str) -> dict:
             raise AssertionError(f"switch-on serving launched {got}, expected {expected}")
         forward_ms = cfg_forward_ms(service)
         print(f"   one CFG forward (B {BATCH}, bf16): {forward_ms:.4f} ms", flush=True)
+        turns = cfg_forward_turns(service)
+        print(f"   the same forward in turns: switch off {turns['off']['ms']:.4f} ms (host "
+              f"{turns['off']['host_ms']:.4f}), on {turns['on']['ms']:.4f} ms (host "
+              f"{turns['on']['host_ms']:.4f})", flush=True)
 
         ddpm = SamplerService(parse_opts([*argv, "--sampler", "ddpm", "--sample_timesteps",
                                           str(DDPM_STEPS)]),
@@ -872,7 +959,7 @@ def fused_serve_main_path(device, card: str) -> dict:
               f"{ddpm_s:.2f} s: uint8, not constant", flush=True)
     return {"launches": got, "batches": batches, "images_per_s": ips,
             "requested_images": n_images, "request_s": req_s, "ddpm_request_s": ddpm_s,
-            "cfg_forward_ms": forward_ms}
+            "cfg_forward_ms": forward_ms, "cfg_forward_turns": turns}
 
 
 def read_png(path: Path) -> np.ndarray:
@@ -927,7 +1014,13 @@ def resnet_kernel_rows(rows: dict, served: dict, trained: dict, parity: dict, ca
                                             else "y_bfloat16"] for r in rows.values()),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes" if 2 * by_bytes >= total("bound_ms") else "operations",
-            "library_ms": None,
+            "library_ms": total("library_ms"),
+            "library_ms_is": "the half's composition in resnet_block_reference (cuDNN conv, "
+                             "eager norm, FiLM or residual, SiLU), bf16, summed over the 23",
+            "cudnn_conv_ms": total("cudnn_conv_ms"),
+            "cudnn_conv_ms_is": "the half's bare F.conv2d (and #11's 1x1 projection), "
+                                "channels_last, bf16, summed over the 23",
+            "host_ms": total("host_ms"),
             "cudnn_block_ms": sum(r["cudnn_block_ms"] * k for r, k in fwd),
             "cudnn_block_ms_is": "the whole block (both halves) as resnet_block_reference "
                                  "in bf16 (cuDNN convs), summed over the 23 blocks",
@@ -940,15 +1033,27 @@ def resnet_kernel_rows(rows: dict, served: dict, trained: dict, parity: dict, ca
             "card": card})
     cudnn = out[0]["cudnn_block_ms"]
     kernels = out[0]["ms"] + out[1]["ms"]
+    turns = served["cfg_forward_turns"]
     out[0]["cfg_forward"] = {
         "switch_off_ms": forward_off_ms, "switch_on_ms": served["cfg_forward_ms"],
         "cudnn_blocks_share_of_switch_off": cudnn / forward_off_ms,
-        "kernels_share_of_switch_on": kernels / served["cfg_forward_ms"]}
+        "kernels_share_of_switch_on": kernels / served["cfg_forward_ms"],
+        "in_turns_phase_11": turns}
     print(f"   one CFG forward (B {BATCH}, bf16): {forward_off_ms:.4f} ms with the switch off, "
           f"of which the 23 blocks' cuDNN composition (timed alone) {cudnn:.4f} ms "
           f"({100 * cudnn / forward_off_ms:.1f}%); {served['cfg_forward_ms']:.4f} ms with "
           f"the switch on, of which #10 + #11 (timed alone) {kernels:.4f} ms "
-          f"({100 * kernels / served['cfg_forward_ms']:.1f}%)", flush=True)
+          f"({100 * kernels / served['cfg_forward_ms']:.1f}%); in turns in phase 11: off "
+          f"{turns['off']['ms']:.4f} ms (host {turns['off']['host_ms']:.4f}), on "
+          f"{turns['on']['ms']:.4f} ms (host {turns['on']['host_ms']:.4f})", flush=True)
+    print(f"   #10 + #11 over the 23 blocks: {kernels:.4f} ms against the cuDNN composition "
+          f"of the same blocks {cudnn:.4f} ms ({kernels / cudnn:.2f}x); per half: #10 "
+          f"{out[0]['ms']:.4f} (composition {out[0]['library_ms']:.4f}, bare convs "
+          f"{out[0]['cudnn_conv_ms']:.4f}), #11 {out[1]['ms']:.4f} (composition "
+          f"{out[1]['library_ms']:.4f}, bare convs {out[1]['cudnn_conv_ms']:.4f})", flush=True)
+    levels = resnet_levels(rows)
+    print_resnet_levels(levels)
+    out[0]["levels"] = levels
     out[0]["model_parity"] = parity
     out[0]["serve"] = served
     out[1]["train"] = trained

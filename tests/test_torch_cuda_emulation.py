@@ -32,6 +32,7 @@ CUDA_RUNTIME_H = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <thread>
 #include <vector>
@@ -39,7 +40,7 @@ CUDA_RUNTIME_H = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 using std::min;
 using std::max;
@@ -48,6 +49,7 @@ struct dim3 {
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
@@ -108,6 +110,70 @@ inline float __shfl_sync(unsigned, float v, int src_lane) {
   const float r = emu::exchange[w][src_lane];
   emu::warp_barriers[w]->arrive_and_wait();
   return r;
+}
+// The PTX helpers of a source (CCDM_PTX_EMULATED), with the fragment layouts
+// of the PTX ISA ("Matrix Fragments for mma.m16n8k16", bf16 inputs;
+// "ldmatrix"): each lane publishes its operands, the warp meets at a barrier,
+// each lane reads what the ISA puts in its registers.
+#define CCDM_PTX_EMULATED 1
+namespace emu {
+inline uint32_t regs[64][32][6];
+inline const void* rows[64][32];
+inline float bf16_bits(uint32_t r, int high) {
+  const uint32_t u = high ? (r & 0xffff0000u) : (r << 16);
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// Lane l gives the address of row l % 8 of matrix l / 8. Register i of lane l:
+// row l / 4 of matrix i, elements 2 (l % 4) and 2 (l % 4) + 1 (low half
+// first); with trans, the same of the transposed matrix.
+inline void ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  rows[w][l] = p;
+  warp_barriers[w]->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) {
+    uint16_t e[2];
+    for (int j = 0; j < 2; ++j) {
+      const int a = 2 * (l % 4) + j;
+      e[j] = trans ? static_cast<const uint16_t*>(rows[w][8 * i + a])[l / 4]
+                   : static_cast<const uint16_t*>(rows[w][8 * i + l / 4])[a];
+    }
+    r[i] = uint32_t(e[0]) | (uint32_t(e[1]) << 16);
+  }
+  warp_barriers[w]->arrive_and_wait();
+}
+}  // namespace emu
+inline void cp_async_16(void* dst, const void* src, int src_bytes) {
+  std::memcpy(dst, src, src_bytes);
+  std::memset(static_cast<char*>(dst) + src_bytes, 0, 16 - src_bytes);
+}
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
+inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) { emu::ldmatrix(r, p, false); }
+inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) { emu::ldmatrix(r, p, true); }
+// A 16x16: a0 (row g, k 2t, 2t+1), a1 (row g+8), a2 (k + 8), a3 (row g+8, k + 8);
+// B 16x8: b0 (k 2t, 2t+1, col g), b1 (k + 8); D 16x8: d0, d1 (row g, cols
+// 2t, 2t+1), d2, d3 (row g+8); g = lane / 4, t = lane % 4.
+inline void mma_16816(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  for (int i = 0; i < 4; ++i) emu::regs[w][l][i] = a[i];
+  for (int i = 0; i < 2; ++i) emu::regs[w][l][4 + i] = b[i];
+  emu::warp_barriers[w]->arrive_and_wait();
+  auto A = [&](int row, int k) {
+    const uint32_t r = emu::regs[w][(row % 8) * 4 + (k % 8) / 2][(row >= 8) + 2 * (k >= 8)];
+    return emu::bf16_bits(r, k % 2);
+  };
+  auto B = [&](int k, int n) {
+    return emu::bf16_bits(emu::regs[w][n * 4 + (k % 8) / 2][4 + (k >= 8)], k % 2);
+  };
+  for (int i = 0; i < 4; ++i) {
+    const int row = l / 4 + 8 * (i / 2), col = 2 * (l % 4) + i % 2;
+    float s = d[i];
+    for (int k = 0; k < 16; ++k) s += A(row, k) * B(k, col);
+    d[i] = s;
+  }
+  emu::warp_barriers[w]->arrive_and_wait();
 }
 """
 
@@ -330,37 +396,37 @@ def test_emulated_fused_backward_matches_plain(emulated_large, b, n, c, dtype):
 
 # --------------------------------------- kernels #10 and #11 (resnet block)
 
-RESNET_FNS = {"ccdm_resnet_half_a": (7, 6), "ccdm_resnet_half_b": (8, 7)}
+RESNET_ROUTES = ("f32", "fused", "split")
 
 
 @pytest.fixture(scope="module")
 def emulated_resnet(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the emulated kernels")
-    lib = _compile(tmp_path_factory.mktemp("cuda_emu_resnet"), "resnet_block")
-    for name, (n_ptr, n_int) in RESNET_FNS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    from ccdm_tpu_torch.ops import resnet_block as rb
+
+    return rb.declare(_compile(tmp_path_factory.mktemp("cuda_emu_resnet"), "resnet_block"))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,hh,ww,cin,cout", [
-    (2, 9, 9, 24, 64),   # projection residual; 162 pixels over two 128-pixel tiles
-    (2, 6, 6, 128, 128),  # identity residual; 72 pixels over two 64-pixel tiles
-    (3, 4, 5, 20, 40),   # Cout 40: one thread of the block idle, a part K slice
-])
-def test_emulated_resnet_halves_match_plain(emulated_resnet, b, hh, ww, cin, cout, dtype):
-    """Kernels #10 and #11 against their plain versions: tiles that cross
-    an image and the map border, part K slices, both residuals. Bounds of
-    tests/test_resnet_block.py: f32 rtol 2e-3 / atol 2e-4, bf16 4e-2."""
+def _resnet_plan(lib, half_b, b, hh, ww, cin, cout, has_res, bf16):
+    """(route, workspace) of the library's plan for one call."""
+    out = (ctypes.c_int * 4)()
+    nbytes = lib.ccdm_resnet_plan(half_b, b, hh, ww, cin, cout, has_res, bf16, out)
+    return RESNET_ROUTES[out[0]], torch.empty(nbytes // 4), nbytes
+
+
+def _resnet_halves(lib, b, hh, ww, cin, cout, dtype, x_offset=0):
+    """Both halves in the emulation against their plain versions, at the
+    bounds of tests/test_resnet_block.py (f32 rtol 2e-3 / atol 2e-4, bf16
+    4e-2); x at `x_offset` elements past an aligned base. Returns the routes
+    the two calls took."""
     from ccdm_tpu_torch.ops import resnet_block as rb
 
     rng = np.random.default_rng(b * 1000 + cin)
     dt = getattr(torch, dtype)
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
-    x = f32(rng.normal(size=(b, hh * ww, cin))).to(dt)
+    x = torch.empty(b * hh * ww * cin + x_offset, dtype=dt)[x_offset:].view(b, hh * ww, cin)
+    x.copy_(f32(rng.normal(size=(b, hh * ww, cin))))
     scale, shift = f32(0.3 * rng.normal(size=(b, cout))), f32(0.3 * rng.normal(size=(b, cout)))
     w1 = f32(rng.normal(0, 0.2, (9 * cin, cout))).to(dt)
     w2 = f32(rng.normal(0, 0.2, (9 * cout, cout))).to(dt)
@@ -372,19 +438,202 @@ def test_emulated_resnet_halves_match_plain(emulated_resnet, b, hh, ww, cin, cou
     bf16 = int(dtype == "bfloat16")
     tol = dict(rtol=2e-3, atol=2e-4) if dtype == "float32" else dict(rtol=4e-2, atol=4e-2)
 
+    route_a, ws, nbytes = _resnet_plan(lib, 0, b, hh, ww, cin, cout, 0, bf16)
     h1 = torch.empty(b, hh * ww, cout, dtype=dt)
-    _call(emulated_resnet, "ccdm_resnet_half_a", x, scale, shift, w1, b1, g1, h1,
-          b, hh, ww, cin, cout, bf16)
+    _call(lib, "ccdm_resnet_half_a", x, scale, shift, w1, b1, g1, h1, ws,
+          b, hh, ww, cin, cout, bf16, nbytes)
     want_h1 = rb.half_a_reference(x, scale, shift, w1, b1, g1, hh, ww)
     assert bool(torch.isfinite(h1.float()).all())
     torch.testing.assert_close(h1.float(), want_h1.float(), **tol)
 
+    route_b, ws, nbytes = _resnet_plan(lib, 1, b, hh, ww, cin, cout, int(has_res), bf16)
     y = torch.empty(b, hh * ww, cout, dtype=dt)
-    _call(emulated_resnet, "ccdm_resnet_half_b", want_h1, x, w2, b2, g2, wres, bres, y,
-          b, hh, ww, cin, cout, int(has_res), bf16)
+    _call(lib, "ccdm_resnet_half_b", want_h1, x, w2, b2, g2, wres, bres, y, ws,
+          b, hh, ww, cin, cout, int(has_res), bf16, nbytes)
     want = rb.half_b_reference(want_h1, x, w2, b2, g2, wres, bres, hh, ww)
     assert bool(torch.isfinite(y.float()).all())
     torch.testing.assert_close(y.float(), want.float(), **tol)
+    return route_a, route_b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hh,ww,cin,cout", [
+    (2, 9, 9, 24, 64),   # projection residual; f32: 162 pixels over two 128-pixel tiles
+    (2, 6, 6, 128, 128),  # identity residual; f32: 72 pixels over two 64-pixel tiles
+    (3, 4, 5, 20, 40),   # Cout 40: f32 one thread of the block idle; bf16 element loads
+])
+def test_emulated_resnet_halves_match_plain(emulated_resnet, b, hh, ww, cin, cout, dtype):
+    """Kernels #10 and #11 against their plain versions: tiles that cross
+    an image and the map border, part K slices, both residuals. In bf16 these
+    small grids take the split route. Bounds of tests/test_resnet_block.py:
+    f32 rtol 2e-3 / atol 2e-4, bf16 4e-2."""
+    routes = _resnet_halves(emulated_resnet, b, hh, ww, cin, cout, dtype)
+    assert routes == (("f32",) * 2 if dtype == "float32" else ("split",) * 2)
+
+
+@pytest.mark.parametrize("b,hh,ww,cin,cout,wave,x_offset,route", [
+    (2, 8, 8, 32, 64, 1, 0, "fused"),     # 128 x 64 tiles, projection, 16-byte copies
+    (1, 8, 8, 128, 128, 1, 0, "fused"),   # 64 x 128 tiles, identity residual
+    (1, 6, 7, 20, 40, 1, 0, "fused"),     # Cin 20: element loads, a part tile
+    (2, 8, 8, 32, 64, 1, 1, "fused"),     # x not 16-byte aligned: element loads
+    (2, 4, 4, 64, 256, 132, 0, "split"),  # Cout above the 128-channel tile, projection slab
+    (1, 4, 4, 256, 256, 132, 0, "split"),  # identity residual, 8 K splits
+])
+def test_emulated_resnet_bf16_routes_match_plain(emulated_resnet, b, hh, ww, cin, cout, wave,
+                                                 x_offset, route):
+    """The tensor-core route of #10 and #11 in the emulation (mma.sync,
+    ldmatrix and cp.async with the ISA's fragment layouts): the fused route,
+    reached at a few blocks by lowering the plan's wave, and the split route,
+    both at the card's bf16 bound of 4e-2."""
+    emulated_resnet.ccdm_resnet_set_wave(wave)
+    try:
+        routes = _resnet_halves(emulated_resnet, b, hh, ww, cin, cout, "bfloat16", x_offset)
+    finally:
+        emulated_resnet.ccdm_resnet_set_wave(132)
+    assert routes == (route, route)
+
+
+# (H = W, Cin, Cout) of the RC-49 64x64 UNet's 23 resnet blocks (chip_smoke.RESNET_SHAPES)
+UNET_RESNET_SHAPES = [(64, 64, 64), (64, 128, 64), (32, 64, 64), (32, 192, 128),
+                      (16, 128, 128), (16, 256, 128), (8, 128, 128), (8, 384, 256),
+                      (4, 256, 256), (4, 512, 512), (4, 768, 512)]
+
+
+@pytest.mark.parametrize("batch", [64, 128, 72, 8])
+def test_emulated_resnet_plan_at_the_unet_shapes(emulated_resnet, batch):
+    """The C plan at the batches the main paths give #10 and #11 (served,
+    trained, the EMA grid, the eval sampling): fused exactly where Cout <=
+    128 gives a wave of 132 blocks (128-pixel tiles at Cout 64, 64 at 128),
+    else split into 64 x 128 tiles with 1-8 K splits of at least 4 of the 64-
+    channel K slices, the workspace [splits (+1 projection slab), M, Cout]
+    f32 (16.8 MB at most, at 4x4 and B 128); f32 always on the CUDA cores."""
+    for hh, cin, cout in UNET_RESNET_SHAPES:
+        m, has_res = batch * hh * hh, cin != cout
+        for half_b in (0, 1):
+            out = (ctypes.c_int * 4)()
+            nbytes = emulated_resnet.ccdm_resnet_plan(half_b, batch, hh, hh, cin, cout,
+                                                      int(has_res and half_b), 1, out)
+            route, bm, bn, splits = RESNET_ROUTES[out[0]], out[1], out[2], out[3]
+            tile = 128 if cout <= 64 else 64
+            if cout <= 128 and -(-m // tile) >= 132:
+                assert (route, bm, bn, nbytes) == ("fused", tile, 8192 // tile, 0)
+            else:
+                k_slices = 9 * -(-(cout if half_b else cin) // 64)
+                assert (route, bm, bn) == ("split", 64, 128)
+                assert 1 <= splits <= min(8, max(1, k_slices // 4))
+                assert nbytes == (splits + int(has_res and half_b)) * m * cout * 4
+                assert nbytes <= 16.8e6
+            if batch == 64:
+                assert route == ("fused" if hh >= 16 else "split"), (hh, cin, cout)
+            f32 = (ctypes.c_int * 4)()
+            assert emulated_resnet.ccdm_resnet_plan(half_b, batch, hh, hh, cin, cout, 0, 0,
+                                                    f32) == 0 and f32[0] == 0
+
+
+PTX_HARNESS = r"""
+#include <cstdint>
+extern "C" void emu_ldmatrix(const uint16_t* m, uint32_t* out, int trans) {
+  emu::launch(dim3(1), dim3(32), 0, nullptr, [=]() {
+    const int l = threadIdx.x;
+    uint32_t r[4];
+    const uint16_t* row = m + 64 * (l / 8) + 8 * (l % 8);  // row l % 8 of matrix l / 8
+    if (trans) ldmatrix_x4_trans(r, row); else ldmatrix_x4(r, row);
+    for (int i = 0; i < 4; ++i) out[4 * l + i] = r[i];
+  });
+}
+extern "C" void emu_mma(const uint32_t* a, const uint32_t* b, float* d) {
+  emu::launch(dim3(1), dim3(32), 0, nullptr, [=]() {
+    const int l = threadIdx.x;
+    const uint32_t ar[4] = {a[4 * l], a[4 * l + 1], a[4 * l + 2], a[4 * l + 3]};
+    const uint32_t br[2] = {b[2 * l], b[2 * l + 1]};
+    float dr[4] = {d[4 * l], d[4 * l + 1], d[4 * l + 2], d[4 * l + 3]};
+    mma_16816(dr, ar, br);
+    for (int i = 0; i < 4; ++i) d[4 * l + i] = dr[i];
+  });
+}
+extern "C" void emu_cp_async(void* dst, const void* src, int src_bytes) {
+  cp_async_16(dst, src, src_bytes);
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def ptx_harness(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the emulation")
+    d = tmp_path_factory.mktemp("cuda_emu_ptx")
+    (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (d / "harness.cpp").write_text(PTX_HARNESS)
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{d}",
+                    "-include", "cuda_runtime.h", "-o", str(d / "libharness.so"),
+                    str(d / "harness.cpp")], check=True, timeout=300)
+    lib = ctypes.CDLL(str(d / "libharness.so"))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.emu_ldmatrix.argtypes = [p, p, i]
+    lib.emu_mma.argtypes = [p, p, p]
+    lib.emu_cp_async.argtypes = [p, p, i]
+    return lib
+
+
+def _bf16_bits(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().view(torch.int16).numpy() \
+        .astype(np.uint32) & 0xFFFF
+
+
+def _pack(lo, hi):
+    return (lo | (hi << 16)).astype(np.uint32)
+
+
+@pytest.mark.parametrize("trans", [0, 1])
+def test_emulated_ldmatrix_follows_the_isa(ptx_harness, trans):
+    """ldmatrix .x4: lane l gives row l % 8 of matrix l / 8; register i of
+    lane l holds row l / 4, elements 2 (l % 4) and 2 (l % 4) + 1 of matrix i
+    (.trans: of its transpose), the lower element in the low half."""
+    m = np.arange(256, dtype=np.uint16)
+    out = np.zeros(128, np.uint32)
+    ptx_harness.emu_ldmatrix(m.ctypes.data, out.ctypes.data, trans)
+    mats = m.reshape(4, 8, 8).astype(np.uint32)
+    if trans:
+        mats = mats.transpose(0, 2, 1)
+    lane = np.arange(32)
+    row, col = lane // 4, 2 * (lane % 4)
+    want = np.stack([_pack(mats[i, row, col], mats[i, row, col + 1]) for i in range(4)], axis=1)
+    np.testing.assert_array_equal(out.reshape(32, 4), want)
+
+
+def test_emulated_mma_follows_the_isa(ptx_harness):
+    """mma.m16n8k16 .row.col, bf16 in, f32 accumulate, with the fragments of
+    the ISA built here from A [16, 16], B [16, 8] and C [16, 8]: D = A B + C
+    exactly (values on a grid of 1/8, sums exact in f32)."""
+    rng = np.random.default_rng(0)
+    a = rng.integers(-16, 16, (16, 16)) / 8
+    b = rng.integers(-16, 16, (16, 8)) / 8
+    c = rng.integers(-64, 64, (16, 8)) / 8
+    ab, bb = _bf16_bits(a), _bf16_bits(b)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    a_regs = np.stack([_pack(ab[g + 8 * (i % 2), 2 * t + 8 * (i // 2)],
+                             ab[g + 8 * (i % 2), 2 * t + 8 * (i // 2) + 1])
+                       for i in range(4)], 1)
+    b_regs = np.stack([_pack(bb[2 * t + 8 * i, g], bb[2 * t + 8 * i + 1, g])
+                       for i in range(2)], 1)
+    at = lambda m: np.stack([m[g + 8 * (i // 2), 2 * t + i % 2] for i in range(4)], 1)
+    d = np.ascontiguousarray(at(c), np.float32)
+    ptx_harness.emu_mma(np.ascontiguousarray(a_regs).ctypes.data,
+                        np.ascontiguousarray(b_regs).ctypes.data, d.ctypes.data)
+    np.testing.assert_array_equal(d, at(a @ b + c).astype(np.float32))
+
+
+@pytest.mark.parametrize("src_bytes", [16, 8, 0])
+def test_emulated_cp_async_zero_fills(ptx_harness, src_bytes):
+    """cp.async 16 bytes with src-size n: n bytes copied, the rest zero."""
+    src = np.arange(1, 17, dtype=np.uint8)
+    dst = np.full(16, 0xAA, np.uint8)
+    ptx_harness.emu_cp_async(dst.ctypes.data, src.ctypes.data, src_bytes)
+    np.testing.assert_array_equal(dst, np.concatenate([src[:src_bytes],
+                                                       np.zeros(16 - src_bytes, np.uint8)]))
 
 
 # ---------------------------------- kernels #6-#9 (standalone linear attention)

@@ -277,3 +277,60 @@ def test_cuda_switch_on_block_matches_reference_with_gradients(monkeypatch):
     want.backward(dy)
     for a, r in zip(args, ref_args):
         torch.testing.assert_close(a.grad, r.grad, rtol=1e-4, atol=1e-4)
+
+
+def _cuda_halves(x, scale, shift, w1, b1, g1, w2, b2, g2, wres, bres, hh, ww):
+    h1 = rb.resnet_half_a(x, scale, shift, w1, b1, g1, hh, ww)
+    return h1, rb.resnet_half_b(h1, x, w2, b2, g2, wres, bres, hh, ww)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hh,ww,cin,cout", [(8, 4, 4, 768, 512), (72, 8, 8, 384, 256)])
+def test_cuda_split_route_at_the_main_paths_small_batches(b, hh, ww, cin, cout):
+    """bf16 at the eval sampling's B 8 and the EMA grid's B 72: both halves
+    take the split route (K split over blocks, then the epilogue launch),
+    one launch counted each, within 4e-2 of the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    args = _cuda_case(b, hh, ww, cin, cout, "bfloat16")
+    x, scale, shift, w1, b1, g1, w2, b2, g2, wres, bres = args
+    for half in "ab":
+        assert rb.plan(half, b, hh, ww, cin, cout, True, torch.bfloat16).route == "split"
+    before = rb.resnet_half_a.launches, rb.resnet_half_b.launches
+    h1, y = _cuda_halves(*args, hh, ww)
+    torch.cuda.synchronize()
+    assert (rb.resnet_half_a.launches, rb.resnet_half_b.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    tol = dict(rtol=4e-2, atol=4e-2)
+    torch.testing.assert_close(h1.float(), rb.half_a_reference(
+        x, scale, shift, w1, b1, g1, hh, ww).float(), **tol)
+    torch.testing.assert_close(y.float(), rb.half_b_reference(
+        h1, x, w2, b2, g2, wres, bres, hh, ww).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hh,ww,cin,cout,route", [(64, 16, 16, 64, 128, "fused"),
+                                                     (8, 4, 4, 256, 512, "split")])
+def test_cuda_unaligned_input_takes_the_element_loads(b, hh, ww, cin, cout, route):
+    """x2d a contiguous view one element past an aligned base, so not 16-byte
+    aligned: the kernels load it element by element into the same shared
+    layout as the 16-byte copies, so h1 and y equal those of an aligned copy
+    bit for bit, and lie within 4e-2 of the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    args = list(_cuda_case(b, hh, ww, cin, cout, "bfloat16"))
+    x = args[0]
+    assert rb.plan("a", b, hh, ww, cin, cout, False, torch.bfloat16).route == route
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    h1, y = _cuda_halves(shifted, *args[1:], hh, ww)
+    h1_aligned, y_aligned = _cuda_halves(*args, hh, ww)
+    torch.cuda.synchronize()
+    assert torch.equal(h1, h1_aligned) and torch.equal(y, y_aligned)
+    x, scale, shift, w1, b1, g1, w2, b2, g2, wres, bres = args
+    tol = dict(rtol=4e-2, atol=4e-2)
+    torch.testing.assert_close(h1.float(), rb.half_a_reference(
+        x, scale, shift, w1, b1, g1, hh, ww).float(), **tol)
+    torch.testing.assert_close(y.float(), rb.half_b_reference(
+        h1, x, w2, b2, g2, wres, bres, hh, ww).float(), **tol)
