@@ -61,7 +61,7 @@
 //   (K slice 64, 3 stages, split to one wave) won a timed comparison of
 //   variants on the card (PERF.md, PR 8).
 //
-// Every PTX instruction is in the block of helpers below, so that an
+// Every PTX instruction is in the helpers of csrc/ptx.cuh, so that an
 // emulation can supply the same names (CCDM_PTX_EMULATED) and run the kernels
 // on a CPU with the fragment layouts of the PTX ISA.
 
@@ -72,42 +72,7 @@
 
 #include <atomic>
 
-#ifndef CCDM_PTX_EMULATED
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// 16 bytes from global to shared, of which the first src_bytes are read and
-// the rest zero-filled (src_bytes 0: 16 zeros).
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-// Four 8x8 b16 matrices; lane l gives the row address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-// d += a . b for a 16x16 bf16 A (row), a 16x8 bf16 B (col), f32 d.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-#endif
+#include "ptx.cuh"
 
 namespace {
 

@@ -3,9 +3,9 @@
 Each source under ``ccdm_tpu_torch/csrc/`` has a plain C interface and is
 compiled at first use into a shared library under
 ``build/ccdm_tpu_torch/<hash>/`` beside the package (the hash covers the
-source and the flags, so an edit rebuilds and an unchanged tree reuses the
-library). The library links CUDA's runtime statically and nothing of torch,
-so a build takes seconds. It is compiled to a temporary name and moved into
+source, the headers of ``csrc/`` and the flags, so an edit rebuilds and an
+unchanged tree reuses the library). The library links CUDA's runtime
+statically and nothing of torch, so a build takes seconds. It is compiled to a temporary name and moved into
 place with ``os.replace``: a build that is killed leaves no lock behind.
 """
 
@@ -46,9 +46,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from csrc/<name>.cu goes."""
+    """Where the library built from csrc/<name>.cu goes: the hash covers the
+    source, every header of csrc/ (csrc/*.cuh, which a source may include)
+    and the flags."""
     digest = hashlib.sha256()
-    digest.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    for path in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{name}.so"
 
@@ -96,8 +99,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def run(lib: ctypes.CDLL, fn_name: str, what: str, dev, *args) -> None:
     """Call `fn_name` of `lib` on `dev`'s current stream: tensors pass as
-    their data pointers, None as a null pointer, anything else as it is."""
+    their data pointers, None as a null pointer, anything else as it is.
+    The device is made current only when it is not already."""
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        err = getattr(lib, fn_name)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    fn, stream = getattr(lib, fn_name), torch.cuda.current_stream(index).cuda_stream
+    if index == current:
+        err = fn(*ptrs, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*ptrs, stream)
     check(lib, err, what)

@@ -29,7 +29,9 @@ the TPU kernels' [B, F, F]), s and kmax [B, F].
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -163,15 +165,28 @@ def bwd_b_reference(x2d, dy, do, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, heads):
 # ------------------------------------------------------------- launches
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("attn_block")
-    fn = lib.ccdm_attn_block_forward
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the ctypes signatures of csrc/attn_block.cu's entry points on a
+    library built from it (here, in the g++ emulation or as a variant)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ccdm_attn_block_forward.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_longlong, p]
+    lib.ccdm_attn_block_forward.restype = i
+    lib.ccdm_attn_block_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    lib.ccdm_attn_block_plan.restype = ctypes.c_longlong
+    lib.ccdm_cuda_error_string.argtypes = [i]
+    lib.ccdm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Kernel #1's library, declared once."""
+    return declare(_build.load("attn_block"))
+
+
+@functools.cache
 def _large_library() -> ctypes.CDLL:
+    """Kernels #2-#5's library, declared once."""
     lib = _build.load("attn_block_large")
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, n_ptr, n_int in (("ccdm_attn_ctx_large", 9, 6), ("ccdm_attn_out_large", 8, 5),
@@ -180,6 +195,31 @@ def _large_library() -> ctypes.CDLL:
         fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
         fn.restype = ctypes.c_int
     return lib
+
+
+class Plan(NamedTuple):
+    """How csrc/attn_block.cu runs one call of kernel #1: route "cores" (CUDA
+    cores, three launches through an f32 qkv workspace: f32, or bf16 with
+    heads != 4, C > 512 or no fit in shared memory), "fused" (bf16 on the
+    tensor cores, one launch, a block per batch row) or "split" (bf16 on the
+    tensor cores: pass 1 over `splits` blocks per batch row, the reduce,
+    pass 2); the tokens of a tile and the workspace bytes the call needs."""
+    route: str
+    tile: int
+    splits: int
+    workspace_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(batch: int, n_tok: int, c: int, heads: int, dtype: torch.dtype) -> Plan:
+    """Kernel #1's plan at this shape, as the C code computes it (a function
+    of the shape alone)."""
+    out = (ctypes.c_int * 3)()
+    nbytes = _library().ccdm_attn_block_plan(batch, n_tok, c, heads,
+                                             int(dtype == torch.bfloat16), out)
+    if out[0] < 0:
+        raise ValueError(f"kernel #1 takes no empty shape, got B {batch}, N {n_tok}, C {c}")
+    return Plan(("cores", "fused", "split")[out[0]], out[1], out[2], nbytes)
 
 
 def _check_activation(x2d, dim_head):
@@ -222,11 +262,13 @@ def _launch(x2d, g_pre, wqkv, wout, bout, g_out, heads, dim_head):
                for name, w, shape in (("g_pre", g_pre, (c,)), ("wqkv", wqkv, (c, 3 * f)),
                                       ("wout", wout, (f, c)), ("bout", bout, (c,)),
                                       ("g_out", g_out, (c,)))]
+    pl = plan(b, n, c, heads, dt)
     y = torch.empty_like(x2d)
-    qkv = torch.empty((b, n, 3 * f), dtype=torch.float32, device=dev)
-    ctx = torch.empty((b, heads, dim_head, dim_head), dtype=torch.float32, device=dev)
+    ws = (torch.empty(pl.workspace_bytes // 4, dtype=torch.float32, device=dev)
+          if pl.workspace_bytes else None)
     _build.run(_library(), "ccdm_attn_block_forward", "attn_block kernel launch", dev,
-               x2d, *weights, y, qkv, ctx, b, n, c, heads, int(dt == torch.bfloat16))
+               x2d, *weights, y, ws, b, n, c, heads, int(dt == torch.bfloat16),
+               pl.workspace_bytes)
     fused_attn_block.launches += 1
     return y
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
@@ -105,7 +106,9 @@ def bias_act_fused_reference(x, b, act: str, alpha: float, gain: float,
     return _gain_clamp(activation_funcs[act].fn(v, alpha), gain, clamp).to(x.dtype)
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
+    """Kernel #12's library, declared once."""
     lib = _build.load("style_ops")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ccdm_bias_act.argtypes = [p, p, p, ctypes.c_longlong, i, i, ctypes.c_float,

@@ -8,12 +8,20 @@ Phases, each announced on a flushed line before it starts:
   2. build: the five kernel libraries, one nvcc each, in parallel
      (seconds, ptxas report);
   3. kernel #1 (the single-pass attention block) against its plain PyTorch
-     version at the shapes of the RC-49 64x64 UNet's ten attention blocks
-     (B 64) and at N 16384: bf16 against the plain version in f32 on the same
-     bf16-rounded inputs (rtol = atol = 3e-2, rtol relative to
-     max(|y|, |y - x|), x ~ N(0, 1)), and f32 with TF32 off (rtol 2e-3,
-     atol 2e-4, x ~ N(0, 2)), the bounds and inputs of the JAX kernel's
-     tests; each shape timed in bf16 with CUDA events;
+     version at every shape of the attention blocks of the RC-49 64x64, the
+     128x128 and the 192x192 UNet (N 9 to 36864, C 64 to 512), B 64:
+     bf16 against the plain version in f32 on the same bf16-rounded inputs
+     (rtol = atol = 3e-2, rtol relative to max(|y|, |y - x|), x ~ N(0, 1);
+     at C <= 256 and at the 64x64 UNet's shapes) and against the plain
+     version at the kernel's bf16 rounding points (same bound, every
+     shape), and f32 with TF32 off (rtol 2e-3, atol 2e-4, x ~ N(0, 2)), the
+     bounds and inputs of the JAX kernel's tests; each shape timed in bf16
+     with CUDA events, with the route the plan took (asserted: fused at
+     N <= 128, else split with its splits), the wrapper's host time,
+     TFLOP/s and the share of the bound; then the same per attention level
+     of one B-64 forward of the 64x64 UNet; then bf16 at every shape again
+     at the other batches the main paths give #1 (128, 72, 8), the same
+     checks (the f32 one at C <= 256) and route assertion, untimed;
   4. the full-width UNet in f32 (TF32 off) with the kernel and with the
      plain attention: one forward (max abs diff <= 1e-3) and a 5-step CFG
      DDIM run from the same noise ([0,1] images, max abs diff <= 1e-3);
@@ -92,7 +100,8 @@ Phases, each announced on a flushed line before it starts:
      bias or not, clamp none or 1.5, default gain or 0.5, f32 (rtol 1e-5,
      atol 1e-6) and bf16 (8e-3, one unit), at GAN feature maps of batch 64
      and 1003 rows; lrelu timed per shape, and beside F.leaky_relu where
-     the case is that one call;
+     the case is that one call, each by events, host time and the card's
+     own time (kernel durations from torch.profiler);
   16. this slice's path (module docstring of la_main_path): the
      PreNormResidual(LinearAttention) module at the UNet's ten attention
      levels (#6), the module on the two-pass route (#7 + #8),
@@ -106,7 +115,8 @@ Phases, each announced on a flushed line before it starts:
      cuDNN composition with the switch off, #10 + #11 with it on, each
      timed alone in phase 9), #10 + #11 against that composition and per
      level, then one JSON line {"kernels": [...]} with errors, times and
-     bounds of all 12 kernels;
+     bounds of all 12 kernels (#1 with its route per shape, #12 with the
+     card's own time beside F.leaky_relu's);
   19. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
@@ -162,8 +172,31 @@ STEPS = 250
 # (dim 64, mults 1_2_2_4_8): down levels 0-4, then up levels 0-4
 FORWARD_SHAPES = [(4096, 64), (1024, 64), (256, 128), (64, 128), (16, 256),
                   (16, 512), (64, 256), (256, 128), (1024, 128), (4096, 64)]
-CHECK_SHAPES = sorted(set(FORWARD_SHAPES), reverse=True) + [(16384, 64)]
 UNET = dict(dim=64, dim_mults=(1, 2, 2, 4, 8), in_channels=3)
+
+
+def unet_attn_shapes(size: int, mults: tuple, dim: int = 64) -> list:
+    """(N, C) of a UNet's attention blocks (models/unet.py): each down level
+    at its input width, then each up level at its output width."""
+    dims = [dim] + [dim * m for m in mults]
+    pairs = list(zip(dims[:-1], dims[1:]))
+    down = [((size >> i) ** 2, c_in) for i, (c_in, _) in enumerate(pairs)]
+    up = [((size >> (len(pairs) - 1 - i)) ** 2, c_out)
+          for i, (_, c_out) in enumerate(reversed(pairs))]
+    return down + up
+
+
+assert unet_attn_shapes(64, UNET["dim_mults"]) == FORWARD_SHAPES
+# the 64x64 UNet's shapes and the top levels of the 128x128 (uk128, mults
+# 1_2_4_4_8_8) and 192x192 (uk192, mults 1_2_2_4_4_8_8) UNets, then the other
+# shapes of those two: every shape #1 meets on the three models. A shape's
+# index seeds its inputs.
+CHECK_SHAPES = sorted(set(FORWARD_SHAPES), reverse=True) + [(16384, 64), (36864, 64)]
+CHECK_SHAPES += sorted(set(unet_attn_shapes(128, (1, 2, 4, 4, 8, 8)) +
+                           unet_attn_shapes(192, (1, 2, 2, 4, 4, 8, 8))) - set(CHECK_SHAPES),
+                       reverse=True)
+# blocks of the split route's passes: two an SM on the H100's 132 SMs
+ATTN_SPLIT_BLOCKS = 2 * 132
 SERVE_ARGV = ["--image_size", "64", "--model_channels", "64",
               "--channel_mult", "1_2_2_4_8", "--train_amp", "--pred_objective", "pred_x0",
               "--sample_timesteps", str(STEPS), "--sample_cond_scale", "1.5",
@@ -209,6 +242,22 @@ def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return elapsed / reps * 1e3
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> dict:
+    """The card's own time per call, by kernel name: the durations that
+    torch.profiler's trace gives the kernels (and copies) that `reps`
+    calls launched, summed per name and divided by reps (ms). Unlike
+    time_ms, the gaps in which the card waited on the host do not count."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
 def bound_parts(n: int, c: int, batch: int = BATCH, itemsize: int = 2) -> tuple[float, float]:
     """Least times (ms) of one call: the bytes it must move (x read, y
     written, the weights read once) over HBM bandwidth, and its operations
@@ -241,36 +290,123 @@ def check_close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
     return diff.max().item()
 
 
+def attn_route_of(batch: int, n: int, c: int) -> tuple[str, int]:
+    """The route and splits that #1's plan must give a UNet shape in bf16:
+    fused where a block holds the row (N <= 128), else split, with as many
+    blocks a row as fill ATTN_SPLIT_BLOCKS in one wave, at most one a tile
+    of 64 tokens."""
+    pl = attn_block.plan(batch, n, c, HEADS, torch.bfloat16)
+    want = ("fused", 1) if n <= 128 else \
+        ("split", min(-(-n // 64), max(1, ATTN_SPLIT_BLOCKS // batch)))
+    if (pl.route, pl.splits) != want:
+        raise AssertionError(f"#1's plan at B {batch}, N {n}, C {c}: {pl.route} x{pl.splits}, "
+                             f"expected {want[0]} x{want[1]}")
+    return want
+
+
+def attn_rounded_reference(x, g_pre, wqkv, wout, bout, g_out):
+    """The plain version of #1 in bf16 at its rounding points, the rest in
+    f32: the plain #2 (xn, exp(k - m) and v as bf16 operands, s unrounded)
+    and the plain #3 (q' and the attention output as bf16 operands) with
+    ctx = a / s rounded to bf16 between them, as csrc/attn_block.cu does."""
+    a, s, _ = attn_block.ctx_large_reference(x, g_pre, wqkv, HEADS)
+    ctx = (a / s.clamp_min(1e-30).view(*a.shape[:3], 1)).to(x.dtype)
+    return attn_block.out_large_reference(x, g_pre, wqkv, ctx, wout, bout, g_out, HEADS)
+
+
+def holds_f32_plain(n: int, c: int, batch: int) -> bool:
+    """Whether phase 3 holds #1 in bf16 to its plain version in f32 at this
+    shape: at C <= 256, and at the 64x64 UNet's shapes at B 64, as before.
+    At C 512 the bf16 rounding points themselves, the TPU kernel's
+    included, reach that bound (scripts/attn_bf16_margin.py, PERF.md):
+    there the kernel is held to its plain version at those points only."""
+    return c <= 256 or (batch == BATCH and (n, c) in FORWARD_SHAPES)
+
+
+def attn_bf16_check(n: int, c: int, batch: int, device, seed: int) -> tuple:
+    """#1 in bf16 (x ~ N(0, 1), the JAX kernel's tests) against its plain
+    version at its rounding points (attn_rounded_reference) and, where
+    holds_f32_plain, against its plain version in f32 on the same
+    bf16-rounded inputs; each at rtol = atol = 3e-2, rtol relative to the
+    larger of |y| and the block's own term |y - x| (where x cancels that
+    term, the bf16 operand roundings, about 1% of it at C 512, stand beside
+    a small |y|). Returns the two max abs errors (the second None where not
+    held) and the bf16 inputs."""
+    x, w = block_inputs(n, c, batch, device, seed=seed, x_std=1.0)
+    xb, wb = x.bfloat16(), [t.bfloat16() for t in w]
+    del x, w
+    got, xf = attn_block.fused_attn_block(xb, *wb, HEADS, DIM_HEAD), xb.float()
+
+    def err(want, what: str) -> float:
+        return check_close(got, want, 3e-2, 3e-2, f"bf16 B={batch} N={n} C={c} ({what})",
+                           scale=torch.maximum(want.abs(), (want - xf).abs()))
+
+    rounded = err(attn_rounded_reference(xb, *wb).float(), "plain at its rounding points")
+    plain = err(attn_block.attn_block_reference(xf, *(t.float() for t in wb), HEADS, DIM_HEAD),
+                "plain in f32") if holds_f32_plain(n, c, batch) else None
+    return rounded, plain, xb, wb
+
+
 @torch.no_grad()
-def kernel_vs_plain(device) -> dict:
-    """Phase 3: per shape, errors in bf16 and f32 and times in bf16."""
+def kernel_vs_plain(device) -> tuple[dict, dict]:
+    """Phase 3: per shape, errors in bf16 and f32 and times in bf16 at B 64;
+    then bf16 errors at the other batches the main paths give #1. Returns
+    the rows by shape and the errors by batch."""
     rows = {}
     for i, (n, c) in enumerate(CHECK_SHAPES):
         # x ~ N(0, 1) in bf16 and N(0, 2) in f32, the inputs of the JAX
         # kernel's own tests (tests/test_attn_block.py:61-101)
-        x, w = block_inputs(n, c, BATCH, device, seed=i, x_std=2.0)
-        xb, wb = (x / 2).bfloat16(), [t.bfloat16() for t in w]
+        route, splits = attn_route_of(BATCH, n, c)
+        err_r, err_b, xb, wb = attn_bf16_check(n, c, BATCH, device, seed=i)
         kernel_b = lambda: attn_block.fused_attn_block(xb, *wb, HEADS, DIM_HEAD)
         plain_b = lambda: attn_block.attn_block_reference(xb, *wb, HEADS, DIM_HEAD)
-        # bf16: relative to the larger of |y| and the block's own term
-        # |y - x|. Where x cancels that term, the bf16 operand roundings
-        # (about 1% of it at C 512) stand beside a small |y|.
-        want_b = attn_block.attn_block_reference(xb.float(), *(t.float() for t in wb),
-                                                 HEADS, DIM_HEAD)
-        err_b = check_close(kernel_b(), want_b, 3e-2, 3e-2, f"bf16 N={n} C={c}",
-                            scale=torch.maximum(want_b.abs(), (want_b - xb.float()).abs()))
+        x, w = block_inputs(n, c, BATCH, device, seed=i, x_std=2.0)
         err_f = check_close(attn_block.fused_attn_block(x, *w, HEADS, DIM_HEAD),
                             attn_block.attn_block_reference(x, *w, HEADS, DIM_HEAD),
                             2e-3, 2e-4, f"f32 N={n} C={c}")
+        del x, w
         t_bytes, t_ops = bound_parts(n, c)
-        rows[f"N{n}_C{c}"] = {"max_err_bf16": err_b, "max_err_f32": err_f,
-                              "ms": time_ms(kernel_b), "plain_ms": time_ms(plain_b),
-                              "bound_ms": max(t_bytes, t_ops),
-                              "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        print(f"   N={n:5d} C={c:3d} B={BATCH}: {json.dumps(rows[f'N{n}_C{c}'])}", flush=True)
-        del x, w, xb, wb
+        row = {"max_err_bf16": err_b, "max_err_bf16_rounded": err_r, "max_err_f32": err_f,
+               **timing(kernel_b, plain_b, (t_bytes, t_ops)), "route": route, "splits": splits}
+        row["tflops"] = t_ops * BF16_FLOPS / row["ms"] / 1e12
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[f"N{n}_C{c}"] = row
+        print(f"   N={n:5d} C={c:3d} B={BATCH}: {json.dumps(row)}", flush=True)
+        del xb, wb
         torch.cuda.empty_cache()
-    return rows
+    print_attn_levels(rows)
+    # the other batches of the main paths (RESNET_BATCHES): bf16 only, untimed
+    by_batch = {}
+    for batch in RESNET_BATCHES[1:]:
+        errs = {}
+        for i, (n, c) in enumerate(CHECK_SHAPES):
+            route, splits = attn_route_of(batch, n, c)
+            errs[f"N{n}_C{c} {route} x{splits}"] = attn_bf16_check(n, c, batch, device,
+                                                                   seed=100 + i)[:2]
+            torch.cuda.empty_cache()
+        by_batch[f"B{batch}"] = errs
+        print(f"   B={batch} bf16: {len(errs)} shapes within the bound, max abs err "
+              f"{max(e for pair in errs.values() for e in pair if e is not None):.3e} "
+              f"(against the rounded plain version, then the f32 one); {json.dumps(errs)}",
+              flush=True)
+    return rows, by_batch
+
+
+def print_attn_levels(rows: dict) -> None:
+    """Kernel #1 per attention level of one B-64 forward (down 0-4, then up
+    0-4), and the sum of the ten launches."""
+    total = {"ms": 0.0, "host_ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0}
+    for i, (n, c) in enumerate(FORWARD_SHAPES):
+        r = rows[f"N{n}_C{c}"]
+        for key in total:
+            total[key] += r[key]
+        print(f"   {'down' if i < 5 else 'up'} {i % 5} N={n:5d} C={c:3d}: {r['ms']:.4f} ms "
+              f"({r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.1f}% of the bound "
+              f"{r['bound_ms']:.4f}), host {r['host_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+              f"{r['route']} route, {r['splits']} split(s)", flush=True)
+    print(f"   the ten: {total['ms']:.4f} ms ({100 * total['bound_ms'] / total['ms']:.1f}% of the "
+          f"bound {total['bound_ms']:.4f}), host {total['host_ms']:.4f} ms, plain "
+          f"{total['plain_ms']:.4f} ms", flush=True)
 
 
 @contextlib.contextmanager
@@ -732,7 +868,7 @@ RESNET_BLOCKS = sum(RESNET_SHAPES.values())  # 23: launches of #10 and of #11 pe
 ATTN_BLOCKS = 10  # launches of #1 per sampling forward (FORWARD_SHAPES)
 RESNET_REPLACES = {"resnet_half_a": "ccdm_tpu/ops/resnet_block.py:106",
                    "resnet_half_b": "ccdm_tpu/ops/resnet_block.py:130"}
-# the batches the main paths give #10 and #11: a CFG forward of 32 served
+# the batches the main paths give #1, #10 and #11: a CFG forward of 32 served
 # labels; a training step; the EMA grid's CFG forward of 36 labels; the
 # eval sampling's and the ddpm request's CFG forward of 4 labels
 RESNET_BATCHES = (BATCH, TRAIN_BATCH, 2 * 36, 2 * 4)
@@ -1260,7 +1396,8 @@ def bias_act_vs_plain(device) -> dict:
     and without bias, clamp none and 1.5, default gain and 0.5. lrelu timed
     in bf16 per shape: the StyleGAN default (bias, gain sqrt 2) beside its
     plain version, and no bias, gain 1, no clamp beside F.leaky_relu, the one
-    PyTorch call of that function."""
+    PyTorch call of that function, each by events, host time and the card's
+    own time (device_ms)."""
     rows = {}
     for i, (r, c) in enumerate(BIAS_ACT_SHAPES):
         g = torch.Generator(device).manual_seed(200 + i)
@@ -1287,11 +1424,18 @@ def bias_act_vs_plain(device) -> dict:
             lambda: so.bias_act_fused(xb, b, "lrelu", 0.2, gain, -1.0),
             lambda: so.bias_act_fused_reference(xb, b, "lrelu", 0.2, gain, -1.0),
             bias_act_bound_parts(r, c, True, True))
+        kernel = lambda: so.bias_act_fused(xb, None, "lrelu", 0.2, 1.0, -1.0)
+        library = lambda: torch.nn.functional.leaky_relu(xb, 0.2)
         row["bias_act_fused"] = timing(
-            lambda: so.bias_act_fused(xb, None, "lrelu", 0.2, 1.0, -1.0),
-            lambda: so.bias_act_fused_reference(xb, None, "lrelu", 0.2, 1.0, -1.0),
-            bias_act_bound_parts(r, c, False, False),
-            library=lambda: torch.nn.functional.leaky_relu(xb, 0.2))
+            kernel, lambda: so.bias_act_fused_reference(xb, None, "lrelu", 0.2, 1.0, -1.0),
+            bias_act_bound_parts(r, c, False, False), library=library)
+        # the card's own time of each (kernel durations from torch.profiler),
+        # and the host's time to issue the library call: device against
+        # device, host against host
+        row["bias_act_fused"].update(
+            device_ms=sum(device_ms(kernel).values()),
+            library_device_ms=sum(device_ms(library).values()),
+            library_host_ms=host_ms(library))
         rows[f"{r}x{c}"] = row
         print(f"   [{r}, {c}]: {json.dumps(row)}", flush=True)
     return rows
@@ -1522,7 +1666,7 @@ def main() -> int:
                 print("   " + line.strip(), flush=True)
 
     phase("3/19 attn_block kernel against its plain version")
-    rows = kernel_vs_plain(device)
+    rows, rows_by_batch = kernel_vs_plain(device)
 
     phase("4/19 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
@@ -1594,17 +1738,26 @@ def main() -> int:
         "source": "ccdm_tpu_torch/csrc/attn_block.cu",
         "replaces": "ccdm_tpu/ops/attn_block.py:65",
         "launches": served["launches"],
-        "max_abs_err": max(r["max_err_bf16"] for r in rows.values()),
+        "max_abs_err": max([e for r in rows.values()
+                            for e in (r["max_err_bf16"], r["max_err_bf16_rounded"])
+                            if e is not None] +
+                           [e for errs in rows_by_batch.values() for pair in errs.values()
+                            for e in pair if e is not None]),
         "ms": sum(r["ms"] for r in fwd),
         "plain_ms": sum(r["plain_ms"] for r in fwd),
         "bound_ms": sum(r["bound_ms"] for r in fwd),
         "bound_by": "bytes" if 2 * by_bytes >= sum(r["bound_ms"] for r in fwd) else "operations",
         "library_ms": None,
+        "host_ms": sum(r["host_ms"] for r in fwd),
+        "routes": [f"N{n} C{c}: {rows[f'N{n}_C{c}']['route']} x{rows[f'N{n}_C{c}']['splits']}"
+                   for n, c in FORWARD_SHAPES],
         "ms_is": f"sum over the 10 launches of one UNet forward, B {BATCH}, bf16",
         "launches_in_training": trained["launches"]["attn_block"],
-        "max_err_bf16": max(r["max_err_bf16"] for r in rows.values()),
+        "max_err_bf16": max(r["max_err_bf16"] for r in rows.values()
+                            if r["max_err_bf16"] is not None),
         "max_err_f32": max(r["max_err_f32"] for r in rows.values()),
         "by_shape": rows,
+        "bf16_by_batch": rows_by_batch,
         "model_parity": parity,
         "serve": served,
         "card": card,

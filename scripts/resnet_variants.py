@@ -18,6 +18,7 @@ each half, the per-level sums and each shape's route. Needs the card.
 from __future__ import annotations
 
 import ctypes
+import shutil
 import subprocess
 import sys
 import time
@@ -60,6 +61,7 @@ def build(v: dict) -> Path:
     OUT.mkdir(parents=True, exist_ok=True)
     src, lib = OUT / f"{name_of(v)}.cu", OUT / f"lib{name_of(v)}.so"
     src.write_text(source_of(v))
+    shutil.copy(_build.CSRC_DIR / "ptx.cuh", OUT)  # the header the source includes
     proc = subprocess.run(_build.nvcc_command(_build.find_nvcc(), src, lib),
                           capture_output=True, text=True)
     if proc.returncode:

@@ -12,6 +12,8 @@ tests that compare with it, so that on the card, which has no JAX, the file
 runs as `python -m pytest --noconftest tests/test_torch_attn_block.py -m cuda`.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -121,6 +123,23 @@ def test_library_path_is_under_build_and_keyed_by_source():
     assert lib.name == "libattn_block.so" and len(lib.parent.name) == 16
 
 
+def test_library_path_covers_the_headers(tmp_path, monkeypatch):
+    """The tensor-core sources include csrc/ptx.cuh: an edit to a header of
+    csrc/ changes every library's path, so no build reuses a library made
+    from the old header, while an unchanged tree keeps its paths."""
+    for name in ("attn_block", "resnet_block"):
+        assert '#include "ptx.cuh"' in (_build.CSRC_DIR / f"{name}.cu").read_text()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    names = ("attn_block", "resnet_block", "style_ops")
+    real = {name: _build.library_path(name) for name in names}
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    assert {name: _build.library_path(name) for name in names} == real
+    (csrc / "ptx.cuh").write_text((csrc / "ptx.cuh").read_text() + "\n// edited\n")
+    edited = {name: _build.library_path(name) for name in names}
+    assert all(edited[name] != real[name] for name in names)
+
+
 def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
@@ -148,3 +167,67 @@ def test_cuda_kernel_matches_plain_version(n, c, dtype):
     else:  # relative to max(|y|, |y - x|), as chip_smoke.py states it
         scale = torch.maximum(want.abs(), (want - args[0].float()).abs())
         assert bool(((got - want).abs() <= 3e-2 + 3e-2 * scale).all())
+
+
+def _cuda_bf16_args(b, n, c, seed):
+    x, w = _inputs(np.random.default_rng(seed), b, n, c, x_std=1.0)
+    return [torch.from_numpy(x).cuda().bfloat16(),
+            *(torch.from_numpy(a).cuda().bfloat16() for a in w)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,route", [(8, 16, 512, "fused"), (72, 64, 256, "fused"),
+                                         (8, 1024, 128, "split"), (72, 4096, 64, "split"),
+                                         (8, 64, 512, "fused")])
+def test_cuda_bf16_routes_at_the_main_paths_small_batches(b, n, c, route):
+    """Kernel #1 in bf16 at the batches of the eval sampling and the ddpm
+    request (B 8) and of the EMA grid (B 72), on the route the plan gives
+    each, against the plain version at chip_smoke.py's bound; (64, 512), the
+    128x128 UNet's 8x8 level, takes the fused route's narrow ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    args = _cuda_bf16_args(b, n, c, seed=b + n)
+    assert attn_block.plan(b, n, c, HEADS, torch.bfloat16).route == route
+    got = attn_block.fused_attn_block(*args, HEADS, DIM_HEAD).float()
+    want = attn_block.attn_block_reference(*(a.float() for a in args), HEADS, DIM_HEAD)
+    scale = torch.maximum(want.abs(), (want - args[0].float()).abs())
+    assert bool(((got - want).abs() <= 3e-2 + 3e-2 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(64, 128), (1024, 64)])
+def test_cuda_unaligned_input_takes_the_element_loads(n, c):
+    """x2d one element past an aligned base: the kernel loads it element by
+    element into the same layout, so y is bit-equal to the aligned run's
+    (the fused route at N 64, the split route at N 1024)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    args = _cuda_bf16_args(4, n, c, seed=7)
+    x = args[0]
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    aligned = attn_block.fused_attn_block(x, *args[1:], HEADS, DIM_HEAD)
+    unaligned = attn_block.fused_attn_block(shifted, *args[1:], HEADS, DIM_HEAD)
+    assert torch.equal(aligned, unaligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,c", [(2, 64), (4, 640), (4, 512)])
+def test_cuda_bf16_other_shapes_take_the_cuda_cores(heads, c):
+    """bf16 with heads other than 4, C above 512, or C 512 at N 100 (where
+    neither tensor-core route's shared memory fits) takes the CUDA-core
+    route, against the plain version at chip_smoke.py's bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(heads + c)
+    f = heads * DIM_HEAD
+    arrays = (rng.normal(0, 1, (4, 100, c)), 1 + 0.5 * rng.normal(size=c),
+              0.1 * rng.normal(size=(c, 3 * f)), 0.1 * rng.normal(size=(f, c)),
+              0.1 * rng.normal(size=c), 1 + 0.5 * rng.normal(size=c))
+    args = [torch.from_numpy(a.astype(np.float32)).cuda().bfloat16() for a in arrays]
+    assert attn_block.plan(4, 100, c, heads, torch.bfloat16).route == "cores"
+    got = attn_block.fused_attn_block(*args, heads, DIM_HEAD).float()
+    want = attn_block.attn_block_reference(*(a.float() for a in args), heads, DIM_HEAD)
+    scale = torch.maximum(want.abs(), (want - args[0].float()).abs())
+    assert bool(((got - want).abs() <= 3e-2 + 3e-2 * scale).all())

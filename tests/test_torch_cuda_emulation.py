@@ -49,6 +49,7 @@ struct dim3 {
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -62,6 +63,8 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* device) { *device = 0; return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated CUDA error"; }
 inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
+inline float __expf(float v) { return std::exp(v); }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 namespace emu {
 inline thread_local dim3 tid, bid;
 inline dim3 grid_dim;
@@ -95,6 +98,9 @@ void launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F body) {
 #define blockIdx emu::bid
 #define gridDim emu::grid_dim
 inline void __syncthreads() { emu::block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu::warp_barriers[threadIdx.x / 32]->arrive_and_wait();
+}
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   emu::exchange[w][l] = v;
@@ -185,6 +191,7 @@ struct __nv_bfloat16 { uint16_t x; };
 inline float __bfloat162float(__nv_bfloat16 b) {
   uint32_t u = uint32_t(b.x) << 16; float f; std::memcpy(&f, &u, 4); return f;
 }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
 inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
   uint32_t u; std::memcpy(&u, &f, 4);
   __nv_bfloat16 b; b.x = uint16_t((u + 0x7fff + ((u >> 16) & 1)) >> 16); return b;
@@ -224,14 +231,20 @@ def _to_cpp(src: str) -> str:
     return "".join(out) + src[i:]
 
 
-def _compile(d, name):
-    """g++-compile csrc/<name>.cu behind the emulation into d/lib<name>.so."""
+def _compile(d, name, subs=None):
+    """g++-compile csrc/<name>.cu behind the emulation into d/lib<name>.so,
+    each declaration `old` of `subs` replaced by `new` first."""
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (d / "cuda_bf16.h").write_text(CUDA_BF16_H)
-    (d / f"{name}.cpp").write_text(_to_cpp((_build.CSRC_DIR / f"{name}.cu").read_text()))
+    src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+    for old, new in (subs or {}).items():
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    (d / f"{name}.cpp").write_text(_to_cpp(src))
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{d}",
-                    "-include", "cuda_runtime.h", "-o", str(d / f"lib{name}.so"),
-                    str(d / f"{name}.cpp")], check=True, timeout=300)
+                    f"-I{_build.CSRC_DIR}", "-include", "cuda_runtime.h",
+                    "-o", str(d / f"lib{name}.so"), str(d / f"{name}.cpp")],
+                   check=True, timeout=300)
     return ctypes.CDLL(str(d / f"lib{name}.so"))
 
 
@@ -239,30 +252,70 @@ def _compile(d, name):
 def emulated(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the emulated kernel")
-    lib = _compile(tmp_path_factory.mktemp("cuda_emu"), "attn_block")
-    lib.ccdm_attn_block_forward.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                                            + [ctypes.c_void_p])
-    lib.ccdm_attn_block_forward.restype = ctypes.c_int
-    return lib
+    from ccdm_tpu_torch.ops import attn_block as ab
+
+    return ab.declare(_compile(tmp_path_factory.mktemp("cuda_emu"), "attn_block"))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,n,c", [(2, 64, 32), (2, 100, 64), (1, 16, 512)])
-def test_emulated_kernel_matches_plain_version(emulated, b, n, c, dtype):
-    rng = np.random.default_rng(0)
+@pytest.fixture(scope="module")
+def emulated_short(tmp_path_factory):
+    """#1's library with a wave of 2 blocks and no fused route: the split
+    route at short rows, with splits = min(tiles, 4 // B)."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the emulated kernel")
+    from ccdm_tpu_torch.ops import attn_block as ab
+
+    return ab.declare(_compile(
+        tmp_path_factory.mktemp("cuda_emu_short"), "attn_block",
+        {"constexpr int kWave = 132;": "constexpr int kWave = 2;",
+         "constexpr int kFusedMaxN = 128;": "constexpr int kFusedMaxN = 0;"}))
+
+
+ATTN_ROUTES = ("cores", "fused", "split")
+
+
+def _attn_plan(lib, b, n, c, heads, bf16):
+    """(route, splits, workspace) of the library's plan for one call of #1."""
+    out = (ctypes.c_int * 3)()
+    nbytes = lib.ccdm_attn_block_plan(b, n, c, heads, bf16, out)
+    assert out[0] >= 0, (b, n, c, bf16)
+    return ATTN_ROUTES[out[0]], out[2], nbytes
+
+
+def _attn_inputs(b, n, c, dtype, seed=0, jump=False, heads=HEADS):
+    """x [b, n, c] ~ N(0, 2) in f32 and N(0, 1) in bf16, and the weights
+    (g_pre, wqkv, wout, bout, g_out), in `dtype`. With `jump`, channel 0 of x
+    is 0 in the first half of the tokens and 30 in the second, its gain 1.5
+    and its row of Wk 20 times larger: k rises by tens halfway through the
+    row, so the online softmax's running max must rescale what it has summed."""
+    rng = np.random.default_rng(seed)
+    f = heads * 32
     x = rng.normal(0, 2.0 if dtype == "float32" else 1.0, (b, n, c))
-    w = (1 + 0.5 * rng.normal(size=c), 0.1 * rng.normal(size=(c, 3 * F)),
-         0.1 * rng.normal(size=(F, c)), 0.1 * rng.normal(size=c), 1 + 0.5 * rng.normal(size=c))
+    w = (1 + 0.5 * rng.normal(size=c), 0.1 * rng.normal(size=(c, 3 * f)),
+         0.1 * rng.normal(size=(f, c)), 0.1 * rng.normal(size=c), 1 + 0.5 * rng.normal(size=c))
+    if jump:
+        x[:, :n // 2, 0], x[:, n // 2:, 0] = 0.0, 30.0
+        w[0][0] = 1.5
+        w[1][0, f:2 * f] *= 20
     dt = getattr(torch, dtype)
-    ins = [torch.from_numpy(a.astype(np.float32)).to(dt).contiguous() for a in (x, *w)]
+    return [torch.from_numpy(a.astype(np.float32)).to(dt).contiguous() for a in (x, *w)]
+
+
+def _attn_block(lib, b, n, c, dtype, seed=0, x_offset=0, jump=False, heads=HEADS):
+    """#1 in the emulation on _attn_inputs against attn_block_reference, at
+    the card's bounds (f32 rtol 2e-3 / atol 2e-4; bf16 3e-2 relative to
+    max(|y|, |y - x|)), x at `x_offset` elements past an aligned base.
+    Returns (route, splits) and y."""
+    ins = _attn_inputs(b, n, c, dtype, seed, jump, heads)
+    dt = ins[0].dtype
+    xs = torch.empty(ins[0].numel() + x_offset, dtype=dt)[x_offset:].view(b, n, c)
+    xs.copy_(ins[0])
+    bf16 = int(dt == torch.bfloat16)
+    route, splits, nbytes = _attn_plan(lib, b, n, c, heads, bf16)
+    ws = torch.empty(nbytes // 4)
     y = torch.empty_like(ins[0])
-    qkv = torch.empty(b, n, 3 * F)
-    ctx = torch.empty(b, HEADS, 32, 32)
-    err = emulated.ccdm_attn_block_forward(*(t.data_ptr() for t in ins), y.data_ptr(),
-                                           qkv.data_ptr(), ctx.data_ptr(), b, n, c, HEADS,
-                                           int(dt == torch.bfloat16), None)
-    assert err == 0
-    want = attn_block_reference(*(t.float() for t in ins), HEADS, 32)
+    _call(lib, "ccdm_attn_block_forward", xs, *ins[1:], y, ws, b, n, c, heads, bf16, nbytes)
+    want = attn_block_reference(*(t.float() for t in ins), heads, 32)
     got = y.float()
     assert bool(torch.isfinite(got).all())
     if dtype == "float32":
@@ -270,6 +323,122 @@ def test_emulated_kernel_matches_plain_version(emulated, b, n, c, dtype):
     else:
         scale = torch.maximum(want.abs(), (want - ins[0].float()).abs())
         assert bool(((got - want).abs() <= 3e-2 + 3e-2 * scale).all())
+    return (route, splits), y
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,c", [(2, 64, 32), (2, 100, 64), (1, 16, 512)])
+def test_emulated_kernel_matches_plain_version(emulated, b, n, c, dtype):
+    """Kernel #1 at these short rows takes the CUDA cores in f32 and the fused
+    route (tensor cores, one block a row) in bf16."""
+    (route, _), _ = _attn_block(emulated, b, n, c, dtype)
+    assert route == ("cores" if dtype == "float32" else "fused")
+
+
+@pytest.mark.parametrize("lib,b,n,c,route,splits,x_offset,jump", [
+    ("", 1, 16, 512, "fused", 1, 0, False),       # C 512: four Wout chunks, 16 of a 64 tile
+    ("", 2, 64, 128, "fused", 1, 0, False),
+    ("", 1, 64, 512, "fused", 1, 0, False),       # C 512, N 64: k and v through a narrow ring
+    ("_short", 2, 100, 64, "split", 2, 0, False),  # a ragged last tile of 36 tokens
+    ("_short", 1, 200, 64, "split", 4, 0, False),  # four splits merged in order
+    ("_short", 2, 100, 64, "split", 2, 1, False),  # x one element past an aligned base
+    ("", 1, 70, 40, "fused", 1, 0, False),        # C 40: element loads, part K slices
+    ("_short", 4, 200, 64, "split", 1, 0, False),  # four tiles a block: the next one loads
+    ("_short", 1, 300, 256, "split", 4, 0, False),  # C 256: the weights streamed, two Wout chunks
+    ("_short", 4, 256, 64, "split", 1, 0, True),   # k jumps at tile 2 of 4: a rescale
+    ("", 1, 128, 64, "fused", 1, 0, True),        # ... at tile 1 of 2 in the fused route
+])
+def test_emulated_attn_bf16_routes_match_plain(request, lib, b, n, c, route, splits, x_offset,
+                                               jump):
+    """The tensor-core routes of #1 in the emulation (mma.sync, ldmatrix and
+    cp.async with the ISA's fragment layouts): the fused route, and the split
+    route reached at short rows through a library built with no fused route
+    and a wave of two blocks (emulated_short), at the card's bf16 bound."""
+    emulated = request.getfixturevalue("emulated" + lib)
+    got, _ = _attn_block(emulated, b, n, c, "bfloat16", seed=n + c, x_offset=x_offset,
+                         jump=jump)
+    assert got == (route, splits)
+
+
+@pytest.mark.parametrize("lib,b,n,c", [("", 2, 64, 512), ("", 2, 16, 512),
+                                       ("_short", 2, 100, 64)])
+def test_emulated_attn_bf16_matches_its_rounding_points(request, lib, b, n, c):
+    """#1 in bf16 against the plain version at its own rounding points (the
+    plain #2 for xn, exp(k - m), v and s, ctx = a / s rounded to bf16, the
+    plain #3 for q', the attention output and the epilogue: chip_smoke's
+    attn_rounded_reference) at the bf16 bound: at C 512 the roundings
+    themselves come near the bound against the f32 plain version, so this is
+    the check of the kernel's arithmetic there (fused, narrow ring, split)."""
+    from ccdm_tpu_torch.ops import attn_block as ab
+
+    emulated = request.getfixturevalue("emulated" + lib)
+    _, y = _attn_block(emulated, b, n, c, "bfloat16", seed=3 * n + c)
+    xb, g_pre, wqkv, wout, bout, g_out = _attn_inputs(b, n, c, "bfloat16", seed=3 * n + c)
+    a, s, _ = ab.ctx_large_reference(xb, g_pre, wqkv, HEADS)
+    ctx = (a / s.clamp_min(1e-30).view(*a.shape[:3], 1)).bfloat16()
+    want = ab.out_large_reference(xb, g_pre, wqkv, ctx, wout, bout, g_out, HEADS).float()
+    scale = torch.maximum(want.abs(), (want - xb.float()).abs())
+    assert bool(((y.float() - want).abs() <= 3e-2 + 3e-2 * scale).all())
+
+
+@pytest.mark.parametrize("b,n,c,heads", [(2, 40, 64, 2), (1, 30, 640, 4)])
+def test_emulated_attn_bf16_other_shapes_take_the_cuda_cores(emulated, b, n, c, heads):
+    """In bf16, heads other than 4 and C above 512 (no model path) take the
+    CUDA-core route, as every bf16 call did before the tensor-core routes,
+    at the same bound."""
+    got, _ = _attn_block(emulated, b, n, c, "bfloat16", seed=b + c, heads=heads)
+    assert got == ("cores", 1)
+
+
+def _unet_attn_shapes(size, mults, dim=64):
+    """(N, C) of a UNet's attention blocks: each down level at its input
+    width, each up level at its output width (models/unet.py)."""
+    dims = [dim] + [dim * m for m in mults]
+    pairs = list(zip(dims[:-1], dims[1:]))
+    down = [((size >> i) ** 2, c_in) for i, (c_in, _) in enumerate(pairs)]
+    up = [((size >> (len(pairs) - 1 - i)) ** 2, c_out)
+          for i, (_, c_out) in enumerate(reversed(pairs))]
+    return down + up
+
+
+# (N, C) of the attention blocks of the RC-49 64x64 UNet (chip_smoke.FORWARD_SHAPES),
+# the 128x128 (mults 1_2_4_4_8_8) and the 192x192 (1_2_2_4_4_8_8) UNet
+UNET_ATTN_SHAPES = sorted(set(_unet_attn_shapes(64, (1, 2, 2, 4, 8)) +
+                              _unet_attn_shapes(128, (1, 2, 4, 4, 8, 8)) +
+                              _unet_attn_shapes(192, (1, 2, 2, 4, 4, 8, 8))))
+
+
+@pytest.mark.parametrize("batch", [64, 128, 72, 8])
+def test_emulated_attn_plan_at_the_unet_shapes(emulated, batch):
+    """The C plan of #1 at the batches the main paths give it (served,
+    trained, the EMA grid, the eval sampling): bf16 fused (no workspace)
+    where N <= 128, else split with min(tiles, max(1, floor(264 / B))) blocks
+    a row in each pass (two an SM, one wave) and a workspace of their f32
+    records (m, s, a: 4352 floats, two a block) and the bf16 ctx; f32, and
+    bf16 with heads other than 4 or C above 512, the CUDA cores through an
+    f32 qkv workspace."""
+    for n, c in UNET_ATTN_SHAPES:
+        out = (ctypes.c_int * 3)()
+        nbytes = emulated.ccdm_attn_block_plan(batch, n, c, HEADS, 1, out)
+        route, tile, splits = ATTN_ROUTES[out[0]], out[1], out[2]
+        if n <= 128:
+            assert (route, tile, splits, nbytes) == ("fused", 64, 1, 0), (n, c)
+        else:
+            want = min(-(-n // 64), max(1, 264 // batch))
+            assert (route, tile, splits) == ("split", 64, want), (n, c)
+            assert nbytes == batch * want * 2 * 4352 * 4 + batch * F * 32 * 2
+        f32 = (ctypes.c_int * 3)()
+        assert emulated.ccdm_attn_block_plan(batch, n, c, HEADS, 0, f32) == \
+            (batch * n * 3 * F + batch * F * 32) * 4 and f32[0] == 0
+    # bf16 shapes the tensor-core routes do not take: the CUDA cores (at C 512
+    # the fused route's shared memory holds 77 tokens, the split route's none)
+    for n, c, heads in ((64, 640, HEADS), (64, 64, 2), (64, 64, 8), (78, 512, HEADS),
+                        (1024, 512, HEADS)):
+        f = heads * 32
+        assert emulated.ccdm_attn_block_plan(batch, n, c, heads, 1, out) == \
+            (batch * n * 3 * f + batch * f * 32) * 4 and out[0] == 0, (n, c, heads)
+    for n in (48, 77):  # C 512: the wide ring to N 53, the narrow one to N 77
+        assert emulated.ccdm_attn_block_plan(batch, n, 512, HEADS, 1, out) == 0 and out[0] == 1
 
 
 # ------------------------------------------- kernels #2-#5 (two-pass path)
@@ -760,12 +929,14 @@ def emulated_style(tmp_path_factory):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows,c,vec", [(37, 128, 0), (5, 24, 0), (3, 13, 1)])
+@pytest.mark.parametrize("rows,c,vec", [(37, 128, 0), (5, 24, 0), (3, 13, 1), (300, 40, 0)])
 def test_emulated_bias_act_matches_plain(emulated_style, rows, c, vec, dtype):
-    """Kernel #12, every activation, with and without bias, clamp and an
-    explicit gain; a row count off the 256-thread tile; 16-byte vectors
-    (vec 0) and one value a thread (vec 1). Both compute in f32 and round
-    once: f32 to 1e-5, bf16 to one unit where a rounding flips (8e-3)."""
+    """Kernel #12, every activation (one instantiation each), with and
+    without bias, clamp and an explicit gain; a row count off the block's
+    tile of 256 threads x 4 packs; 16-byte packs (vec 0) and one value a
+    pack (vec 1); at C 40 several blocks whose packs' columns wrap the row
+    as they step. Both compute in f32 and round once: f32 to 1e-5, bf16 to
+    one unit where a rounding flips (8e-3)."""
     from ccdm_tpu_torch.ops import style_ops as so
 
     rng = np.random.default_rng(rows * c)
