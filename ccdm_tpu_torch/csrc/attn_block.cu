@@ -84,9 +84,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "ptx.cuh"
+#include "common.cuh"
 
 namespace {
 
@@ -430,14 +429,6 @@ __host__ __device__ inline bool fused_narrow(int n, int c) {
   return chunks_of(c) == 4 && fused_layout(n, c, false).total > kMaxSmem;
 }
 
-__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
-
-// Two values rounded to bf16, the first in the low half (an mma operand register).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
-}
-
 // Where this thread's accumulator element [mi][ni][h * 2 + e] lies in its
 // warp's 32 x 32 tile: row mi * 16 + g + 8 h, column ni * 8 + 2 t + e.
 struct Lane {
@@ -498,16 +489,6 @@ __device__ void load_slab(bf16* dst, const WSlab& ws, int k0, int rows, int k_to
 #pragma unroll
       for (int e = 0; e < 8; ++e) d[e] = ok && col + e < ws.col_lim ? s[e] : zero;
     }
-  }
-}
-
-// The eight bf16 of a 16-byte chunk, in f32.
-__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
@@ -1165,30 +1146,13 @@ Plan make_plan(int batch, int n, int c, int heads, int is_bf16) {
   return p;
 }
 
-// Raises Kernel's dynamic shared-memory limit to the most a block may use,
-// once per device, so that later launches skip the call.
-template <auto Kernel>
-int allow_smem() {
-  static std::atomic<unsigned long long> done{0};  // one bit per device
-  int dev = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return 0;
-  err = (int)cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (!err) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 template <int NC, bool RES>
 int launch_split(const Plan& p, const bf16* x, const Weights& wt, bf16* y, void* ws, int batch,
                  int n, int c, int vec, cudaStream_t stream) {
   float* parts = static_cast<float*>(ws);
   bf16* ctx = reinterpret_cast<bf16*>(parts + (size_t)batch * p.splits * 2 * kPart);
-  int err = allow_smem<split_pass1_kernel<RES>>();
-  if (!err) err = allow_smem<split_pass2_kernel<NC, RES>>();
+  int err = allow_smem<split_pass1_kernel<RES>>(kMaxSmem);
+  if (!err) err = allow_smem<split_pass2_kernel<NC, RES>>(kMaxSmem);
   if (err) return err;
   const dim3 grid(p.splits, batch);
   split_pass1_kernel<RES><<<grid, kThreads, pass1_layout(c, RES).total, stream>>>(
@@ -1207,7 +1171,7 @@ int launch_split(const Plan& p, const bf16* x, const Weights& wt, bf16* y, void*
 template <int NC, bool NARROW>
 int launch_fused(const bf16* x, const Weights& wt, bf16* y, int batch, int n, int c, int vec,
                  cudaStream_t stream) {
-  const int err = allow_smem<fused_kernel<NC, NARROW>>();
+  const int err = allow_smem<fused_kernel<NC, NARROW>>(kMaxSmem);
   if (err) return err;
   fused_kernel<NC, NARROW><<<batch, kThreads, fused_layout(n, c, NARROW).total, stream>>>(
       x, wt, y, n, c, vec);
@@ -1240,8 +1204,8 @@ int launch_cores(const void* x, const void* g_pre, const void* wqkv, const void*
       ((size_t)2 * f * kTNP + (size_t)f * kD + (size_t)kTN * c_dim) * sizeof(float);
   if (smem_qkv > (size_t)kMaxSmem || smem_out > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  int err = allow_smem<qkv_kernel<T>>();
-  if (!err) err = allow_smem<out_kernel<T>>();
+  int err = allow_smem<qkv_kernel<T>>(kMaxSmem);
+  if (!err) err = allow_smem<out_kernel<T>>(kMaxSmem);
   if (err) return err;
   qkv_kernel<T><<<tok_grid, kThreads, smem_qkv, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g_pre), static_cast<const T*>(wqkv), qkv,

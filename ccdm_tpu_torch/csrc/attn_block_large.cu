@@ -14,9 +14,10 @@
 //      backward, dWqkv, dg_pre, dx (+ dy).
 // Norms, softmaxes and their backward run in f32; every product takes its
 // operands rounded to the activation type (bf16 or f32) and accumulates in
-// f32, where the TPU kernels feed their MXU. Per-head sums are reduced per
-// head directly (the TPU kernels' block-diagonal ones matmul was a Mosaic
-// workaround); only the diagonal D x D blocks of ctx exist here.
+// f32, where the TPU kernels feed their MXU (d_a of #5 is f32 there, and
+// stays so here). Per-head sums are reduced per head directly (the TPU
+// kernels' block-diagonal ones matmul was a Mosaic workaround); only the
+// diagonal D x D blocks of ctx exist here.
 //
 // A TPU grid runs in order and carried its sums over N (a, s, d_ctx) and
 // over the whole grid (the weight grads) in VMEM. Hopper blocks run in no
@@ -25,20 +26,35 @@
 //   - pass A: each block keeps a running column max of k and rescales its
 //     a and s when it grows (as an online softmax does); ctx_reduce merges
 //     the blocks' (max, s, a) into the exact kmax and a, s relative to it;
-//   - the backward's per-token kernels write the operands of the two weight
-//     products (out and do; xn and d_qkv) to device memory, and wgrad, a
-//     register-tiled split-K product, reduces them over all B*N tokens.
+//   - the backward: per-block partials of d_ctx, dWout (tensor cores) and
+//     the vectors, summed by sum_parts; dWqkv from xn and d_qkv written by
+//     #5, through a split-K product (wgrad_tc_kernel, or wgrad_kernel on the
+//     CUDA cores).
 //
-// What bounds them on this card: at the 64x64 training shape (B 128,
-// N 4096, C 64, F 128) each pass moves a few hundred MB (~0.1 ms at
-// 3.35 TB/s) and does 20-100 GFLOP (~0.02-0.1 ms at 989 TFLOP/s): the
-// bound is the tensor cores. This first design keeps every product on the
-// CUDA cores (f32 FMAs from shared memory, register tiles of 8 tokens), so
-// it is bound by FMA issue; moving the products to wgmma is the next step.
+// What bounds them on this card (NVIDIA H100 SXM, 700 W, data-sheet peaks
+// of 989 TFLOP/s bf16 and 3.35 TB/s): at the 64x64 training shape (B 128,
+// N 4096, C 64, F 128) #4 moves ~270 MB and does ~43 GFLOP, #5 ~340 MB
+// and ~99 GFLOP: 0.08 and 0.10 ms by bytes, 0.04 and 0.10 ms by operations
+// (chip_smoke.large_bound_parts). Only products on the tensor cores with
+// few intermediates in device memory come near that.
+// Routes of #4 and #5 (make_bwd_plan, exported as ccdm_attn_bwd_plan; a
+// function of the shape alone, never of a failure):
+//   - tensor cores, for bf16 at 4 heads and C a multiple of 32 up to 128
+//     (every two-pass shape of the 64x64, 128x128 and 192x192 UNets): the
+//     section "bf16 backward: tensor cores" below;
+//   - CUDA cores, for f32 (the checks whose bounds TF32 would break) and
+//     every other shape: the first design, every product as f32 FMAs from
+//     shared memory in register tiles of 8 tokens, the weight products
+//     through [B, N, *] operands in device memory and wgrad_kernel.
+// #2 and #3 keep the CUDA-core design in both types.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "ptx.cuh"
+#include "common.cuh"
 
 namespace {
 
@@ -713,7 +729,7 @@ bwd_b_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
   for (int c = threadIdx.x; c < c_dim; c += kThreads) dg_part[(size_t)part * c_dim + c] = dg_s[c];
 }
 
-// --------------------------------------------------- the weight products
+// ------------------------------ the weight products (CUDA-core route)
 // part[p][i][j] = sum over tokens t of split p of op(A[t][i]) op(B[t][j]),
 // A [M, I] and B [M, J] in device memory, op = rounding to T. Per block a
 // 64 x 64 tile of the output, 4 x 4 per thread, 32 tokens per step.
@@ -782,8 +798,813 @@ sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out, int ou
   out[idx] = acc;
 }
 
+
+// ----------------------------------------- bf16 backward: tensor cores
+// #4 and #5 in bf16 at 4 heads and C a multiple of 32 up to 128 (every
+// two-pass shape of the 64x64, 128x128 and 192x192 UNets). Every product
+// runs as mma.sync m16n8k16 (bf16 operands, f32 sums) from ldmatrix; the
+// norms, softmaxes and their backward run in f32 on the accumulators.
+// A block has 8 warps and walks 128-token tiles; a warp owns 16 rows of a
+// tile across its whole width, so that every sum over a row (the norms, a
+// head's softmax, the out-norm's backward) stays inside a quad of lanes.
+// The weights and the batch row's ctx (and d_a) stay in shared memory.
+//   - #4: per head, q = xn . Wq, q' = softmax(q) D^-1/2, out = q' . ctx_h;
+//     o = out . Wout + bout; do (f32, written) from the out-norm's
+//     backward; d_out = do . Wout^T. The sums over the tokens, d_ctx +=
+//     q'^T . d_out and dWout += out^T . do, take the tile's q', out, do and
+//     d_out from shared memory (ldmatrix .trans: the tokens are the
+//     contracted axis) into accumulators that each warp keeps in registers
+//     for the whole split (a part of the output each). Each block writes one
+//     f32 partial of d_ctx, dWout, dbout and dg_out; sum_parts reduces them
+//     in a fixed order. No [B, N, F] tensor reaches device memory.
+//   - #5: per head, d_out = do . Wout^T (rounded), d_p = d_out . ctx_h^T,
+//     q and its softmax's backward d_q; v and d_e = v . d_a_h^T; k, e =
+//     exp(k - kmax), d_k = e (d_e + d_s); d_v = e . d_a_h; each d_q, d_k,
+//     d_v rounded and at once folded into d_xn += d_qkv . Wqkv^T; then the
+//     pre-norm's backward and dx = dy + ... . d_a is f32 (XLA's finalize):
+//     d_e and d_v take it as two bf16 operands, hi = bf16(d_a) and lo =
+//     bf16(d_a - hi), two products each, which keeps it to ~2^-17 where one
+//     bf16 operand would round it at 2^-9. A warp's x rows load for the next
+//     tile while it finishes this one. dWqkv += xn^T . d_qkv is a
+//     [C, 3F] sum over all tokens: 96 to 192 f32 a thread, more than the
+//     registers or the shared memory hold beside the rest, so #5 writes xn
+//     and d_qkv in bf16 and wgrad_tc_kernel, a split-K product on the
+//     tensor cores (64 x 128 output tiles, a 3-stage cp.async ring of
+//     32-token slices), sums them; sum_parts reduces its splits in order.
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kHeads = 4;             // heads of the tensor-core route
+constexpr int kF = kHeads * kD;       // 128
+constexpr int kTM = kWarps * 16;      // tokens per tile: 16 rows a warp
+constexpr int kMaxC = 128;            // widest C of the tensor-core route
+constexpr int kWave = 132;            // blocks that fill the card once: the SMs of an H100 SXM
+constexpr int kWgradBlocks = 264;     // blocks a dWqkv launch aims at
+constexpr int kMaxSmem = kSmemLimit;  // dynamic shared memory a block may use (227 KB)
+constexpr int kLF = kF + 8;           // bf16 per row of a [tokens][F] tile
+constexpr int kLW = 3 * kF + 8;       // bf16 per row of Wqkv [C][3F] in shared memory
+constexpr int kLH = kD + 8;           // bf16 per row of ctx and d_a [F][D]
+constexpr int kGI = 64, kGJ = 128, kGK = 32, kGStages = 3;  // wgrad_tc_kernel's tiles and ring
+constexpr int kGLA = kGI + 8, kGLB = kGJ + 8;
+constexpr int kGStage = kGK * (kGLA + kGLB);  // bf16 of one ring stage
+static_assert(kThreads == 256 && kTM == 128, "8 warps of 16 rows");
+
+// bf16 per row of a [tokens][C] tile.
+__host__ __device__ constexpr int ldc(int c) { return c + 8; }
+
+// Byte offsets of #4's shared memory: Wq [C][kLF], Wout [F][C + 8], ctx
+// [F][kLH], g_pre, bout, g_out [3][C] f32, the x tile (then xn, then do in
+// bf16) [kTM][C + 8], q', out and d_out [kTM][kLF], and each warp's sums of
+// do and dy o r2 per channel [8][2][C] f32.
+struct BwdALayout {
+  int wq, wo, ctx, vec, xn, qs, out, dout, red, total;
+};
+__host__ __device__ inline BwdALayout bwd_a_layout(int c) {
+  BwdALayout l{};
+  l.wo = c * kLF * 2;
+  l.ctx = l.wo + kF * ldc(c) * 2;
+  l.vec = l.ctx + kF * kLH * 2;
+  l.xn = l.vec + 3 * c * 4;
+  l.qs = l.xn + kTM * ldc(c) * 2;
+  l.out = l.qs + kTM * kLF * 2;
+  l.dout = l.out + kTM * kLF * 2;
+  l.red = l.dout + kTM * kLF * 2;
+  l.total = l.red + kWarps * 2 * c * 4;
+  return l;
+}
+
+// #5's: Wqkv [C][kLW], Wout [F][C + 8], ctx, d_a's hi and lo [F][kLH],
+// kmax, d_s [F] and g_pre [C] f32, the x tile (then xn) [kTM][C + 8], each
+// row's 1 / rms [kTM] and each warp's sums of d_xn x / rms [8][C] f32.
+struct BwdBLayout {
+  int w, wo, ctx, dah, dal, vec, xn, inv, red, total;
+};
+__host__ __device__ inline BwdBLayout bwd_b_layout(int c) {
+  BwdBLayout l{};
+  l.wo = c * kLW * 2;
+  l.ctx = l.wo + kF * ldc(c) * 2;
+  l.dah = l.ctx + kF * kLH * 2;
+  l.dal = l.dah + kF * kLH * 2;
+  l.vec = l.dal + kF * kLH * 2;
+  l.xn = l.vec + (2 * kF + c) * 4;
+  l.inv = l.xn + kTM * ldc(c) * 2;
+  l.red = l.inv + kTM * 4;
+  l.total = l.red + kWarps * c * 4;
+  return l;
+}
+
+// Where this thread's elements lie in its warp's 16 x 32 accumulator
+// Acc[ni][e]: row g + 8 (e / 2), column 8 ni + 2 t + e % 2.
+struct Quad {
+  int lane, g, t, w;
+  __device__ Quad() {
+    lane = threadIdx.x & 31;
+    g = lane >> 2;
+    t = lane & 3;
+    w = threadIdx.x >> 5;
+  }
+};
+typedef float Acc[4][4];
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// Sum over the 8 lanes of a column of quads (the 16 rows of a warp's block).
+__device__ __forceinline__ float column_sum(float v) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// B fragments of a 16 (k) x 32 (n) block at b, n8 tiles 2 nj and 2 nj + 1
+// in bfr[nj]: stored [k][n] (b_kn, ldmatrix .trans) or [n][k] (b_nk).
+__device__ __forceinline__ void b_kn(uint32_t (&bfr)[2][4], const bf16* b, int ld, int lane) {
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+    ldmatrix_x4_trans(bfr[nj], b + (lane & 15) * ld + nj * 16 + (lane >> 4) * 8);
+}
+__device__ __forceinline__ void b_nk(uint32_t (&bfr)[2][4], const bf16* b, int ld, int lane) {
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+    ldmatrix_x4(bfr[nj], b + (nj * 16 + (lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8);
+}
+
+// The A fragment of a 16 (m) x 16 (k) block at p: stored [m][k] (a_mk) or
+// [k][m] (a_km, ldmatrix .trans: a product over the tokens of a tile).
+__device__ __forceinline__ void a_mk(uint32_t (&a)[4], const bf16* p, int ld, int lane) {
+  ldmatrix_x4(a, p + (lane & 15) * ld + (lane >> 4) * 8);
+}
+__device__ __forceinline__ void a_km(uint32_t (&a)[4], const bf16* p, int ld, int lane) {
+  ldmatrix_x4_trans(a, p + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8);
+}
+
+// acc += A . B for a 16 x 16 A fragment and a 16 x 32 B block.
+__device__ __forceinline__ void mma_n32(Acc& acc, const uint32_t (&a)[4],
+                                        const uint32_t (&bfr)[2][4]) {
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const uint32_t b[2] = {bfr[ni / 2][(ni % 2) * 2], bfr[ni / 2][(ni % 2) * 2 + 1]};
+    mma_16816(acc[ni], a, b);
+  }
+}
+
+// The A fragments (two k16 steps) of a 16 x 32 accumulator, rounded to bf16.
+__device__ __forceinline__ void as_a(uint32_t (&a)[2][4], const Acc& c) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// acc += A . B over k: A the warp's 16 rows at a ([16][k], row stride lda),
+// B a 32-column block at b stored [k][n].
+__device__ __forceinline__ void mma_rows(Acc& acc, const bf16* a, int lda, const bf16* b, int ldb,
+                                         int k, int lane) {
+  for (int k0 = 0; k0 < k; k0 += 16) {
+    uint32_t af[4], bfr[2][4];
+    a_mk(af, a + k0, lda, lane);
+    b_kn(bfr, b + k0 * ldb, ldb, lane);
+    mma_n32(acc, af, bfr);
+  }
+}
+
+// Rows [0, valid) of a warp's 16 x 32 accumulator, rounded to bf16, to dst
+// [16][ld] (shared or device memory).
+__device__ __forceinline__ void store_rows(bf16* dst, int ld, const Acc& c, const Quad& q,
+                                           int valid) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (q.g + 8 * h >= valid) continue;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+      *reinterpret_cast<uint32_t*>(dst + (q.g + 8 * h) * ld + ni * 8 + 2 * q.t) =
+          pack_bf16(c[ni][2 * h], c[ni][2 * h + 1]);
+  }
+}
+
+// In place, per row of a head's 16 x 32 accumulator: softmax(row) * scale;
+// rows at or past valid become zeros.
+__device__ __forceinline__ void head_softmax(Acc& a, const Quad& q, int valid, float scale) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) mx = fmaxf(mx, fmaxf(a[ni][2 * h], a[ni][2 * h + 1]));
+    mx = quad_max(mx);
+    float s = 0.f;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        a[ni][2 * h + e] = __expf(a[ni][2 * h + e] - mx);
+        s += a[ni][2 * h + e];
+      }
+    s = quad_sum(s);
+    const float f = q.g + 8 * h < valid ? scale / fmaxf(s, 1e-30f) : 0.f;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      a[ni][2 * h] *= f;
+      a[ni][2 * h + 1] *= f;
+    }
+  }
+}
+
+// Rows [0, rows) x columns [0, cols) of src (row stride lds) to dst [rows][ldd]
+// in 16-byte chunks, zeros past rows_valid; cp.async (vec) or element loads,
+// by threads tid of nthr. cols % 8 == 0. The caller commits and waits.
+__device__ void copy_rows(bf16* dst, int ldd, const bf16* __restrict__ src, int lds, int rows,
+                          int rows_valid, int cols, int vec, int tid, int nthr) {
+  const int per_row = cols / 8;
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = tid; i < rows * per_row; i += nthr) {
+    const int r = i / per_row, col = (i % per_row) * 8;
+    const bool ok = r < rows_valid;
+    const bf16* s = ok ? src + (size_t)r * lds + col : src;
+    bf16* d = dst + r * ldd + col;
+    if (vec) {
+      cp_async_16(d, s, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = ok ? s[e] : zero;
+    }
+  }
+}
+
+// In place, the warp's 16 rows at p ([16][ld], C = c, c % 32 == 0): row <-
+// bf16(row / rms(row) * g), rows past valid zeros; 1 / rms to inv_out[r]
+// where given. Two lanes a row, c / 16 chunks of 8 each.
+__device__ void warp_norm16(bf16* p, int ld, const float* g, int valid, int c, float* inv_out,
+                            int lane) {
+  const int r = lane >> 1, off = (lane & 1) * (c / 2), chunks = c / 16;
+  bf16* row = p + r * ld + off;
+  float ss = 0.f;
+  for (int k = 0; k < chunks; ++k) {
+    float v[8];
+    unpack8(*reinterpret_cast<const uint4*>(row + 8 * k), v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ss = fmaf(v[e], v[e], ss);
+  }
+  ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+  const bool ok = r < valid;
+  const float inv = rsqrtf(ss / (float)c + 1e-12f);
+  for (int k = 0; k < chunks; ++k) {
+    float v[8];
+    unpack8(*reinterpret_cast<const uint4*>(row + 8 * k), v);
+    const float* gk = g + off + 8 * k;
+    uint4 out{0u, 0u, 0u, 0u};
+    if (ok) {
+      out.x = pack_bf16(v[0] * inv * gk[0], v[1] * inv * gk[1]);
+      out.y = pack_bf16(v[2] * inv * gk[2], v[3] * inv * gk[3]);
+      out.z = pack_bf16(v[4] * inv * gk[4], v[5] * inv * gk[5]);
+      out.w = pack_bf16(v[6] * inv * gk[6], v[7] * inv * gk[7]);
+    }
+    *reinterpret_cast<uint4*>(row + 8 * k) = out;
+  }
+  if (inv_out && (lane & 1) == 0) inv_out[r] = ok ? inv : 0.f;
+}
+
+// The tiles [t0, t1) of split z of a row of `tiles` tiles.
+struct TileRange {
+  int t0, t1;
+  __device__ TileRange(int z, int splits, int tiles)
+      : t0(z * tiles / splits), t1((z + 1) * tiles / splits) {}
+};
+
+// #4: block (z, b) walks the tiles of split z of batch row b and writes the
+// block's partials part = b * splits + z: d_ctx [F][D], dbout [C], dg_out
+// [C], dWout [F][C]; do (f32) for its tokens.
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                const float* __restrict__ g_pre, const bf16* __restrict__ wqkv,
+                const bf16* __restrict__ ctx, const bf16* __restrict__ wout,
+                const float* __restrict__ bout, const float* __restrict__ g_out,
+                float* __restrict__ do_g, float* __restrict__ dctx_part,
+                float* __restrict__ db_part, float* __restrict__ dg_part,
+                float* __restrict__ dwout_part, int n, int splits, int vec) {
+  constexpr int C = 32 * NC, LC = ldc(C);
+  extern __shared__ __align__(16) float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  const BwdALayout l = bwd_a_layout(C);
+  bf16* wq_s = reinterpret_cast<bf16*>(base + l.wq);
+  bf16* wo_s = reinterpret_cast<bf16*>(base + l.wo);
+  bf16* ctx_s = reinterpret_cast<bf16*>(base + l.ctx);
+  float* vs = reinterpret_cast<float*>(base + l.vec);
+  bf16* xn_s = reinterpret_cast<bf16*>(base + l.xn);
+  bf16* qs_s = reinterpret_cast<bf16*>(base + l.qs);
+  bf16* out_s = reinterpret_cast<bf16*>(base + l.out);
+  bf16* dout_s = reinterpret_cast<bf16*>(base + l.dout);
+  float* red_s = reinterpret_cast<float*>(base + l.red);
+  const Quad q;
+  const int b = blockIdx.y, part = b * splits + blockIdx.x, r0 = q.w * 16;
+  const TileRange tr(blockIdx.x, splits, (n + kTM - 1) / kTM);
+  const bf16* xb = x + (size_t)b * n * C;
+  const bf16* dyb = dy + (size_t)b * n * C;
+  float* dob = do_g + (size_t)b * n * C;
+
+  copy_rows(wq_s, kLF, wqkv, 3 * kF, C, C, kF, vec, threadIdx.x, kThreads);
+  copy_rows(wo_s, LC, wout, C, kF, kF, C, vec, threadIdx.x, kThreads);
+  copy_rows(ctx_s, kLH, ctx + (size_t)b * kF * kD, kD, kF, kF, kD, vec, threadIdx.x, kThreads);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < C; i += kThreads) {
+    vs[i] = g_pre[i];
+    vs[C + i] = bout[i];
+    vs[2 * C + i] = g_out[i];
+  }
+  for (int i = threadIdx.x; i < kWarps * 2 * C; i += kThreads) red_s[i] = 0.f;
+
+  // this warp's share of the block's sums over its tokens: d_ctx rows
+  // [d0, d0 + 16) of head hh; dWout rows [r0, r0 + 16)
+  const int hh = q.w >> 1, d0 = (q.w & 1) * 16;
+  float dctx[4][4] = {};
+  float dwo[NC][4][4] = {};
+  bf16* xw = xn_s + r0 * LC;
+  for (int tile = tr.t0; tile < tr.t1; ++tile) {
+    const int t0 = tile * kTM, rows = min(kTM, n - t0);
+    const int valid = max(0, min(16, rows - r0));
+    copy_rows(xn_s, LC, xb + (size_t)t0 * C, C, kTM, rows, C, vec, threadIdx.x, kThreads);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    warp_norm16(xw, LC, vs, valid, C, nullptr, q.lane);
+    __syncwarp();
+    // per head: q' = softmax(xn . Wq_h) D^-1/2, out_h = q' . ctx_h, o += out_h . Wout_h
+    float o[NC][4][4] = {};
+    for (int h = 0; h < kHeads; ++h) {
+      float qa[4][4] = {};
+      mma_rows(qa, xw, LC, wq_s + h * kD, kLF, C, q.lane);
+      head_softmax(qa, q, valid, rsqrtf((float)kD));
+      store_rows(qs_s + r0 * kLF + h * kD, kLF, qa, q, 16);
+      uint32_t aq[2][4];
+      as_a(aq, qa);
+      float oa[4][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t bfr[2][4];
+        b_kn(bfr, ctx_s + (h * kD + kk * 16) * kLH, kLH, q.lane);
+        mma_n32(oa, aq[kk], bfr);
+      }
+      store_rows(out_s + r0 * kLF + h * kD, kLF, oa, q, 16);
+      uint32_t ao[2][4];
+      as_a(ao, oa);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          uint32_t bfr[2][4];
+          b_kn(bfr, wo_s + (h * kD + kk * 16) * LC + j * 32, LC, q.lane);
+          mma_n32(o[j], ao[kk], bfr);
+        }
+    }
+    // o += bout; the out-norm's backward: do = r2 dy g_out - o r2^3 mean(o dy g_out)
+    const bool ok[2] = {q.g < valid, q.g + 8 < valid};
+    const size_t row0 = (size_t)(t0 + r0 + q.g) * C, row1 = row0 + 8 * (size_t)C;
+    float dyv[NC][4][4];
+    float ss[2] = {0.f, 0.f}, dot[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 32 + ni * 8 + 2 * q.t + (e & 1), h = e >> 1;
+          const float ov = o[j][ni][e] + vs[C + col];
+          const float dv = ok[h] ? bf(dyb[(h ? row1 : row0) + col]) : 0.f;
+          o[j][ni][e] = ov;
+          dyv[j][ni][e] = dv;
+          ss[h] = fmaf(ov, ov, ss[h]);
+          dot[h] = fmaf(ov, dv * vs[2 * C + col], dot[h]);
+        }
+    float r2[2], dm[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      r2[h] = rsqrtf(quad_sum(ss[h]) / (float)C + 1e-12f);
+      dm[h] = quad_sum(dot[h]) / (float)C;
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = j * 32 + ni * 8 + 2 * q.t + e;
+          float db = 0.f, dg = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float ov = o[j][ni][2 * h + e], dv = dyv[j][ni][2 * h + e];
+            const float d = r2[h] * dv * vs[2 * C + col] - ov * (r2[h] * r2[h] * r2[h]) * dm[h];
+            if (ok[h]) dob[(h ? row1 : row0) + col] = d;
+            db += d;
+            dg = fmaf(dv * ov, r2[h], dg);
+            o[j][ni][2 * h + e] = d;
+          }
+          db = column_sum(db);
+          dg = column_sum(dg);
+          if (q.g == 0) {
+            red_s[(q.w * 2) * C + col] += db;
+            red_s[(q.w * 2 + 1) * C + col] += dg;
+          }
+        }
+    // do rounded: into this warp's rows of the x tile (its xn is read) and as
+    // the A fragments of d_out = do . Wout^T
+    __syncwarp();
+    uint32_t ado[NC][2][4];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      store_rows(xw + j * 32, LC, o[j], q, 16);
+      as_a(ado[j], o[j]);
+    }
+    for (int h = 0; h < kHeads; ++h) {
+      float da[4][4] = {};
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t bfr[2][4];
+          b_nk(bfr, wo_s + h * kD * LC + j * 32 + kk * 16, LC, q.lane);
+          mma_n32(da, ado[j][kk], bfr);
+        }
+      store_rows(dout_s + r0 * kLF + h * kD, kLF, da, q, 16);
+    }
+    __syncthreads();
+    // the sums over the tile's tokens
+    for (int k0 = 0; k0 < kTM; k0 += 16) {
+      uint32_t af[4], bfr[2][4];
+      a_km(af, qs_s + k0 * kLF + hh * kD + d0, kLF, q.lane);
+      b_kn(bfr, dout_s + k0 * kLF + hh * kD, kLF, q.lane);
+      mma_n32(dctx, af, bfr);
+      a_km(af, out_s + k0 * kLF + r0, kLF, q.lane);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        b_kn(bfr, xn_s + k0 * LC + j * 32, LC, q.lane);
+        mma_n32(dwo[j], af, bfr);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* dcp = dctx_part + (size_t)part * kF * kD;
+  float* dwp = dwout_part + (size_t)part * kF * C;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = q.g + 8 * (e >> 1), col = ni * 8 + 2 * q.t + (e & 1);
+      dcp[(hh * kD + d0 + r) * kD + col] = dctx[ni][e];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) dwp[(r0 + r) * C + j * 32 + col] = dwo[j][ni][e];
+    }
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float db = 0.f, dg = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      db += red_s[(2 * w) * C + c];
+      dg += red_s[(2 * w + 1) * C + c];
+    }
+    db_part[(size_t)part * C + c] = db;
+    dg_part[(size_t)part * C + c] = dg;
+  }
+}
+
+// #5: block (z, b) walks the tiles of split z of batch row b: dx, xn and
+// d_qkv (bf16) of its tokens, and the block's partial of dg_pre [C].
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                const float* __restrict__ do_g, const float* __restrict__ g_pre,
+                const bf16* __restrict__ wqkv, const bf16* __restrict__ ctx,
+                const bf16* __restrict__ wout, const float* __restrict__ kmax,
+                const float* __restrict__ d_a, const float* __restrict__ d_s,
+                bf16* __restrict__ dx, bf16* __restrict__ xn_g, bf16* __restrict__ dqkv_g,
+                float* __restrict__ dg_part, int n, int splits, int vec) {
+  constexpr int C = 32 * NC, LC = ldc(C), F3 = 3 * kF;
+  extern __shared__ __align__(16) float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  const BwdBLayout l = bwd_b_layout(C);
+  bf16* w_s = reinterpret_cast<bf16*>(base + l.w);
+  bf16* wo_s = reinterpret_cast<bf16*>(base + l.wo);
+  bf16* ctx_s = reinterpret_cast<bf16*>(base + l.ctx);
+  bf16* dah_s = reinterpret_cast<bf16*>(base + l.dah);
+  bf16* dal_s = reinterpret_cast<bf16*>(base + l.dal);
+  float* kmax_s = reinterpret_cast<float*>(base + l.vec);
+  float* ds_s = kmax_s + kF;
+  float* gp_s = ds_s + kF;
+  bf16* xn_s = reinterpret_cast<bf16*>(base + l.xn);
+  float* inv_s = reinterpret_cast<float*>(base + l.inv);
+  float* red_s = reinterpret_cast<float*>(base + l.red);
+  const Quad q;
+  const int b = blockIdx.y, part = b * splits + blockIdx.x, r0 = q.w * 16;
+  const TileRange tr(blockIdx.x, splits, (n + kTM - 1) / kTM);
+  const size_t tok0 = (size_t)b * n;  // the batch row's first token
+  const float scale = rsqrtf((float)kD);
+
+  copy_rows(w_s, kLW, wqkv, F3, C, C, F3, vec, threadIdx.x, kThreads);
+  copy_rows(wo_s, LC, wout, C, kF, kF, C, vec, threadIdx.x, kThreads);
+  copy_rows(ctx_s, kLH, ctx + (size_t)b * kF * kD, kD, kF, kF, kD, vec, threadIdx.x, kThreads);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < kF * kD; i += kThreads) {
+    const float v = d_a[(size_t)b * kF * kD + i];
+    const bf16 hi = __float2bfloat16(v);
+    dah_s[(i / kD) * kLH + i % kD] = hi;
+    dal_s[(i / kD) * kLH + i % kD] = __float2bfloat16(v - bf(hi));
+  }
+  for (int i = threadIdx.x; i < kF; i += kThreads) {
+    kmax_s[i] = kmax[(size_t)b * kF + i];
+    ds_s[i] = d_s[(size_t)b * kF + i];
+  }
+  for (int i = threadIdx.x; i < C; i += kThreads) gp_s[i] = g_pre[i];
+  for (int i = threadIdx.x; i < kWarps * C; i += kThreads) red_s[i] = 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // each warp loads, normalises and reads only its own 16 rows of the tile
+  bf16* xw = xn_s + r0 * LC;
+  auto rows_of = [&](int tile) { return max(0, min(16, min(kTM, n - tile * kTM) - r0)); };
+  if (tr.t0 < tr.t1)
+    copy_rows(xw, LC, x + (tok0 + tr.t0 * kTM + r0) * C, C, 16, rows_of(tr.t0), C, vec, q.lane,
+              32);
+  cp_async_commit();
+  for (int tile = tr.t0; tile < tr.t1; ++tile) {
+    const int valid = rows_of(tile);
+    const size_t trow = tok0 + (size_t)tile * kTM + r0;  // token of the warp's row 0
+    cp_async_wait<0>();
+    __syncwarp();
+    warp_norm16(xw, LC, gp_s, valid, C, inv_s + r0, q.lane);
+    __syncwarp();
+    for (int i = q.lane; i < valid * (C / 8); i += 32) {
+      const int r = i / (C / 8), ch = (i % (C / 8)) * 8;
+      *reinterpret_cast<uint4*>(xn_g + (trow + r) * C + ch) =
+          *reinterpret_cast<const uint4*>(xw + r * LC + ch);
+    }
+    const bool ok[2] = {q.g < valid, q.g + 8 < valid};
+    // do, rounded, as the A fragments of d_out = do . Wout^T
+    uint32_t ado[NC][2][4];
+    {
+      const float* d0 = do_g + (trow + q.g) * C;
+      const float* d1 = d0 + 8 * (size_t)C;
+      auto ld = [&](const float* row, int h, int col) { return ok[h] ? row[col] : 0.f; };
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const int c0 = j * 32 + kk * 16 + 2 * q.t;
+          ado[j][kk][0] = pack_bf16(ld(d0, 0, c0), ld(d0, 0, c0 + 1));
+          ado[j][kk][1] = pack_bf16(ld(d1, 1, c0), ld(d1, 1, c0 + 1));
+          ado[j][kk][2] = pack_bf16(ld(d0, 0, c0 + 8), ld(d0, 0, c0 + 9));
+          ado[j][kk][3] = pack_bf16(ld(d1, 1, c0 + 8), ld(d1, 1, c0 + 9));
+        }
+    }
+    float dxn[NC][4][4] = {};
+    // d_qkv's block at column col0 of F3: rounded, written, and folded into
+    // d_xn += d_qkv . Wqkv^T
+    auto emit = [&](const Acc& dq, int col0) {
+      store_rows(dqkv_g + trow * F3 + col0, F3, dq, q, valid);
+      uint32_t a[2][4];
+      as_a(a, dq);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          uint32_t bfr[2][4];
+          b_nk(bfr, w_s + j * 32 * kLW + col0 + kk * 16, kLW, q.lane);
+          mma_n32(dxn[j], a[kk], bfr);
+        }
+    };
+    for (int h = 0; h < kHeads; ++h) {
+      // d_out_h = bf16(do . Wout_h^T); d_p = d_out_h . ctx_h^T D^-1/2
+      float dp[4][4] = {};
+      {
+        float da[4][4] = {};
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            uint32_t bfr[2][4];
+            b_nk(bfr, wo_s + h * kD * LC + j * 32 + kk * 16, LC, q.lane);
+            mma_n32(da, ado[j][kk], bfr);
+          }
+        uint32_t a[2][4];
+        as_a(a, da);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t bfr[2][4];
+          b_nk(bfr, ctx_s + h * kD * kLH + kk * 16, kLH, q.lane);
+          mma_n32(dp, a[kk], bfr);
+        }
+      }
+      // p = softmax(q_h); d_q = p (d_p - sum_d d_p p)
+      {
+        float pa[4][4] = {};
+        mma_rows(pa, xw, LC, w_s + h * kD, kLW, C, q.lane);
+        head_softmax(pa, q, valid, 1.f);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          float s = 0.f;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) s = fmaf(dp[ni][2 * h2 + e] * scale, pa[ni][2 * h2 + e], s);
+          s = quad_sum(s);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& p = pa[ni][2 * h2 + e];
+              p = p * (dp[ni][2 * h2 + e] * scale - s);
+            }
+        }
+        emit(pa, h * kD);
+      }
+      // d_e = v_h . d_a_h^T (v rounded; d_a as hi + lo)
+      float de[4][4] = {};
+      {
+        float va[4][4] = {};
+        mma_rows(va, xw, LC, w_s + 2 * kF + h * kD, kLW, C, q.lane);
+        uint32_t av[2][4];
+        as_a(av, va);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t bfr[2][4];
+          b_nk(bfr, dah_s + h * kD * kLH + kk * 16, kLH, q.lane);
+          mma_n32(de, av[kk], bfr);
+          b_nk(bfr, dal_s + h * kD * kLH + kk * 16, kLH, q.lane);
+          mma_n32(de, av[kk], bfr);
+        }
+      }
+      // e = exp(k_h - kmax); d_k = e (d_e + d_s); d_v = e_h . d_a_h (e rounded)
+      float ea[4][4] = {};
+      mma_rows(ea, xw, LC, w_s + kF + h * kD, kLW, C, q.lane);
+      if (h == kHeads - 1) {  // the last read of this warp's rows: load the next tile's
+        __syncwarp();
+        if (tile + 1 < tr.t1)
+          copy_rows(xw, LC, x + (trow + kTM) * C, C, 16, rows_of(tile + 1), C, vec, q.lane, 32);
+        cp_async_commit();
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = h * kD + ni * 8 + 2 * q.t + (e & 1);
+          const float ev = ok[e >> 1] ? __expf(ea[ni][e] - kmax_s[col]) : 0.f;
+          ea[ni][e] = ev;
+          de[ni][e] = ev * (de[ni][e] + ds_s[col]);
+        }
+      emit(de, kF + h * kD);
+      float dv[4][4] = {};
+      {
+        uint32_t ae[2][4];
+        as_a(ae, ea);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t bfr[2][4];
+          b_kn(bfr, dah_s + (h * kD + kk * 16) * kLH, kLH, q.lane);
+          mma_n32(dv, ae[kk], bfr);
+          b_kn(bfr, dal_s + (h * kD + kk * 16) * kLH, kLH, q.lane);
+          mma_n32(dv, ae[kk], bfr);
+        }
+      }
+      emit(dv, 2 * kF + h * kD);
+    }
+    // the pre-norm's backward, dx = dy + inv du - x inv^3 mean(x du) with
+    // du = d_xn g_pre; dg_pre += d_xn x inv
+    float dg[NC][4][2] = {};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows past the tokens: zeros (the shuffles take every lane)
+      const size_t row = (trow + q.g + 8 * h) * C;
+      const float inv = inv_s[r0 + q.g + 8 * h];
+      float xv[NC][4][2];
+      float dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = j * 32 + ni * 8 + 2 * q.t + e;
+            xv[j][ni][e] = ok[h] ? bf(x[row + col]) : 0.f;
+            dot = fmaf(xv[j][ni][e], dxn[j][ni][2 * h + e] * gp_s[col], dot);
+          }
+      dot = quad_sum(dot) / (float)C;
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = j * 32 + ni * 8 + 2 * q.t + e;
+            const float g = dxn[j][ni][2 * h + e], xf = xv[j][ni][e];
+            const float d = inv * g * gp_s[col] - xf * (inv * inv * inv) * dot;
+            if (ok[h]) dx[row + col] = __float2bfloat16(bf(dy[row + col]) + d);
+            dg[j][ni][e] = fmaf(g * xf, inv, dg[j][ni][e]);
+          }
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float s = column_sum(dg[j][ni][e]);
+          if (q.g == 0) red_s[q.w * C + j * 32 + ni * 8 + 2 * q.t + e] += s;
+        }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red_s[w * C + c];
+    dg_part[(size_t)part * C + c] = s;
+  }
+}
+
+// part[p][i][j] = sum over the tokens t of split p of A[t][i] B[t][j] (A
+// [M, I], B [M, J] bf16, I and J multiples of 8, 16-byte aligned): a 64 x
+// 128 output tile per block, warps in 2 x 4 tiles of 32 x 32, 32-token
+// slices through a kGStages-deep cp.async ring.
+__device__ void wgrad_stage(bf16* st, const bf16* __restrict__ A, const bf16* __restrict__ B,
+                            int t0, int end, int i0, int j0, int i_dim, int j_dim) {
+  bf16* a_s = st;
+  bf16* b_s = st + kGK * kGLA;
+  constexpr int ca = kGI / 8, cb = kGJ / 8;
+  for (int idx = threadIdx.x; idx < kGK * (ca + cb); idx += kThreads) {
+    const bool is_a = idx < kGK * ca;
+    const int k = is_a ? idx : idx - kGK * ca, per = is_a ? ca : cb;
+    const int r = k / per, col = (k % per) * 8 + (is_a ? i0 : j0);
+    const int lim = is_a ? i_dim : j_dim;
+    const bool ok = t0 + r < end && col < lim;
+    const bf16* src = is_a ? A : B;
+    const bf16* s = ok ? src + (size_t)(t0 + r) * lim + col : src;
+    bf16* d = is_a ? a_s + r * kGLA + col - i0 : b_s + r * kGLB + col - j0;
+    cp_async_16(d, s, ok ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+wgrad_tc_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ part,
+                int m, int i_dim, int j_dim) {
+  extern __shared__ __align__(16) float smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const Quad q;
+  const int wm = q.w >> 2, wn = q.w & 3;
+  const int i0 = blockIdx.x * kGI, j0 = blockIdx.y * kGJ;
+  int per = (m + gridDim.z - 1) / gridDim.z;
+  per = (per + kGK - 1) / kGK * kGK;
+  const int begin = blockIdx.z * per;
+  const int end = begin + per < m ? begin + per : m;
+  const int n_kt = end > begin ? (end - begin + kGK - 1) / kGK : 0;
+  float acc[2][4][4] = {};
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < n_kt)
+      wgrad_stage(ring + s * kGStage, A, B, begin + s * kGK, end, i0, j0, i_dim, j_dim);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<kGStages - 2>();  // slice kt has landed
+    __syncthreads();                // ... for every thread; and slot (kt - 1) is free
+    if (kt + kGStages - 1 < n_kt)
+      wgrad_stage(ring + ((kt + kGStages - 1) % kGStages) * kGStage, A, B,
+                  begin + (kt + kGStages - 1) * kGK, end, i0, j0, i_dim, j_dim);
+    cp_async_commit();
+    const bf16* a_s = ring + (kt % kGStages) * kGStage;
+    const bf16* b_s = a_s + kGK * kGLA;
+#pragma unroll
+    for (int kk = 0; kk < kGK; kk += 16) {
+      uint32_t af[2][4], bfr[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        a_km(af[mi], a_s + kk * kGLA + wm * 32 + mi * 16, kGLA, q.lane);
+      b_kn(bfr, b_s + kk * kGLB + wn * 32, kGLB, q.lane);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma_n32(acc[mi], af[mi], bfr);
+    }
+  }
+  cp_async_wait<0>();
+  float* out = part + (size_t)blockIdx.z * i_dim * j_dim;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + wm * 32 + mi * 16 + q.g + 8 * (e >> 1);
+        const int j = j0 + wn * 32 + ni * 8 + 2 * q.t + (e & 1);
+        if (i < i_dim && j < j_dim) out[(size_t)i * j_dim + j] = acc[mi][ni][e];
+      }
+}
+
 // ------------------------------------------------------------- launches
-// Shared-memory floats of each per-token kernel for a tile of tn tokens.
+// Shared-memory floats of each CUDA-core per-token kernel for a tile of tn tokens.
 int smem_ctx_partial(int c, int f, int tn) {
   return align4(c * (tn + 4)) + 2 * f * (tn + 4) + 3 * f + f * kD;
 }
@@ -801,21 +1622,24 @@ int smem_bwd_b(int c, int f, int tn) {
 
 // The largest tile of 32, 16 or 8 tokens whose shared memory lets two
 // blocks share an SM (latency hiding for these FMA loops); else the
-// largest that fits one block; else 0.
-template <typename K>
-int pick_tile(int (*floats)(int, int, int), int c, int f, K kernel, size_t* bytes) {
+// largest that fits one block; else 0. The bytes to *bytes.
+int cores_tile(int (*floats)(int, int, int), int c, int f, size_t* bytes) {
   const size_t limits[2] = {(size_t)kSmemTwoBlocks, (size_t)kSmemLimit};
   for (size_t limit : limits)
     for (int tn = 32; tn >= 8; tn /= 2) {
       *bytes = (size_t)floats(c, f, tn) * sizeof(float);
-      if (*bytes <= limit) {
-        if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)*bytes) != cudaSuccess)
-          return 0;
-        return tn;
-      }
+      if (*bytes <= limit) return tn;
     }
   return 0;
+}
+
+template <typename K>
+int pick_tile(int (*floats)(int, int, int), int c, int f, K kernel, size_t* bytes) {
+  const int tn = cores_tile(floats, c, f, bytes);
+  if (tn && cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)*bytes) != cudaSuccess)
+    return 0;
+  return tn;
 }
 
 int check_last() { return (int)cudaGetLastError(); }
@@ -835,6 +1659,188 @@ int wgrad(const TA* a, const TB* b, float* part, float* out, int m, int i_dim, i
   int err = check_last();
   if (err) return err;
   return sum_parts(part, out, 1, nsplit, i_dim * j_dim, s);
+}
+
+// ----------------------------------------------------------- the plan
+constexpr int kRouteCores = 0, kRouteTensor = 1, kRouteNone = -1;
+
+// The route of one call of #4 (kernel 4) or #5 (kernel 5), the tokens of
+// its tile, its blocks per batch row (splits), the token splits of its
+// weight-gradient launch (wsplits) and its workspace, in regions of
+// `bytes` (each 256-byte aligned): a function of the shape alone.
+//   #4 cores: out [B N, F] (activation type), d_ctx parts [B splits, F, D],
+//             dbout, dg_out parts [B splits, C], dWout parts [wsplits, F, C];
+//   #4 tensor: d_ctx, dbout, dg_out parts, dWout parts [B splits, F, C];
+//   #5 either: xn [B N, C], d_qkv [B N, 3F] (activation type), dg_pre parts
+//             [B splits, C], dWqkv parts [wsplits, C, 3F].
+struct BwdPlan {
+  int route, tile, splits, wsplits;
+  long long bytes[5];
+  long long ws_bytes;
+};
+
+inline long long up256(long long v) { return (v + 255) / 256 * 256; }
+inline int clampi(long long v, int lo, long long hi) {
+  return (int)(v < lo ? lo : v > hi ? hi : v);
+}
+
+BwdPlan make_bwd_plan(int kernel, int batch, int n, int c, int heads, int is_bf16) {
+  BwdPlan p{};
+  if (batch < 1 || n < 1 || c < 1 || heads < 1 || (kernel != 4 && kernel != 5)) {
+    p.route = kRouteNone;
+    return p;
+  }
+  const long long f = (long long)heads * kD, m = (long long)batch * n;
+  const int esz = is_bf16 ? 2 : 4;
+  const bool tensor = is_bf16 && heads == kHeads && c % 32 == 0 && c <= kMaxC &&
+                      (kernel == 4 ? bwd_a_layout(c).total : bwd_b_layout(c).total) <= kMaxSmem;
+  if (tensor) {
+    // splits a row: as many as fill one wave (one block an SM: a block's
+    // shared memory is over half the SM's), at most one a tile
+    p.route = kRouteTensor;
+    p.tile = kTM;
+    p.splits = clampi(kWave / batch, 1, (n + kTM - 1) / kTM);
+  } else {
+    size_t smem;
+    p.route = kRouteCores;
+    p.tile = cores_tile(kernel == 4 ? smem_bwd_a : smem_bwd_b, c, (int)f, &smem);
+    p.splits = clampi((512 + batch - 1) / batch, 1, (n + 31) / 32);
+  }
+  const long long parts = (long long)batch * p.splits;
+  if (kernel == 4) {
+    if (tensor) {
+      const long long b4[5] = {parts * f * kD * 4, parts * c * 4, parts * c * 4, parts * f * c * 4,
+                               0};
+      for (int i = 0; i < 5; ++i) p.bytes[i] = b4[i];
+    } else {
+      const long long tiles = ((f + kWT - 1) / kWT) * ((c + kWT - 1) / kWT);
+      p.wsplits = clampi((512 + tiles - 1) / tiles, 1, (m + 31) / 32);
+      const long long b4[5] = {m * f * esz, parts * f * kD * 4, parts * c * 4, parts * c * 4,
+                               (long long)p.wsplits * f * c * 4};
+      for (int i = 0; i < 5; ++i) p.bytes[i] = b4[i];
+    }
+  } else {
+    if (tensor) {
+      const long long tiles = ((c + kGI - 1) / kGI) * ((3 * f + kGJ - 1) / kGJ);
+      p.wsplits = clampi(kWgradBlocks / tiles, 1, (m + kGK - 1) / kGK);
+    } else {
+      const long long tiles = ((c + kWT - 1) / kWT) * ((3 * f + kWT - 1) / kWT);
+      p.wsplits = clampi((512 + tiles - 1) / tiles, 1, (m + 31) / 32);
+    }
+    const long long b5[5] = {m * c * esz, m * 3 * f * esz, parts * c * 4,
+                             (long long)p.wsplits * c * 3 * f * 4, 0};
+    for (int i = 0; i < 5; ++i) p.bytes[i] = b5[i];
+  }
+  for (int i = 0; i < 5; ++i) p.ws_bytes += up256(p.bytes[i]);
+  return p;
+}
+
+// The plan's regions of the workspace ws, in order.
+void carve(const BwdPlan& p, void* ws, char* (&region)[5]) {
+  char* at = static_cast<char*>(ws);
+  for (int i = 0; i < 5; ++i) {
+    region[i] = at;
+    at += up256(p.bytes[i]);
+  }
+}
+
+template <typename T>
+int bwd_a_cores(const BwdPlan& p, const void* x, const void* dy, const float* g_pre,
+                const void* wqkv, const void* ctx, const void* wout, const float* bout,
+                const float* g_out, float* do_g, float* dctx, float* dwout, float* dbout,
+                float* dgout, void* ws, int batch, int n_tok, int c_dim, int heads,
+                cudaStream_t st) {
+  const int f = heads * kD;
+  char* r[5];
+  carve(p, ws, r);
+  T* out_g = reinterpret_cast<T*>(r[0]);
+  float *dctx_part = reinterpret_cast<float*>(r[1]), *db_part = reinterpret_cast<float*>(r[2]),
+        *dg_part = reinterpret_cast<float*>(r[3]), *wg_part = reinterpret_cast<float*>(r[4]);
+  size_t bytes;
+  const int tn = pick_tile(smem_bwd_a, c_dim, f, bwd_a_kernel<T>, &bytes);
+  if (!tn) return (int)cudaErrorInvalidValue;
+  bwd_a_kernel<T><<<dim3(p.splits, batch), kThreads, bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), g_pre, static_cast<const T*>(wqkv),
+      static_cast<const T*>(ctx), static_cast<const T*>(wout), bout, g_out, do_g, out_g,
+      dctx_part, db_part, dg_part, n_tok, c_dim, f, tn);
+  int err = check_last();
+  if (err) return err;
+  if ((err = sum_parts(dctx_part, dctx, batch, p.splits, f * kD, st))) return err;
+  if ((err = sum_parts(db_part, dbout, 1, batch * p.splits, c_dim, st))) return err;
+  if ((err = sum_parts(dg_part, dgout, 1, batch * p.splits, c_dim, st))) return err;
+  return wgrad<T, T, float>(out_g, do_g, wg_part, dwout, batch * n_tok, f, c_dim, p.wsplits, st);
+}
+
+template <typename T>
+int bwd_b_cores(const BwdPlan& p, const void* x, const void* dy, const float* do_g,
+                const float* g_pre, const void* wqkv, const void* ctx, const void* wout,
+                const float* kmax, const float* d_a, const float* d_s, void* dx, float* dwqkv,
+                float* dgpre, void* ws, int batch, int n_tok, int c_dim, int heads,
+                cudaStream_t st) {
+  const int f = heads * kD;
+  char* r[5];
+  carve(p, ws, r);
+  T *xn_g = reinterpret_cast<T*>(r[0]), *dqkv_g = reinterpret_cast<T*>(r[1]);
+  float *dg_part = reinterpret_cast<float*>(r[2]), *wg_part = reinterpret_cast<float*>(r[3]);
+  size_t bytes;
+  const int tn = pick_tile(smem_bwd_b, c_dim, f, bwd_b_kernel<T>, &bytes);
+  if (!tn) return (int)cudaErrorInvalidValue;
+  bwd_b_kernel<T><<<dim3(p.splits, batch), kThreads, bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), do_g, g_pre,
+      static_cast<const T*>(wqkv), static_cast<const T*>(ctx), static_cast<const T*>(wout),
+      kmax, d_a, d_s, static_cast<T*>(dx), xn_g, dqkv_g, dg_part, n_tok, c_dim, f, tn);
+  int err = check_last();
+  if (err) return err;
+  if ((err = sum_parts(dg_part, dgpre, 1, batch * p.splits, c_dim, st))) return err;
+  return wgrad<T, T, T>(xn_g, dqkv_g, wg_part, dwqkv, batch * n_tok, c_dim, 3 * f, p.wsplits, st);
+}
+
+template <int NC>
+int bwd_a_tc(const BwdPlan& p, const bf16* x, const bf16* dy, const float* g_pre,
+             const bf16* wqkv, const bf16* ctx, const bf16* wout, const float* bout,
+             const float* g_out, float* do_g, float* dctx, float* dwout, float* dbout,
+             float* dgout, void* ws, int batch, int n_tok, int vec, cudaStream_t st) {
+  constexpr int C = 32 * NC;
+  char* r[5];
+  carve(p, ws, r);
+  float *dctx_part = reinterpret_cast<float*>(r[0]), *db_part = reinterpret_cast<float*>(r[1]),
+        *dg_part = reinterpret_cast<float*>(r[2]), *dwout_part = reinterpret_cast<float*>(r[3]);
+  int err = allow_smem<bwd_a_tc_kernel<NC>>(kMaxSmem);
+  if (err) return err;
+  bwd_a_tc_kernel<NC><<<dim3(p.splits, batch), kThreads, bwd_a_layout(C).total, st>>>(
+      x, dy, g_pre, wqkv, ctx, wout, bout, g_out, do_g, dctx_part, db_part, dg_part, dwout_part,
+      n_tok, p.splits, vec);
+  if ((err = check_last())) return err;
+  const int parts = batch * p.splits;
+  if ((err = sum_parts(dctx_part, dctx, batch, p.splits, kF * kD, st))) return err;
+  if ((err = sum_parts(db_part, dbout, 1, parts, C, st))) return err;
+  if ((err = sum_parts(dg_part, dgout, 1, parts, C, st))) return err;
+  return sum_parts(dwout_part, dwout, 1, parts, kF * C, st);
+}
+
+template <int NC>
+int bwd_b_tc(const BwdPlan& p, const bf16* x, const bf16* dy, const float* do_g,
+             const float* g_pre, const bf16* wqkv, const bf16* ctx, const bf16* wout,
+             const float* kmax, const float* d_a, const float* d_s, bf16* dx, float* dwqkv,
+             float* dgpre, void* ws, int batch, int n_tok, int vec, cudaStream_t st) {
+  constexpr int C = 32 * NC;
+  char* r[5];
+  carve(p, ws, r);
+  bf16 *xn_g = reinterpret_cast<bf16*>(r[0]), *dqkv_g = reinterpret_cast<bf16*>(r[1]);
+  float *dg_part = reinterpret_cast<float*>(r[2]), *wg_part = reinterpret_cast<float*>(r[3]);
+  int err = allow_smem<bwd_b_tc_kernel<NC>>(kMaxSmem);
+  if (err) return err;
+  bwd_b_tc_kernel<NC><<<dim3(p.splits, batch), kThreads, bwd_b_layout(C).total, st>>>(
+      x, dy, do_g, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, dx, xn_g, dqkv_g, dg_part, n_tok,
+      p.splits, vec);
+  if ((err = check_last())) return err;
+  if ((err = sum_parts(dg_part, dgpre, 1, batch * p.splits, C, st))) return err;
+  const int m = batch * n_tok;
+  const dim3 grid((C + kGI - 1) / kGI, (3 * kF + kGJ - 1) / kGJ, p.wsplits);
+  wgrad_tc_kernel<<<grid, kThreads, kGStages * kGStage * 2, st>>>(xn_g, dqkv_g, wg_part, m, C,
+                                                                  3 * kF);
+  if ((err = check_last())) return err;
+  return sum_parts(wg_part, dwqkv, 1, p.wsplits, C * 3 * kF, st);
 }
 
 template <typename T>
@@ -869,60 +1875,15 @@ int out_large(const void* x, const float* g_pre, const void* wqkv, const void* c
   return check_last();
 }
 
-template <typename T>
-int bwd_a(const void* x, const void* dy, const float* g_pre, const void* wqkv, const void* ctx,
-          const void* wout, const float* bout, const float* g_out, float* do_g, void* out_g,
-          float* dctx_part, float* db_part, float* dg_part, float* wg_part, float* dctx,
-          float* dwout, float* dbout, float* dgout, int batch, int n_tok, int c_dim, int heads,
-          int nsplit, int nsplit_w, cudaStream_t st) {
-  const int f = heads * kD;
-  size_t bytes;
-  const int tn = pick_tile(smem_bwd_a, c_dim, f, bwd_a_kernel<T>, &bytes);
-  if (!tn) return (int)cudaErrorInvalidValue;
-  bwd_a_kernel<T><<<dim3(nsplit, batch), kThreads, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), g_pre, static_cast<const T*>(wqkv),
-      static_cast<const T*>(ctx), static_cast<const T*>(wout), bout, g_out, do_g,
-      static_cast<T*>(out_g), dctx_part, db_part, dg_part, n_tok, c_dim, f, tn);
-  int err = check_last();
-  if (err) return err;
-  if ((err = sum_parts(dctx_part, dctx, batch, nsplit, f * kD, st))) return err;
-  if ((err = sum_parts(db_part, dbout, 1, batch * nsplit, c_dim, st))) return err;
-  if ((err = sum_parts(dg_part, dgout, 1, batch * nsplit, c_dim, st))) return err;
-  return wgrad<T, T, float>(static_cast<const T*>(out_g), do_g, wg_part, dwout,
-                            batch * n_tok, f, c_dim, nsplit_w, st);
-}
-
-template <typename T>
-int bwd_b(const void* x, const void* dy, const float* do_g, const float* g_pre,
-          const void* wqkv, const void* ctx, const void* wout, const float* kmax,
-          const float* d_a, const float* d_s, void* dx, void* xn_g, void* dqkv_g,
-          float* dg_part, float* wg_part, float* dwqkv, float* dgpre, int batch, int n_tok,
-          int c_dim, int heads, int nsplit, int nsplit_w, cudaStream_t st) {
-  const int f = heads * kD;
-  size_t bytes;
-  const int tn = pick_tile(smem_bwd_b, c_dim, f, bwd_b_kernel<T>, &bytes);
-  if (!tn) return (int)cudaErrorInvalidValue;
-  bwd_b_kernel<T><<<dim3(nsplit, batch), kThreads, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), do_g, g_pre,
-      static_cast<const T*>(wqkv), static_cast<const T*>(ctx), static_cast<const T*>(wout),
-      kmax, d_a, d_s, static_cast<T*>(dx), static_cast<T*>(xn_g), static_cast<T*>(dqkv_g),
-      dg_part, n_tok, c_dim, f, tn);
-  int err = check_last();
-  if (err) return err;
-  if ((err = sum_parts(dg_part, dgpre, 1, batch * nsplit, c_dim, st))) return err;
-  return wgrad<T, T, T>(static_cast<const T*>(xn_g), static_cast<const T*>(dqkv_g), wg_part,
-                        dwqkv, batch * n_tok, c_dim, 3 * f, nsplit_w, st);
-}
-
 }  // namespace
 
-// Interfaces. x, y, dy, dx, ctx, the matrices wqkv [C, 3F] and wout [F, C]
-// and the scratch out_g [B, N, F], xn_g [B, N, C], dqkv_g [B, N, 3F] are in
-// the activation type (bf16 if is_bf16, else f32); g_pre, bout, g_out and
-// everything else are f32. a, d_a, ctx, d_ctx are [B, H, 32, 32]; s, kmax,
-// d_s [B, F]. The *_part buffers are per-block partials: [B * nsplit, ...]
-// for the per-token kernels, [nsplit_w, rows, cols] for the weight grads.
-// Each launches on `stream` and returns the first cudaError_t it meets.
+// Interfaces. x, y, dy, dx, ctx and the matrices wqkv [C, 3F] and wout
+// [F, C] are in the activation type (bf16 if is_bf16, else f32); g_pre,
+// bout, g_out and everything else are f32. a, d_a, ctx, d_ctx are [B, H,
+// 32, 32]; s, kmax, d_s [B, F]. #2's *_part buffers are per-block
+// partials [B * nsplit, ...]. #4's and #5's workspace ws holds ws_bytes >=
+// what ccdm_attn_bwd_plan returns. Each launches on `stream` and returns
+// the first cudaError_t it meets.
 
 extern "C" int ccdm_attn_ctx_large(const void* x, const float* g_pre, const void* wqkv,
                                    float* m_part, float* s_part, float* a_part, float* kmax,
@@ -948,38 +1909,86 @@ extern "C" int ccdm_attn_out_large(const void* x, const float* g_pre, const void
                           heads, st);
 }
 
-extern "C" int ccdm_attn_bwd_a(const void* x, const void* dy, const float* g_pre,
-                               const void* wqkv, const void* ctx, const void* wout,
-                               const float* bout, const float* g_out, float* do_g, void* out_g,
-                               float* dctx_part, float* db_part, float* dg_part,
-                               float* wg_part, float* dctx, float* dwout, float* dbout,
-                               float* dgout, int batch, int n_tok, int c_dim, int heads,
-                               int nsplit, int nsplit_w, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return bwd_a<__nv_bfloat16>(x, dy, g_pre, wqkv, ctx, wout, bout, g_out, do_g, out_g,
-                                dctx_part, db_part, dg_part, wg_part, dctx, dwout, dbout,
-                                dgout, batch, n_tok, c_dim, heads, nsplit, nsplit_w, st);
-  return bwd_a<float>(x, dy, g_pre, wqkv, ctx, wout, bout, g_out, do_g, out_g, dctx_part,
-                      db_part, dg_part, wg_part, dctx, dwout, dbout, dgout, batch, n_tok,
-                      c_dim, heads, nsplit, nsplit_w, st);
+// The plan of one call of #4 (kernel 4) or #5 (kernel 5): writes the route
+// (0 CUDA cores, 1 tensor cores, -1 an empty shape), the tokens of a tile,
+// the blocks per batch row and the weight-gradient launch's token splits
+// to out[0..3] (if out is not null); returns the workspace bytes.
+extern "C" long long ccdm_attn_bwd_plan(int kernel, int batch, int n_tok, int c_dim, int heads,
+                                        int is_bf16, int* out) {
+  const BwdPlan p = make_bwd_plan(kernel, batch, n_tok, c_dim, heads, is_bf16);
+  if (out) {
+    out[0] = p.route;
+    out[1] = p.tile;
+    out[2] = p.splits;
+    out[3] = p.wsplits;
+  }
+  return p.ws_bytes;
 }
 
+// #4: do [B, N, C], d_ctx [B, H, 32, 32], dwout [F, C], dbout, dgout [C], f32.
+extern "C" int ccdm_attn_bwd_a(const void* x, const void* dy, const float* g_pre,
+                               const void* wqkv, const void* ctx, const void* wout,
+                               const float* bout, const float* g_out, float* do_g, float* dctx,
+                               float* dwout, float* dbout, float* dgout, void* ws, int batch,
+                               int n_tok, int c_dim, int heads, int is_bf16, long long ws_bytes,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BwdPlan p = make_bwd_plan(4, batch, n_tok, c_dim, heads, is_bf16);
+  if (p.route == kRouteNone || ws_bytes < p.ws_bytes || !ws) return (int)cudaErrorInvalidValue;
+  if (p.route == kRouteCores)
+    return is_bf16 ? bwd_a_cores<__nv_bfloat16>(p, x, dy, g_pre, wqkv, ctx, wout, bout, g_out,
+                                                do_g, dctx, dwout, dbout, dgout, ws, batch,
+                                                n_tok, c_dim, heads, st)
+                   : bwd_a_cores<float>(p, x, dy, g_pre, wqkv, ctx, wout, bout, g_out, do_g,
+                                        dctx, dwout, dbout, dgout, ws, batch, n_tok, c_dim,
+                                        heads, st);
+  const int vec = aligned16(x) && aligned16(wqkv) && aligned16(ctx) && aligned16(wout);
+  const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
+             *wq = static_cast<const bf16*>(wqkv), *cb = static_cast<const bf16*>(ctx),
+             *wo = static_cast<const bf16*>(wout);
+  switch (c_dim / 32) {
+    case 1: return bwd_a_tc<1>(p, xb, dyb, g_pre, wq, cb, wo, bout, g_out, do_g, dctx, dwout,
+                               dbout, dgout, ws, batch, n_tok, vec, st);
+    case 2: return bwd_a_tc<2>(p, xb, dyb, g_pre, wq, cb, wo, bout, g_out, do_g, dctx, dwout,
+                               dbout, dgout, ws, batch, n_tok, vec, st);
+    case 3: return bwd_a_tc<3>(p, xb, dyb, g_pre, wq, cb, wo, bout, g_out, do_g, dctx, dwout,
+                               dbout, dgout, ws, batch, n_tok, vec, st);
+    default: return bwd_a_tc<4>(p, xb, dyb, g_pre, wq, cb, wo, bout, g_out, do_g, dctx, dwout,
+                                dbout, dgout, ws, batch, n_tok, vec, st);
+  }
+}
+
+// #5: dx [B, N, C] in the activation type, dwqkv [C, 3F], dgpre [C] f32.
 extern "C" int ccdm_attn_bwd_b(const void* x, const void* dy, const float* do_g,
                                const float* g_pre, const void* wqkv, const void* ctx,
                                const void* wout, const float* kmax, const float* d_a,
-                               const float* d_s, void* dx, void* xn_g, void* dqkv_g,
-                               float* dg_part, float* wg_part, float* dwqkv, float* dgpre,
-                               int batch, int n_tok, int c_dim, int heads, int nsplit,
-                               int nsplit_w, int is_bf16, void* stream) {
+                               const float* d_s, void* dx, float* dwqkv, float* dgpre, void* ws,
+                               int batch, int n_tok, int c_dim, int heads, int is_bf16,
+                               long long ws_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return bwd_b<__nv_bfloat16>(x, dy, do_g, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, dx, xn_g,
-                                dqkv_g, dg_part, wg_part, dwqkv, dgpre, batch, n_tok, c_dim,
-                                heads, nsplit, nsplit_w, st);
-  return bwd_b<float>(x, dy, do_g, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, dx, xn_g, dqkv_g,
-                      dg_part, wg_part, dwqkv, dgpre, batch, n_tok, c_dim, heads, nsplit,
-                      nsplit_w, st);
+  const BwdPlan p = make_bwd_plan(5, batch, n_tok, c_dim, heads, is_bf16);
+  if (p.route == kRouteNone || ws_bytes < p.ws_bytes || !ws) return (int)cudaErrorInvalidValue;
+  if (p.route == kRouteCores)
+    return is_bf16 ? bwd_b_cores<__nv_bfloat16>(p, x, dy, do_g, g_pre, wqkv, ctx, wout, kmax,
+                                                d_a, d_s, dx, dwqkv, dgpre, ws, batch, n_tok,
+                                                c_dim, heads, st)
+                   : bwd_b_cores<float>(p, x, dy, do_g, g_pre, wqkv, ctx, wout, kmax, d_a, d_s,
+                                        dx, dwqkv, dgpre, ws, batch, n_tok, c_dim, heads, st);
+  const int vec = aligned16(x) && aligned16(wqkv) && aligned16(ctx) && aligned16(wout);
+  const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
+             *wq = static_cast<const bf16*>(wqkv), *cb = static_cast<const bf16*>(ctx),
+             *wo = static_cast<const bf16*>(wout);
+  bf16* dxb = static_cast<bf16*>(dx);
+  switch (c_dim / 32) {
+    case 1: return bwd_b_tc<1>(p, xb, dyb, do_g, g_pre, wq, cb, wo, kmax, d_a, d_s, dxb, dwqkv,
+                               dgpre, ws, batch, n_tok, vec, st);
+    case 2: return bwd_b_tc<2>(p, xb, dyb, do_g, g_pre, wq, cb, wo, kmax, d_a, d_s, dxb, dwqkv,
+                               dgpre, ws, batch, n_tok, vec, st);
+    case 3: return bwd_b_tc<3>(p, xb, dyb, do_g, g_pre, wq, cb, wo, kmax, d_a, d_s, dxb, dwqkv,
+                               dgpre, ws, batch, n_tok, vec, st);
+    default: return bwd_b_tc<4>(p, xb, dyb, do_g, g_pre, wq, cb, wo, kmax, d_a, d_s, dxb, dwqkv,
+                                dgpre, ws, batch, n_tok, vec, st);
+  }
 }
 
 extern "C" const char* ccdm_cuda_error_string(int err) {

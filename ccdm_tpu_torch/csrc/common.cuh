@@ -1,0 +1,51 @@
+// Helpers shared by the CUDA sources of csrc/: bf16 conversions, the
+// alignment test of the 16-byte loads and the raise of a kernel's dynamic
+// shared-memory limit. ops/_build.py hashes this header into the library
+// path of every source, so an edit here rebuilds them all; the g++
+// emulation of tests/test_torch_cuda_emulation.py compiles it as it is.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include <atomic>
+
+__device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Two values rounded to bf16, the first in the low half (an mma operand register).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+// The eight bf16 of a 16-byte chunk, in f32.
+__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Raises Kernel's dynamic shared-memory limit to `bytes` once per device (a
+// kernel's callers all pass the same size), so that later launches skip the
+// call.
+template <auto Kernel>
+int allow_smem(size_t bytes) {
+  static std::atomic<unsigned long long> done{0};  // one bit per device
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return 0;
+  err = (int)cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)bytes);
+  if (!err) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}

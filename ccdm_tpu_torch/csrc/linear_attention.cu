@@ -43,8 +43,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <atomic>
 #include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
@@ -381,23 +382,6 @@ int with_width(int d, Fn&& fn) {
   if (d <= 32) return fn(std::integral_constant<int, 32>());
   if (d <= 64) return fn(std::integral_constant<int, 64>());
   return fn(std::integral_constant<int, 128>());
-}
-
-// Raises Kernel's dynamic shared-memory limit to `bytes` once per device: the
-// size depends only on the instantiation's width DP, so later launches skip
-// the call.
-template <auto Kernel>
-int allow_smem(size_t bytes) {
-  static std::atomic<unsigned long long> done{0};  // one bit per device
-  int dev = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return 0;
-  err = (int)cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)bytes);
-  if (!err) done.fetch_or(bit, std::memory_order_release);
-  return err;
 }
 
 template <typename T, int DP>

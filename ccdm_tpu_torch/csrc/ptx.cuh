@@ -1,4 +1,5 @@
-// PTX helpers of the tensor-core kernels (csrc/attn_block.cu, csrc/resnet_block.cu).
+// PTX helpers of the tensor-core kernels (csrc/attn_block.cu,
+// csrc/attn_block_large.cu, csrc/resnet_block.cu).
 //
 // Every PTX instruction of those kernels is here, so that an emulation can
 // supply the same names (CCDM_PTX_EMULATED) and run the kernels on a CPU with

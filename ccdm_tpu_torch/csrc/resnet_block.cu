@@ -70,9 +70,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "ptx.cuh"
+#include "common.cuh"
 
 namespace {
 
@@ -293,22 +292,6 @@ fma_half_b_kernel(const float* __restrict__ h1, const float* __restrict__ x,
       out[n] = acc[i][j] + (has_res ? res[i][j] + bres[n] : x[m * cin + n]);
     }
   }
-}
-
-// Raises Kernel's dynamic shared-memory limit to `bytes` once per device (the
-// size is fixed per instantiation), so later launches skip the call.
-template <auto Kernel>
-int allow_smem(size_t bytes) {
-  static std::atomic<unsigned long long> done{0};  // one bit per device
-  int dev = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return 0;
-  err = (int)cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)bytes);
-  if (!err) done.fetch_or(bit, std::memory_order_release);
-  return err;
 }
 
 inline int fma_blocks(int batch, int hh, int ww, const Tile& t) {
@@ -787,8 +770,6 @@ Plan make_plan(int half_b, int batch, int hh, int ww, int cin, int cout, int has
   p.ws_bytes = (long long)(p.splits + (half_b && has_res ? 1 : 0)) * m * cout * sizeof(float);
   return p;
 }
-
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <int BM, int BN>
 int launch_fused_a(const void* x, const void* scale, const void* shift, const void* w1,

@@ -11,7 +11,8 @@ module's `_dispatch`, `_can_fuse_bwd` and `_fwd` (attn_block.py:557-611):
 - with a gradient, N % 2048 == 0 and F % 128 == 0: `_TwoPassBlock`. Its
   forward is the two-pass kernels #2 + #3 (`attn_ctx_large`,
   `attn_out_large`), saving the residuals (a, s, kmax); its backward is the
-  fused kernels #4 + #5 (`attn_bwd_a`, `attn_bwd_b`); all four are in
+  fused kernels #4 + #5 (`attn_bwd_a`, `attn_bwd_b`; in bf16 on the tensor
+  cores at the UNets' shapes, `bwd_plan`); all four are in
   csrc/attn_block_large.cu;
 - with a gradient otherwise: `_SinglePassBlock`, kernel #1 forward and the
   backward by autograd through `attn_block_reference`, as `jax.vjp` does.
@@ -40,7 +41,7 @@ from ccdm_tpu_torch.ops.linear_attention import _op, finalize_ctx, linear_attent
 
 DIM_HEAD = 32  # the kernels map one warp lane to each channel of a head
 TWO_PASS_CHUNK = 2048  # N % 2048 == 0 takes the two-pass training path (as JAX)
-_BLOCKS = 512  # blocks a backward or pass-A launch aims at (132 SMs, ~4 waves)
+_BLOCKS = 512  # blocks a pass-A launch aims at (132 SMs, ~4 waves)
 
 
 def _rms_norm(x: torch.Tensor, g: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -184,17 +185,29 @@ def _library() -> ctypes.CDLL:
     return declare(_build.load("attn_block"))
 
 
+def declare_large(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the ctypes signatures of csrc/attn_block_large.cu's entry points
+    on a library built from it (here, in the g++ emulation or as a variant)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, n_ptr, n_int in (("ccdm_attn_ctx_large", 9, 6), ("ccdm_attn_out_large", 8, 5)):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
+        fn.restype = i
+    for name in ("ccdm_attn_bwd_a", "ccdm_attn_bwd_b"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 14 + [i] * 5 + [ll, p]
+        fn.restype = i
+    lib.ccdm_attn_bwd_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+    lib.ccdm_attn_bwd_plan.restype = ll
+    lib.ccdm_cuda_error_string.argtypes = [i]
+    lib.ccdm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def _large_library() -> ctypes.CDLL:
     """Kernels #2-#5's library, declared once."""
-    lib = _build.load("attn_block_large")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptr, n_int in (("ccdm_attn_ctx_large", 9, 6), ("ccdm_attn_out_large", 8, 5),
-                               ("ccdm_attn_bwd_a", 18, 7), ("ccdm_attn_bwd_b", 17, 7)):
-        fn = getattr(lib, name)
-        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
-        fn.restype = ctypes.c_int
-    return lib
+    return declare_large(_build.load("attn_block_large"))
 
 
 class Plan(NamedTuple):
@@ -222,6 +235,32 @@ def plan(batch: int, n_tok: int, c: int, heads: int, dtype: torch.dtype) -> Plan
     return Plan(("cores", "fused", "split")[out[0]], out[1], out[2], nbytes)
 
 
+class BwdPlan(NamedTuple):
+    """How csrc/attn_block_large.cu runs one call of kernel #4 or #5: route
+    "cores" (CUDA cores: f32, or bf16 at heads != 4 or C not a multiple of
+    32 up to 128) or "tensor" (bf16 on the tensor cores); the tokens of a
+    tile, the blocks per batch row, the token splits of the weight-gradient
+    launch (#4 on the tensor cores has none) and the workspace bytes."""
+    route: str
+    tile: int
+    splits: int
+    wgrad_splits: int
+    workspace_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(kernel: int, batch: int, n_tok: int, c: int, heads: int,
+             dtype: torch.dtype) -> BwdPlan:
+    """Kernel #4's (kernel 4) or #5's (kernel 5) plan at this shape, as the C
+    code computes it (a function of the shape alone)."""
+    out = (ctypes.c_int * 4)()
+    nbytes = _large_library().ccdm_attn_bwd_plan(kernel, batch, n_tok, c, heads,
+                                                 int(dtype == torch.bfloat16), out)
+    if out[0] < 0:
+        raise ValueError(f"kernel #{kernel} takes no empty shape, got B {batch}, N {n_tok}, C {c}")
+    return BwdPlan(("cores", "tensor")[out[0]], out[1], out[2], out[3], nbytes)
+
+
 def _check_activation(x2d, dim_head):
     if x2d.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the attention kernels take f32 or bf16, got {x2d.dtype}")
@@ -242,14 +281,8 @@ def _operand(name, t, shape, dev, dtype):
 
 
 def _splits(batch: int, n_tok: int) -> int:
-    """Blocks per batch row of the per-token kernels of #2, #4 and #5."""
+    """Blocks per batch row of kernel #2's per-token launch."""
     return max(1, min(math.ceil(_BLOCKS / batch), math.ceil(n_tok / 32)))
-
-
-def _wgrad_splits(m: int, rows: int, cols: int) -> int:
-    """Token splits of a weight-gradient product of [rows, cols]."""
-    tiles = math.ceil(rows / 64) * math.ceil(cols / 64)
-    return max(1, min(math.ceil(_BLOCKS / tiles), math.ceil(m / 32)))
 
 
 def _launch(x2d, g_pre, wqkv, wout, bout, g_out, heads, dim_head):
@@ -320,6 +353,13 @@ def attn_out_large(x2d, g_pre, wqkv, ctx, wout, bout, g_out, heads):
     return y
 
 
+def _workspace(kernel, x2d, heads):
+    """(the plan of #4 or #5 for x2d, its workspace: bytes as f32 on x's device)."""
+    b, n, c = x2d.shape
+    pl = bwd_plan(kernel, b, n, c, heads, x2d.dtype)
+    return pl, torch.empty(-(-pl.workspace_bytes // 4), dtype=torch.float32, device=x2d.device)
+
+
 def attn_bwd_a(x2d, dy, g_pre, wqkv, ctx, wout, bout, g_out, heads):
     """Kernel #4: (do [B, N, C] f32, d_ctx [B, H, D, D], d_wout [F, C],
     d_bout [C], d_gout [C]), f32."""
@@ -330,16 +370,13 @@ def attn_bwd_a(x2d, dy, g_pre, wqkv, ctx, wout, bout, g_out, heads):
                                      ("g_out", g_out)))
     b, n, c = x2d.shape
     f = heads * DIM_HEAD
-    nsplit, nsplit_w = _splits(b, n), _wgrad_splits(b * n, f, c)
-    dev = x2d.device
-    new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
-    do, out_g = new(b, n, c), new(b, n, f, dtype=x2d.dtype)
-    dctx_part, db_part, dg_part = new(b * nsplit, f, DIM_HEAD), new(b * nsplit, c), new(b * nsplit, c)
-    wg_part = new(nsplit_w, f, c)
-    d_ctx, d_wout, d_bout, d_gout = new(b, heads, DIM_HEAD, DIM_HEAD), new(f, c), new(c), new(c)
-    _build.run(_large_library(), "ccdm_attn_bwd_a", "attn_bwd_a kernel launch", dev,
-               x2d, *ins, do, out_g, dctx_part, db_part, dg_part, wg_part, d_ctx, d_wout, d_bout,
-               d_gout, b, n, c, heads, nsplit, nsplit_w, int(x2d.dtype == torch.bfloat16))
+    pl, ws = _workspace(4, x2d, heads)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x2d.device)
+    do, d_ctx, d_wout, d_bout, d_gout = (new(b, n, c), new(b, heads, DIM_HEAD, DIM_HEAD),
+                                         new(f, c), new(c), new(c))
+    _build.run(_large_library(), "ccdm_attn_bwd_a", "attn_bwd_a kernel launch", x2d.device,
+               x2d, *ins, do, d_ctx, d_wout, d_bout, d_gout, ws, b, n, c, heads,
+               int(x2d.dtype == torch.bfloat16), pl.workspace_bytes)
     attn_bwd_a.launches += 1
     return do, d_ctx, d_wout, d_bout, d_gout
 
@@ -353,16 +390,13 @@ def attn_bwd_b(x2d, dy, do, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, heads):
                                      ("kmax", kmax), ("d_a", d_a), ("d_s", d_s)))
     b, n, c = x2d.shape
     f = heads * DIM_HEAD
-    nsplit, nsplit_w = _splits(b, n), _wgrad_splits(b * n, c, 3 * f)
-    dev = x2d.device
-    new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
-    dx, xn_g, dqkv_g = torch.empty_like(x2d), new(b, n, c, dtype=x2d.dtype), new(
-        b, n, 3 * f, dtype=x2d.dtype)
-    dg_part, wg_part = new(b * nsplit, c), new(nsplit_w, c, 3 * f)
-    d_wqkv, d_gpre = new(c, 3 * f), new(c)
-    _build.run(_large_library(), "ccdm_attn_bwd_b", "attn_bwd_b kernel launch", dev,
-               x2d, *ins, dx, xn_g, dqkv_g, dg_part, wg_part, d_wqkv, d_gpre, b, n, c, heads,
-               nsplit, nsplit_w, int(x2d.dtype == torch.bfloat16))
+    pl, ws = _workspace(5, x2d, heads)
+    dx = torch.empty_like(x2d)
+    d_wqkv, d_gpre = (torch.empty(shape, dtype=torch.float32, device=x2d.device)
+                      for shape in ((c, 3 * f), (c,)))
+    _build.run(_large_library(), "ccdm_attn_bwd_b", "attn_bwd_b kernel launch", x2d.device,
+               x2d, *ins, dx, d_wqkv, d_gpre, ws, b, n, c, heads,
+               int(x2d.dtype == torch.bfloat16), pl.workspace_bytes)
     attn_bwd_b.launches += 1
     return dx, d_wqkv, d_gpre
 

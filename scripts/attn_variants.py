@@ -118,7 +118,8 @@ def build_variant(cs, v: dict) -> Path:
     out.mkdir(parents=True, exist_ok=True)
     path, lib = out / f"{name_of(v)}.cu", out / f"lib{name_of(v)}.so"
     path.write_text(src)
-    shutil.copy(cs._build.CSRC_DIR / "ptx.cuh", out)  # the header the source includes
+    for header in cs._build.CSRC_DIR.glob("*.cuh"):  # the headers the source includes
+        shutil.copy(header, out)
     proc = subprocess.run(cs._build.nvcc_command(cs._build.find_nvcc(), path, lib),
                           capture_output=True, text=True)
     if proc.returncode:

@@ -61,7 +61,8 @@ def build(v: dict) -> Path:
     OUT.mkdir(parents=True, exist_ok=True)
     src, lib = OUT / f"{name_of(v)}.cu", OUT / f"lib{name_of(v)}.so"
     src.write_text(source_of(v))
-    shutil.copy(_build.CSRC_DIR / "ptx.cuh", OUT)  # the header the source includes
+    for header in _build.CSRC_DIR.glob("*.cuh"):  # the headers the source includes
+        shutil.copy(header, OUT)
     proc = subprocess.run(_build.nvcc_command(_build.find_nvcc(), src, lib),
                           capture_output=True, text=True)
     if proc.returncode:

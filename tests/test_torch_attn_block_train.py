@@ -262,3 +262,34 @@ def test_cuda_autograd_function_matches_reference_autograd(cuda):
     for name, t, r in zip(("dx", "d_gpre", "d_wqkv", "d_wout", "d_bout", "d_gout"), fused,
                           plain):
         _check_grad(t.grad, r.grad, "float32", name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(8, 4096, 64), (8, 4096, 128), (8, 2048, 64)])
+def test_cuda_bwd_tensor_route_matches_plain(cuda, b, n, c):
+    """#4 and #5 in bf16 at B 8 (the smallest batch of the checks) and C 128
+    (the 128x128 UNet's 64^2 up level): the tensor-core route, at the bf16
+    bound; #5 nearer its plain version than one with d_a rounded to bf16."""
+    x, w, dy = _inputs(np.random.default_rng(6), b, n, c)
+    tx, tdy = (t.to(cuda) for t in _torch([x, dy], torch.bfloat16))
+    g_pre, wqkv, wout, bout, g_out = (t.to(cuda) for t in _torch(w))
+    for kernel in (4, 5):
+        assert attn_block.bwd_plan(kernel, b, n, c, HEADS, torch.bfloat16).route == "tensor"
+    ra, rs, rkmax = attn_block.ctx_large_reference(tx, g_pre, wqkv, HEADS)
+    ctx = attn_block.finalize_ctx(ra, rs, torch.bfloat16)
+    args_a = (tx, tdy, g_pre, wqkv, ctx, wout, bout, g_out, HEADS)
+    want = attn_block.bwd_a_reference(*args_a)
+    for name, gv, wv in zip(("do", "d_ctx", "d_wout", "d_bout", "d_gout"),
+                            attn_block.attn_bwd_a(*args_a), want):
+        _check_grad(gv, wv, "bfloat16", name)
+    d_a, d_s = attn_block.finalize_ctx_backward(want[1], ra, rs)
+    args_b = [tx, tdy, want[0], g_pre, wqkv, ctx, wout, rkmax, d_a, d_s, HEADS]
+    got = attn_block.attn_bwd_b(*args_b)
+    own = attn_block.bwd_b_reference(*args_b)
+    args_b[8] = d_a.bfloat16().float()
+    other = attn_block.bwd_b_reference(*args_b)
+    for name, gv, wv, ov in zip(("dx", "d_wqkv", "d_gpre"), got, own, other):
+        _check_grad(gv, wv, "bfloat16", name)
+        near = float((gv.float() - wv.float()).abs().mean())
+        assert near <= 0.25 * float((gv.float() - ov.float()).abs().mean()), name
+    torch.cuda.synchronize()

@@ -443,20 +443,14 @@ def test_emulated_attn_plan_at_the_unet_shapes(emulated, batch):
 
 # ------------------------------------------- kernels #2-#5 (two-pass path)
 
-LARGE_FNS = {"ccdm_attn_ctx_large": (9, 6), "ccdm_attn_out_large": (8, 5),
-             "ccdm_attn_bwd_a": (18, 7), "ccdm_attn_bwd_b": (17, 7)}
-
-
 @pytest.fixture(scope="module")
 def emulated_large(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the emulated kernels")
-    lib = _compile(tmp_path_factory.mktemp("cuda_emu_large"), "attn_block_large")
-    for name, (n_ptr, n_int) in LARGE_FNS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    from ccdm_tpu_torch.ops import attn_block as ab
+
+    return ab.declare_large(_compile(tmp_path_factory.mktemp("cuda_emu_large"),
+                                     "attn_block_large"))
 
 
 def _call(lib, name, *args):
@@ -527,40 +521,144 @@ def test_emulated_two_pass_forward_matches_plain(emulated_large, b, n, c, dtype)
         assert bool(((y.float() - want.float()).abs() <= 3e-2 + 3e-2 * scale).all())
 
 
+BWD_ROUTES = ("cores", "tensor")
+
+
+def _bwd_plan(lib, kernel, b, n, c, bf16, heads=HEADS):
+    """(route, tile, splits, wgrad splits, workspace bytes) of the library's
+    plan for one call of #4 (kernel 4) or #5 (kernel 5)."""
+    out = (ctypes.c_int * 4)()
+    nbytes = lib.ccdm_attn_bwd_plan(kernel, b, n, c, heads, bf16, out)
+    assert out[0] >= 0, (kernel, b, n, c, bf16)
+    return BWD_ROUTES[out[0]], out[1], out[2], out[3], nbytes
+
+
+def _fused_backward(lib, k, dtype, x_offset=0):
+    """#4 then #5 in the emulation on _large_case's inputs k, x at `x_offset`
+    elements past an aligned base; returns their plans and outputs."""
+    b, n, c = k["x"].shape
+    bf16 = int(dtype == "bfloat16")
+    xs = torch.empty(k["x"].numel() + x_offset, dtype=k["x"].dtype)[x_offset:].view(b, n, c)
+    xs.copy_(k["x"])
+    plan_a, plan_b = _bwd_plan(lib, 4, b, n, c, bf16), _bwd_plan(lib, 5, b, n, c, bf16)
+    do, d_ctx, d_wout, d_bout, d_gout = (torch.empty(b, n, c), torch.empty(b, HEADS, 32, 32),
+                                         torch.empty(F, c), torch.empty(c), torch.empty(c))
+    _call(lib, "ccdm_attn_bwd_a", xs, k["dy"], k["g_pre"], k["wqkv"], k["ctx"], k["wout"],
+          k["bout"], k["g_out"], do, d_ctx, d_wout, d_bout, d_gout,
+          torch.empty(-(-plan_a[4] // 4)), b, n, c, HEADS, bf16, plan_a[4])
+    dx, d_wqkv, d_gpre = torch.empty_like(k["x"]), torch.empty(c, 3 * F), torch.empty(c)
+    _call(lib, "ccdm_attn_bwd_b", xs, k["dy"], k["do"], k["g_pre"], k["wqkv"], k["ctx"],
+          k["wout"], k["kmax"], k["d_a"], k["d_s"], dx, d_wqkv, d_gpre,
+          torch.empty(-(-plan_b[4] // 4)), b, n, c, HEADS, bf16, plan_b[4])
+    return plan_a, plan_b, (do, d_ctx, d_wout, d_bout, d_gout), (dx, d_wqkv, d_gpre)
+
+
+def _bwd_reference(k, d_a=None):
+    """The plain #4 and #5 on k (#5 with d_a in its place, if given)."""
+    from ccdm_tpu_torch.ops import attn_block as ab
+
+    want_a = ab.bwd_a_reference(k["x"], k["dy"], k["g_pre"], k["wqkv"], k["ctx"], k["wout"],
+                                k["bout"], k["g_out"], HEADS)
+    want_b = ab.bwd_b_reference(k["x"], k["dy"], k["do"], k["g_pre"], k["wqkv"], k["ctx"],
+                                k["wout"], k["kmax"], k["d_a"] if d_a is None else d_a,
+                                k["d_s"], HEADS)
+    return want_a, want_b
+
+
+def _check_backward(got_a, got_b, k, dtype):
+    want_a, want_b = _bwd_reference(k)
+    for name, got, w in zip(("do", "d_ctx", "d_wout", "d_bout", "d_gout"), got_a, want_a):
+        _close(got, w, dtype, name)
+    for name, got, w in zip(("dx", "d_wqkv", "d_gpre"), got_b, want_b):
+        _close(got, w, dtype, name)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,n,c", [(2, 64, 32), (1, 80, 64)])
 def test_emulated_fused_backward_matches_plain(emulated_large, b, n, c, dtype):
-    from ccdm_tpu_torch.ops import attn_block as ab
-
+    """#4 and #5 against their plain versions: f32 on the CUDA cores, bf16
+    (C a multiple of 32) on the tensor cores."""
     k = _large_case(b, n, c, dtype, seed=1)
-    dt = getattr(torch, dtype)
-    bf16 = int(dtype == "bfloat16")
-    nsplit = ab._splits(b, n)
-    nw_a, nw_b = ab._wgrad_splits(b * n, F, c), ab._wgrad_splits(b * n, c, 3 * F)
-    do, out_g = torch.empty(b, n, c), torch.empty(b, n, F, dtype=dt)
-    d_ctx, d_wout, d_bout, d_gout = (torch.empty(b, HEADS, 32, 32), torch.empty(F, c),
-                                     torch.empty(c), torch.empty(c))
-    _call(emulated_large, "ccdm_attn_bwd_a", k["x"], k["dy"], k["g_pre"], k["wqkv"], k["ctx"],
-          k["wout"], k["bout"], k["g_out"], do, out_g, torch.empty(b * nsplit, F, 32),
-          torch.empty(b * nsplit, c), torch.empty(b * nsplit, c), torch.empty(nw_a, F, c),
-          d_ctx, d_wout, d_bout, d_gout, b, n, c, HEADS, nsplit, nw_a, bf16)
-    want = ab.bwd_a_reference(k["x"], k["dy"], k["g_pre"], k["wqkv"], k["ctx"], k["wout"],
-                              k["bout"], k["g_out"], HEADS)
-    for name, got, w in zip(("do", "d_ctx", "d_wout", "d_bout", "d_gout"),
-                            (do, d_ctx, d_wout, d_bout, d_gout), want):
-        _close(got, w, dtype, name)
+    plan_a, plan_b, got_a, got_b = _fused_backward(emulated_large, k, dtype)
+    route = "cores" if dtype == "float32" else "tensor"
+    assert plan_a[0] == plan_b[0] == route
+    _check_backward(got_a, got_b, k, dtype)
 
-    dx, xn_g, dqkv_g = (torch.empty_like(k["x"]), torch.empty(b, n, c, dtype=dt),
-                        torch.empty(b, n, 3 * F, dtype=dt))
-    d_wqkv, d_gpre = torch.empty(c, 3 * F), torch.empty(c)
-    _call(emulated_large, "ccdm_attn_bwd_b", k["x"], k["dy"], k["do"], k["g_pre"], k["wqkv"],
-          k["ctx"], k["wout"], k["kmax"], k["d_a"], k["d_s"], dx, xn_g, dqkv_g,
-          torch.empty(b * nsplit, c), torch.empty(nw_b, c, 3 * F), d_wqkv, d_gpre,
-          b, n, c, HEADS, nsplit, nw_b, bf16)
-    want = ab.bwd_b_reference(k["x"], k["dy"], k["do"], k["g_pre"], k["wqkv"], k["ctx"],
-                              k["wout"], k["kmax"], k["d_a"], k["d_s"], HEADS)
-    for name, got, w in zip(("dx", "d_wqkv", "d_gpre"), (dx, d_wqkv, d_gpre), want):
-        _close(got, w, dtype, name)
+
+@pytest.mark.parametrize("b,n,c,splits,x_offset", [
+    (1, 200, 64, 2, 0),    # a ragged last tile of 72 tokens; two splits merged in order
+    (2, 80, 128, 1, 0),    # C 128: Wqkv 100 KB resident, one ragged tile a row
+    (1, 300, 96, 3, 0),    # three splits; the last tile's 44 tokens end inside warp 2
+    (1, 200, 64, 2, 1),    # x one element past an aligned base: element loads
+])
+def test_emulated_bwd_tensor_route_matches_plain(emulated_large, b, n, c, splits, x_offset):
+    """The tensor-core route of #4 and #5 in the emulation (mma.sync,
+    ldmatrix and cp.async with the ISA's fragment layouts) at the card's
+    bf16 bound, with the plan's splits."""
+    k = _large_case(b, n, c, "bfloat16", seed=n + c)
+    plan_a, plan_b, got_a, got_b = _fused_backward(emulated_large, k, "bfloat16", x_offset)
+    assert plan_a[:3] == plan_b[:3] == ("tensor", 128, splits)
+    _check_backward(got_a, got_b, k, "bfloat16")
+
+
+def test_emulated_bwd_b_keeps_d_a_in_f32(emulated_large):
+    """#5 in bf16 takes d_a at f32 precision in d_e = v . d_a^T and d_v = e .
+    d_a (as bf16 hi + lo, two products each), as the JAX kernel does: every
+    output's mean distance to the plain version is at most a quarter of
+    its distance to the plain version with d_a rounded to bf16 (chip_smoke's
+    check_rounding). The d_qkv rounding that follows hides the difference
+    from the elementwise bound."""
+    k = _large_case(1, 200, 64, "bfloat16", seed=3)
+    _, _, _, got_b = _fused_backward(emulated_large, k, "bfloat16")
+    _, own = _bwd_reference(k)
+    _, other = _bwd_reference(k, d_a=k["d_a"].bfloat16().float())
+    for name, got, o1, o2 in zip(("dx", "d_wqkv", "d_gpre"), got_b, own, other):
+        near = float((got.float() - o1.float()).abs().mean())
+        far = float((got.float() - o2.float()).abs().mean())
+        assert near <= 0.25 * far, (name, near, far)
+
+
+# (N, C) of the two-pass blocks (N % 2048 == 0) of the three UNets: the
+# 64x64's N 4096 levels, the 128x128's 128^2 and 64^2 up levels, the 192x192's
+# 192^2 level; and N 2048, phase 6's shorter shape
+TWO_PASS_SHAPES = [(4096, 64), (16384, 64), (4096, 128), (36864, 64), (2048, 64)]
+
+
+def test_emulated_two_pass_shapes_are_the_unets():
+    two_pass = {(n, c) for size, mults in ((64, (1, 2, 2, 4, 8)), (128, (1, 2, 4, 4, 8, 8)),
+                                           (192, (1, 2, 2, 4, 4, 8, 8)))
+                for n, c in _unet_attn_shapes(size, mults) if n % 2048 == 0}
+    assert two_pass == set(TWO_PASS_SHAPES) - {(2048, 64)}
+
+
+@pytest.mark.parametrize("batch", [128, 64, 16, 8])
+def test_emulated_bwd_plan_at_the_unet_shapes(emulated_large, batch):
+    """The C plan of #4 and #5 at the two-pass shapes: bf16 on the tensor
+    cores, 128-token tiles, min(tiles, max(1, floor(132 / B))) blocks a row
+    (one an SM, one wave); #4's workspace its f32 partials (d_ctx, dbout,
+    dg_out, dWout), #5's xn and d_qkv in bf16, its dg_pre partials and
+    min(264 / output tiles, ceil(B N / 32)) token splits of dWqkv (264
+    blocks of 64 x 128 outputs);
+    f32 on the CUDA cores with the first design's splits."""
+    up = lambda v: -(-v // 256) * 256
+    for n, c in TWO_PASS_SHAPES:
+        m, tiles = batch * n, -(-n // 128)
+        splits = min(tiles, max(1, 132 // batch))
+        parts = batch * splits
+        got_a, got_b = (_bwd_plan(emulated_large, kn, batch, n, c, 1) for kn in (4, 5))
+        assert got_a == ("tensor", 128, splits, 0,
+                         up(parts * F * 32 * 4) + 2 * up(parts * c * 4) + up(parts * F * c * 4))
+        wsplits = min(264 // (-(-c // 64) * 3), -(-m // 32))
+        assert got_b == ("tensor", 128, splits, wsplits,
+                         up(m * c * 2) + up(m * 3 * F * 2) + up(parts * c * 4)
+                         + up(wsplits * c * 3 * F * 4)), (n, c)
+        cores = min(-(-512 // batch), -(-n // 32))
+        for kn in (4, 5):
+            route, _, got, _, _ = _bwd_plan(emulated_large, kn, batch, n, c, 0)
+            assert (route, got) == ("cores", cores)
+    # bf16 at other head counts or C: the CUDA cores
+    for n, c, heads in ((4096, 64, 2), (4096, 40, HEADS), (4096, 160, HEADS), (4096, 64, 8)):
+        assert _bwd_plan(emulated_large, 5, batch, n, c, 1, heads)[0] == "cores"
 
 
 # --------------------------------------- kernels #10 and #11 (resnet block)
