@@ -1,7 +1,7 @@
 // Fused linear-attention block for Hopper (sm_90a): kernel #1.
 //
 // Replaces the TPU kernel ccdm_tpu/ops/attn_block.py:_kernel (launched by
-// _forward_pallas). For x [B, N, C] and H heads of D = 32 (F = H * D):
+// _forward_pallas). For x [B, N, C] and H heads of D channels (F = H * D):
 //
 //   y = x + RMSNorm_gout(Wout . LA(Wqkv . RMSNorm_gpre(x)) + bout)
 //
@@ -29,14 +29,14 @@
 // Routes, chosen by a plan that is a function of the shape alone (make_plan,
 // exported as ccdm_attn_block_plan), never on failure:
 // - CUDA cores, for f32 and for the bf16 shapes the tensor-core routes do
-//   not take (H != 4, C > 512, and C > 416 past 77 to 108 tokens, where
-//   neither route's shared memory fits; none on the path of the 64x64,
-//   128x128 or 192x192 UNet):
+//   not take (H != 4, D != 32, C > 512, and C > 416 past 77 to 108 tokens,
+//   where neither route's shared memory fits; none on the path of the
+//   64x64, 128x128 or 192x192 UNet at their D of 32), at any D:
 //   the design of the first port, three launches per call: qkv_kernel writes
 //   the qkv projection [B, N, 3F] in f32 to the workspace, ctx_kernel the
 //   per-head context, out_kernel the rest. In f32 it serves the checks whose
 //   bounds TF32 would break.
-// - bf16 (H = 4, C <= 512), on the tensor cores: mma.sync m16n8k16 (bf16 in,
+// - bf16 (H = 4, D = 32, C <= 512), on the tensor cores: mma.sync m16n8k16 (bf16 in,
 //   f32 accumulate) with both operands from shared memory through ldmatrix
 //   (.trans for the weights), 8 warps in a 2 x 4 grid: a warp owns 32 tokens
 //   of a 64-token tile and the 32 channels of one head, so that each head's
@@ -86,62 +86,20 @@
 
 #include "ptx.cuh"
 #include "common.cuh"
+#include "attn_common.cuh"
 
 namespace {
 
 // ------------------------------------------- CUDA cores: f32, other shapes
+// A head has dh channels (dim_head): any, where the tensor-core routes take
+// kD. One warp works on a (token, head) pair with its lanes striding the
+// head's channels.
 
-constexpr int kD = 32;         // dim_head: one warp lane per head channel
 constexpr int kTN = 32;        // tokens per block in launches 1 and 3
 constexpr int kTNP = kTN + 4;  // padded row of a transposed [*, kTN] tile (float4-aligned)
-constexpr int kTG = 8;         // tokens per thread in the register tile
 constexpr int kTK = 64;        // tokens per shared-memory tile in launch 2
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-static_assert(kThreads == 8 * kD, "ctx_kernel maps 8 threads to each row of ctx");
+constexpr int kCtxPer = 4;     // entries of ctx a thread sums in one pass over the tokens
 static_assert(kTN % kTG == 0 && kTG == 8, "fma8 reads a tile of 8 tokens");
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Round to the operand type of the products and back to f32.
-template <typename T>
-__device__ __forceinline__ float as_operand(float v) { return to_f32(from_f32<T>(v)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// acc[t] += a[t] * w for the 8 tokens of a tile row in shared memory.
-__device__ __forceinline__ void fma8(float (&acc)[kTG], const float* a, float w) {
-  const float4 lo = *reinterpret_cast<const float4*>(a);
-  const float4 hi = *reinterpret_cast<const float4*>(a + 4);
-  acc[0] = fmaf(lo.x, w, acc[0]);
-  acc[1] = fmaf(lo.y, w, acc[1]);
-  acc[2] = fmaf(lo.z, w, acc[2]);
-  acc[3] = fmaf(lo.w, w, acc[3]);
-  acc[4] = fmaf(hi.x, w, acc[4]);
-  acc[5] = fmaf(hi.y, w, acc[5]);
-  acc[6] = fmaf(hi.z, w, acc[6]);
-  acc[7] = fmaf(hi.w, w, acc[7]);
-}
 
 // Launch 1: qkv[b, n, :] = RMSNorm_gpre(x[b, n, :]) . Wqkv, for 32 tokens.
 // Dynamic shared memory: the normalised tile, transposed, [C][kTNP] f32.
@@ -192,114 +150,147 @@ qkv_kernel(const T* __restrict__ x, const T* __restrict__ g_pre,
   }
 }
 
+// Shared-memory floats of launch 2 for a head of dh channels.
+inline int ctx_smem_floats(int dh) { return 2 * kTK * dh + 2 * dh + kWarps * dh; }
+
 // Launch 2: per (head, batch), ctx[d][e] = sum_n softmax_N(k)[n][d] v[n][e].
+// Each pass over the tokens sums kCtxPer entries of ctx a thread (entry
+// first + kCtxPer threadIdx.x + j, row-major); a head of 32 takes one pass.
+// Dynamic shared memory, f32: exp(k - kmax) and v of kTK tokens [kTK][dh]
+// each, the column max and the column sums [dh], the warps' maxima
+// [kWarps][dh].
 __global__ void __launch_bounds__(kThreads)
-ctx_kernel(const float* __restrict__ qkv, float* __restrict__ ctx, int n_tok, int f) {
-  __shared__ __align__(16) float e_s[kTK][kD];
-  __shared__ __align__(16) float v_s[kTK][kD];
-  __shared__ float red[kWarps][kD];
-  __shared__ float kmax[kD];
+ctx_kernel(const float* __restrict__ qkv, float* __restrict__ ctx, int n_tok, int f, int dh) {
+  extern __shared__ __align__(16) float smem[];
+  float* e_s = smem;
+  float* v_s = e_s + kTK * dh;
+  float* kmax = v_s + kTK * dh;
+  float* s_s = kmax + dh;
+  float* red = s_s + dh;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int heads = gridDim.x;
   const int f3 = 3 * f;
-  const int kcol = f + h * kD;
-  const int vcol = 2 * f + h * kD;
+  const int kcol = f + h * dh;
+  const int vcol = 2 * f + h * dh;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const float* base = qkv + (size_t)b * n_tok * f3;
 
   // exact column max of k over all tokens
-  float m = -INFINITY;
-  for (int n = warp; n < n_tok; n += kWarps) m = fmaxf(m, base[(size_t)n * f3 + kcol + lane]);
-  red[warp][lane] = m;
+  for (int cc = lane; cc < dh; cc += 32) {
+    float m = -INFINITY;
+    for (int n = warp; n < n_tok; n += kWarps) m = fmaxf(m, base[(size_t)n * f3 + kcol + cc]);
+    red[warp * dh + cc] = m;
+  }
   __syncthreads();
-  if (warp == 0) {
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w][lane]);
-    kmax[lane] = m;
+  for (int cc = threadIdx.x; cc < dh; cc += kThreads) {
+    float m = red[cc];
+    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w * dh + cc]);
+    kmax[cc] = m;
+    s_s[cc] = 0.f;
   }
   __syncthreads();
 
-  const int d = threadIdx.x >> 3;        // row of ctx: a channel of k
-  const int e0 = (threadIdx.x & 7) * 4;  // four columns of ctx: channels of v
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  float s = 0.f;
-  for (int n0 = 0; n0 < n_tok; n0 += kTK) {
-    const int rows = min(kTK, n_tok - n0);
-    for (int idx = threadIdx.x; idx < rows * kD; idx += kThreads) {
-      const int r = idx / kD;
-      const int cc = idx % kD;
-      const float* row = base + (size_t)(n0 + r) * f3;
-      e_s[r][cc] = expf(row[kcol + cc] - kmax[cc]);
-      v_s[r][cc] = row[vcol + cc];
-    }
-    __syncthreads();
-    for (int r = 0; r < rows; ++r) {
-      const float k = e_s[r][d];
-      const float4 v = *reinterpret_cast<const float4*>(&v_s[r][e0]);
-      s += k;
-      acc[0] = fmaf(k, v.x, acc[0]);
-      acc[1] = fmaf(k, v.y, acc[1]);
-      acc[2] = fmaf(k, v.z, acc[2]);
-      acc[3] = fmaf(k, v.w, acc[3]);
-    }
-    __syncthreads();
-  }
-  float* out = ctx + ((size_t)b * heads + h) * kD * kD + d * kD + e0;
+  float* out = ctx + ((size_t)b * heads + h) * dh * dh;
+  for (int first = 0; first < dh * dh; first += kThreads * kCtxPer) {
+    int row[kCtxPer], col[kCtxPer];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) out[i] = acc[i] / s;
+    for (int j = 0; j < kCtxPer; ++j) {
+      const int i = first + threadIdx.x * kCtxPer + j;
+      row[j] = i < dh * dh ? i / dh : -1;  // -1: past the last entry
+      col[j] = i % dh;
+    }
+    float acc[kCtxPer] = {};
+    for (int n0 = 0; n0 < n_tok; n0 += kTK) {
+      const int rows = min(kTK, n_tok - n0);
+      for (int idx = threadIdx.x; idx < rows * dh; idx += kThreads) {
+        const int r = idx / dh;
+        const int cc = idx % dh;
+        const float* tok = base + (size_t)(n0 + r) * f3;
+        e_s[idx] = expf(tok[kcol + cc] - kmax[cc]);
+        v_s[idx] = tok[vcol + cc];
+      }
+      __syncthreads();
+      if (first == 0)  // the column sums, once
+        for (int d = threadIdx.x; d < dh; d += kThreads) {
+          float s = s_s[d];
+          for (int r = 0; r < rows; ++r) s += e_s[r * dh + d];
+          s_s[d] = s;
+        }
+      for (int r = 0; r < rows; ++r)
+#pragma unroll
+        for (int j = 0; j < kCtxPer; ++j)
+          if (row[j] >= 0) acc[j] = fmaf(e_s[r * dh + row[j]], v_s[r * dh + col[j]], acc[j]);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < kCtxPer; ++j)
+      if (row[j] >= 0) out[row[j] * dh + col[j]] = acc[j] / s_s[row[j]];
+  }
 }
 
 // Launch 3: per 32 tokens, y = x + RMSNorm_gout((q' . ctx) . Wout + bout).
-// Dynamic shared memory, f32: q' transposed [F][kTNP], ctx [H][D][D], the
+// Dynamic shared memory, f32: q' transposed [F][kTNP], ctx [H][dh][dh], the
 // attention output transposed [F][kTNP], the out projection [kTN][C].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 out_kernel(const T* __restrict__ x, const float* __restrict__ qkv,
            const float* __restrict__ ctx, const T* __restrict__ wout,
            const T* __restrict__ bout, const T* __restrict__ g_out,
-           T* __restrict__ y, int n_tok, int c_dim, int f) {
+           T* __restrict__ y, int n_tok, int c_dim, int f, int dh) {
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;
   float* ctx_s = q_t + f * kTNP;
-  float* a_t = ctx_s + f * kD;
+  float* a_t = ctx_s + f * dh;
   float* o_s = a_t + f * kTNP;
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * kTN;
-  const int heads = f / kD;
+  const int heads = f / dh;
   const int f3 = 3 * f;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const float scale = rsqrtf((float)kD);
+  const float scale = rsqrtf((float)dh);
 
-  // q': one warp per (token, head), one lane per channel of the head
+  // q': one warp per (token, head), its lanes striding the head's channels
   for (int task = warp; task < kTN * heads; task += kWarps) {
     const int i = task / heads;
     const int h = task % heads;
     const int n = n0 + i;
-    float qs = 0.f;
+    float* col = q_t + h * dh * kTNP + i;  // channel cc at col[cc * kTNP]
     if (n < n_tok) {  // uniform across the warp
-      const float q = qkv[((size_t)b * n_tok + n) * f3 + h * kD + lane];
-      const float e = expf(q - warp_max(q));
-      qs = as_operand<T>(e / fmaxf(warp_sum(e), 1e-30f) * scale);
+      const float* q = qkv + ((size_t)b * n_tok + n) * f3 + h * dh;
+      float m = -INFINITY;
+      for (int cc = lane; cc < dh; cc += 32) m = fmaxf(m, q[cc]);
+      m = warp_max(m);
+      float sum = 0.f;
+      for (int cc = lane; cc < dh; cc += 32) {
+        const float e = expf(q[cc] - m);
+        col[cc * kTNP] = e;
+        sum += e;
+      }
+      sum = fmaxf(warp_sum(sum), 1e-30f);
+      for (int cc = lane; cc < dh; cc += 32)
+        col[cc * kTNP] = as_operand<T>(col[cc * kTNP] / sum * scale);
+    } else {
+      for (int cc = lane; cc < dh; cc += 32) col[cc * kTNP] = 0.f;
     }
-    q_t[(h * kD + lane) * kTNP + i] = qs;
   }
-  const float* cb = ctx + (size_t)b * heads * kD * kD;
-  for (int idx = threadIdx.x; idx < f * kD; idx += kThreads) ctx_s[idx] = as_operand<T>(cb[idx]);
+  const float* cb = ctx + (size_t)b * heads * dh * dh;
+  for (int idx = threadIdx.x; idx < f * dh; idx += kThreads) ctx_s[idx] = as_operand<T>(cb[idx]);
   __syncthreads();
 
   constexpr int kGroups = kTN / kTG;
-  // a[i][h*D + e] = sum_d q'[i][h*D + d] ctx[h][d][e]
+  // a[i][h*dh + e] = sum_d q'[i][h*dh + d] ctx[h][d][e]
   for (int task = threadIdx.x; task < f * kGroups; task += kThreads) {
     const int col = task % f;
     const int g = task / f;
-    const int h = col / kD;
-    const int e = col % kD;
+    const int h = col / dh;
+    const int e = col % dh;
     float acc[kTG] = {};
-    const float* ch = ctx_s + h * kD * kD + e;
-    const float* qh = q_t + h * kD * kTNP + g * kTG;
-    for (int dd = 0; dd < kD; ++dd) fma8(acc, qh + dd * kTNP, ch[dd * kD]);
+    const float* ch = ctx_s + h * dh * dh + e;
+    const float* qh = q_t + h * dh * kTNP + g * kTG;
+    for (int dd = 0; dd < dh; ++dd) fma8(acc, qh + dd * kTNP, ch[dd * dh]);
 #pragma unroll
     for (int t = 0; t < kTG; ++t) a_t[col * kTNP + g * kTG + t] = as_operand<T>(acc[t]);
   }
@@ -334,24 +325,14 @@ out_kernel(const T* __restrict__ x, const float* __restrict__ qkv,
 
 // ------------------------------------------------- bf16: tensor cores
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kHeads = 4;          // heads of the bf16 route: one warp column each
-constexpr int kF = kHeads * kD;    // 128: q, k and v are one 128-column weight chunk each
 constexpr int kBM = 64;            // tokens per tile: 2 warp rows of 32
-constexpr int kBN = 128;           // columns of a weight chunk: 4 warp columns of 32
-constexpr int kBK = 32;            // K rows per slice of a weight (two k16 steps)
 constexpr int kStages = 3;         // cp.async ring depth of a streamed weight
 constexpr int kMaxC = 512;         // widest C of the bf16 route (4 column chunks of Wout)
-constexpr int kWave = 132;         // blocks that fill the card once: the SMs of an H100 SXM
 constexpr int kSplitOcc = 2;       // blocks per SM that the split route's passes fill
 constexpr int kSplitMinBlocks = 2; // the split passes' __launch_bounds__ minimum blocks per SM
 constexpr int kFusedMaxN = 128;    // the longest row the fused route takes
-constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use (227 KB)
-constexpr int kEW = kD + 8;        // bf16 per row of a warp's e and v tiles (80 bytes)
 constexpr int kCS = kD + 8;        // bf16 per row of ctx in shared memory
 constexpr int kAO = kBN + 8;       // bf16 per row of the attention output or a staged y chunk
-constexpr int kPart = 2 * kF + kF * kD;  // f32 of one partial record: m, s, a
 static_assert(kThreads == 256 && kBM == 64 && kBN == 128 && kF == kBN,
               "8 warps in 2 x 4 tiles of 32 x 32; a head per warp column");
 
@@ -360,7 +341,6 @@ __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 // Bytes of the shared-memory regions (each a multiple of 16).
 constexpr int kRing1 = kStages * kBK * (kBN + 8) * 2;      // the ring for one weight chunk
 constexpr int kRing2 = kStages * kBK * (2 * kBN + 8) * 2;  // ... for two (k and v together)
-constexpr int kWarpScratch = 2 * 32 * kEW * 2 + 32 * 4;    // a warp's e, v and rescale factors
 constexpr int kScratch1 = kWarps * kWarpScratch;
 constexpr int kRecords = 2 * kPart * 4;                    // the fused route's two records
 constexpr int kAOBytes = kBM * kAO * 2;
@@ -429,19 +409,6 @@ __host__ __device__ inline bool fused_narrow(int n, int c) {
   return chunks_of(c) == 4 && fused_layout(n, c, false).total > kMaxSmem;
 }
 
-// Where this thread's accumulator element [mi][ni][h * 2 + e] lies in its
-// warp's 32 x 32 tile: row mi * 16 + g + 8 h, column ni * 8 + 2 t + e.
-struct Lane {
-  int lane, g, t, wm, wn;
-  __device__ Lane() {
-    lane = threadIdx.x & 31;
-    g = lane >> 2;
-    t = lane & 3;
-    wm = (threadIdx.x >> 5) >> 2;
-    wn = (threadIdx.x >> 5) & 3;
-  }
-};
-
 // Copies rows [0, rows) of src [*, c] to dst [rows][ld], zero past rows_valid
 // and past column c (up to the whole K slice). Issues cp.async copies (vec)
 // or element loads; the caller commits, waits and synchronises.
@@ -459,35 +426,6 @@ __device__ void load_rows(bf16* dst, int ld, const bf16* __restrict__ src, int r
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) d[e] = ok && col + e < c ? s[e] : zero;
-    }
-  }
-}
-
-// A weight operand in device memory: NB chunks of kBN columns at col0 +
-// j col_step of w [k_total, *] (row stride ldw); columns at or past col_lim
-// and rows at or past k_total read as zero.
-struct WSlab {
-  const bf16* w;
-  int ldw, col0, col_step, col_lim;
-};
-
-// Copies rows [k0, k0 + rows) of the slab's NB chunks to dst [rows][NB kBN + 8],
-// as load_rows does.
-template <int NB>
-__device__ void load_slab(bf16* dst, const WSlab& ws, int k0, int rows, int k_total, int vec) {
-  constexpr int ldb = NB * kBN + 8, per_row = NB * kBN / 8;
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
-    const int k = i / per_row, j = (i % per_row) / (kBN / 8), cc = (i % (kBN / 8)) * 8;
-    const int kr = k0 + k, col = ws.col0 + j * ws.col_step + cc;
-    const bool ok = kr < k_total && col < ws.col_lim;
-    const bf16* s = ok ? ws.w + (size_t)kr * ws.ldw + col : ws.w;
-    bf16* d = dst + k * ldb + j * kBN + cc;
-    if (vec) {
-      cp_async_16(d, s, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = ok && col + e < ws.col_lim ? s[e] : zero;
     }
   }
 }
@@ -546,48 +484,6 @@ __device__ void norm_rows(bf16* dst, const bf16* src, int ld, const float* g, in
   }
 }
 
-// acc[j] += A[:, ak0 .. ak0 + 32) . b_s[0 .. 32)[j kBN .. (j + 1) kBN) for
-// j < NB: A the kBM rows of a_s [kBM][lda], b_s a K slice [32][NB kBN + 8].
-// Warp (wm, wn) takes rows wm * 32 and columns wn * 32 of each chunk.
-template <int NB>
-__device__ __forceinline__ void mma_slice(float (&acc)[NB][2][4][4], const bf16* a_s, int lda,
-                                          int ak0, const bf16* b_s) {
-  constexpr int ldb = NB * kBN + 8;
-  const Lane q;
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 16) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      ldmatrix_x4(af[mi], a_s + (q.wm * 32 + mi * 16 + (q.lane & 15)) * lda + ak0 + kk +
-                              (q.lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      uint32_t bfr[2][4];
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldmatrix_x4_trans(bfr[nj], b_s + (kk + (q.lane & 15)) * ldb + j * kBN + q.wn * 32 +
-                                       nj * 16 + (q.lane >> 4) * 8);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const uint32_t b[2] = {bfr[ni / 2][(ni % 2) * 2], bfr[ni / 2][(ni % 2) * 2 + 1]};
-          mma_16816(acc[j][mi][ni], af[mi], b);
-        }
-    }
-  }
-}
-
-// acc += A . W over K = k_total (A zero past k_total up to the whole slice),
-// W resident in shared memory: w_s [K slices x 32][NB kBN + 8]. No barrier.
-template <int NB>
-__device__ __forceinline__ void mma_resident(float (&acc)[NB][2][4][4], const bf16* a_s, int lda,
-                                             const bf16* w_s, int k_total) {
-  for (int k0 = 0; k0 < k_total; k0 += kBK)
-    mma_slice<NB>(acc, a_s, lda, k0, w_s + k0 * (NB * kBN + 8));
-}
-
 // acc += A . W over K = k_total, W streamed from device memory through the
 // ring in K slices. Ends with the ring drained and the block synchronised.
 // Every thread calls it.
@@ -612,158 +508,6 @@ __device__ __forceinline__ void mma_stream(float (&acc)[NB][2][4][4], const bf16
   }
   cp_async_wait<0>();
   __syncthreads();
-}
-
-// One warp's online softmax over its tokens, for the 32 channels of its head:
-// the running max m and sum s of its 8 channels (columns 8 ni + 2 t + e of
-// the accumulator layout, the same in each lane of a column), and the
-// context a[d][e] = sum_n exp(k[n][d] - m[d]) v[n][e] (rows mi * 16 + g + 8 h).
-struct WarpCtx {
-  float m[8], s[8];
-  float a[2][4][4];
-  __device__ void init() {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      m[j] = -INFINITY;
-      s[j] = 0.f;
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[mi][ni][i] = 0.f;
-  }
-};
-
-// Folds the warp's 32 tokens of k and v (accumulator layout; rows at or past
-// valid are padding) into st. The warp's scratch holds e = exp(k - m) and v
-// as bf16 [token][channel] (the operands of e^T v) and the factors that
-// rescale a's rows when m grows.
-__device__ void online_update(WarpCtx& st, const float (&k)[2][4][4], const float (&v)[2][4][4],
-                              int valid, char* scratch) {
-  const Lane q;
-  bf16* e_w = reinterpret_cast<bf16*>(scratch);
-  bf16* v_w = e_w + 32 * kEW;
-  float* sc_w = reinterpret_cast<float*>(v_w + 32 * kEW);
-  float scale[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (mi * 16 + q.g + 8 * h < valid) mx = fmaxf(mx, k[mi][j / 2][h * 2 + j % 2]);
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float m_new = fmaxf(st.m[j], mx);
-    scale[j] = m_new == -INFINITY ? 1.f : __expf(st.m[j] - m_new);
-    st.m[j] = m_new;
-    st.s[j] *= scale[j];
-  }
-  __syncwarp();  // the last update's reads of the scratch are done
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = mi * 16 + q.g + 8 * h;
-      const bool ok = row < valid;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float e0 = ok ? __expf(k[mi][ni][h * 2] - st.m[ni * 2]) : 0.f;
-        const float e1 = ok ? __expf(k[mi][ni][h * 2 + 1] - st.m[ni * 2 + 1]) : 0.f;
-        st.s[ni * 2] += e0;
-        st.s[ni * 2 + 1] += e1;
-        const int col = ni * 8 + 2 * q.t;
-        *reinterpret_cast<uint32_t*>(e_w + row * kEW + col) = pack_bf16(e0, e1);
-        *reinterpret_cast<uint32_t*>(v_w + row * kEW + col) =
-            pack_bf16(v[mi][ni][h * 2], v[mi][ni][h * 2 + 1]);
-      }
-    }
-  if (q.g == 0) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sc_w[(j / 2) * 8 + 2 * q.t + j % 2] = scale[j];
-  }
-  __syncwarp();
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float f = sc_w[mi * 16 + q.g + 8 * h];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        st.a[mi][ni][h * 2] *= f;
-        st.a[mi][ni][h * 2 + 1] *= f;
-      }
-    }
-  // a += e^T v: A = e^T (rows: channels d, K: tokens) through ldmatrix .trans
-  // of e_w; B = v [token][channel] through ldmatrix .trans of v_w
-#pragma unroll
-  for (int kk = 0; kk < 32; kk += 16) {
-    uint32_t af[2][4], bfr[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      ldmatrix_x4_trans(af[mi], e_w + (kk + (q.lane & 7) + ((q.lane >> 4) << 3)) * kEW +
-                                    mi * 16 + ((q.lane >> 3) & 1) * 8);
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj)
-      ldmatrix_x4_trans(bfr[nj], v_w + (kk + (q.lane & 15)) * kEW + nj * 16 + (q.lane >> 4) * 8);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const uint32_t b[2] = {bfr[ni / 2][(ni % 2) * 2], bfr[ni / 2][(ni % 2) * 2 + 1]};
-        mma_16816(st.a[mi][ni], af[mi], b);
-      }
-  }
-}
-
-// Writes the warp's (m, s, a) for its head into the record rec [kPart]
-// (m [F], s [F], a [F][D]); s summed over the lanes of a column in a fixed order.
-__device__ void write_record(WarpCtx& st, float* rec) {
-  const Lane q;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) st.s[j] += __shfl_xor_sync(0xffffffffu, st.s[j], o);
-  if (q.g == 0) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int ch = q.wn * kD + (j / 2) * 8 + 2 * q.t + j % 2;
-      rec[ch] = st.m[j];
-      rec[kF + ch] = st.s[j];
-    }
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        *reinterpret_cast<float2*>(rec + 2 * kF + (q.wn * kD + mi * 16 + q.g + 8 * h) * kD +
-                                   ni * 8 + 2 * q.t) =
-            float2{st.a[mi][ni][h * 2], st.a[mi][ni][h * 2 + 1]};
-}
-
-// ctx[ch][e] = (sum_r a_r exp(m_r - M)) / (sum_r s_r exp(m_r - M)) in bf16
-// for elements i = ch * D + e from `first` in steps of `step`, M the max of
-// the records' m, the records taken in order.
-__device__ void merge_records(const float* recs, int count, bf16* ctx, int ld, int first,
-                              int step) {
-  for (int i = first; i < kF * kD; i += step) {
-    const int ch = i / kD, e = i % kD;
-    float mx = -INFINITY;
-    for (int r = 0; r < count; ++r) mx = fmaxf(mx, recs[(size_t)r * kPart + ch]);
-    float s = 0.f, a = 0.f;
-    for (int r = 0; r < count; ++r) {
-      const float* rec = recs + (size_t)r * kPart;
-      const float f = rec[ch] == -INFINITY ? 0.f : __expf(rec[ch] - mx);
-      s = fmaf(rec[kF + ch], f, s);
-      a = fmaf(rec[2 * kF + i], f, a);
-    }
-    ctx[ch * ld + e] = __float2bfloat16(a / fmaxf(s, 1e-30f));
-  }
 }
 
 struct Weights {
@@ -955,13 +699,6 @@ __device__ void pass2_tile(const bf16* x_s, const bf16* xn, const Weights& wt, c
   }
 }
 
-// The tiles [t0, t1) of split z of a row of `tiles` tiles.
-struct TileRange {
-  int t0, t1;
-  __device__ TileRange(int z, int splits, int tiles)
-      : t0(z * tiles / splits), t1((z + 1) * tiles / splits) {}
-};
-
 // Loads tile `tile` of the row at xb into buffer `buf` (cp.async where vec)
 // and commits the copies as one group, or commits an empty group past t1.
 __device__ __forceinline__ void prefetch_tile(bf16* buf, const bf16* xb, int tile, int t1, int n,
@@ -1014,8 +751,11 @@ split_pass1_kernel(const bf16* __restrict__ x, Weights wt, float* __restrict__ p
 __global__ void __launch_bounds__(kThreads)
 split_reduce_kernel(const float* __restrict__ parts, bf16* __restrict__ ctx, int count) {
   const int b = blockIdx.x;
-  merge_records(parts + (size_t)b * count * kPart, count, ctx + (size_t)b * kF * kD, kD,
-                blockIdx.y * kThreads + threadIdx.x, kF * kD);
+  bf16* cb = ctx + (size_t)b * kF * kD;
+  merge_records(parts + (size_t)b * count * kPart, count, blockIdx.y * kThreads + threadIdx.x,
+                kF * kD, [&](int i, float, float s, float a) {
+                  cb[i] = __float2bfloat16(a / fmaxf(s, 1e-30f));
+                });
 }
 
 // Split route, pass 2: block (z, b) writes y for the tiles of split z of row b.
@@ -1092,7 +832,9 @@ fused_kernel(const bf16* __restrict__ x, Weights wt, bf16* __restrict__ y, int n
   __syncthreads();  // every warp's scratch is read: the records take its place
   write_record(st, recs + Lane().wm * kPart);
   __syncthreads();
-  merge_records(recs, 2, ctx_s, kCS, threadIdx.x, kThreads);
+  merge_records(recs, 2, threadIdx.x, kThreads, [&](int i, float, float s, float a) {
+    ctx_s[(i / kD) * kCS + i % kD] = __float2bfloat16(a / fmaxf(s, 1e-30f));
+  });
   __syncthreads();
   for (int tile = 0; tile < tiles; ++tile) {
     const int rows = min(kBM, n - tile * kBM);
@@ -1116,20 +858,20 @@ struct Plan {
 
 // The route of one call and its workspace, a function of its shape alone:
 // the CUDA cores for f32 and for bf16 shapes the tensor-core routes do not
-// take (H != 4, C > 512, or a shape whose blocks' shared memory would not
-// fit, as C 512 past N 77; none on the path of the 64x64, 128x128 or
-// 192x192 UNet), through an f32 qkv workspace.
-Plan make_plan(int batch, int n, int c, int heads, int is_bf16) {
+// take (H != 4, dim_head != 32, C > 512, or a shape whose blocks' shared
+// memory would not fit, as C 512 past N 77; none on the path of the 64x64,
+// 128x128 or 192x192 UNet at their dim_head), through an f32 qkv workspace.
+Plan make_plan(int batch, int n, int c, int heads, int dim_head, int is_bf16) {
   Plan p{kRouteCores, 1, 0};
-  if (batch < 1 || n < 1 || c < 1 || heads < 1) return Plan{kRouteNone, 0, 0};
+  if (batch < 1 || n < 1 || c < 1 || heads < 1 || dim_head < 1) return Plan{kRouteNone, 0, 0};
   const bool resident = c <= kBN;  // the split passes' weights (launch_bf16)
   const bool fused =
       n <= kFusedMaxN && fused_layout(n, c, fused_narrow(n, c)).total <= kMaxSmem;
   const bool split = pass1_layout(c, resident).total <= kMaxSmem &&
                      pass2_layout(c, resident).total <= kMaxSmem;
-  if (!is_bf16 || heads != kHeads || c > kMaxC || !(fused || split)) {
-    const long long f = (long long)heads * kD;
-    p.ws_bytes = ((long long)batch * n * 3 * f + (long long)batch * f * kD) * 4;
+  if (!is_bf16 || heads != kHeads || dim_head != kD || c > kMaxC || !(fused || split)) {
+    const long long f = (long long)heads * dim_head;
+    p.ws_bytes = ((long long)batch * n * 3 * f + (long long)batch * f * dim_head) * 4;
     return p;
   }
   if (fused) {
@@ -1194,17 +936,19 @@ int launch_bf16(const Plan& p, const bf16* x, const Weights& wt, bf16* y, void* 
 template <typename T>
 int launch_cores(const void* x, const void* g_pre, const void* wqkv, const void* wout,
                  const void* bout, const void* g_out, void* y, void* ws, int batch, int n_tok,
-                 int c_dim, int heads, cudaStream_t stream) {
-  const int f = heads * kD;
+                 int c_dim, int heads, int dh, cudaStream_t stream) {
+  const int f = heads * dh;
   float* qkv = static_cast<float*>(ws);
   float* ctx = qkv + (size_t)batch * n_tok * 3 * f;
   const dim3 tok_grid((n_tok + kTN - 1) / kTN, batch);
   const size_t smem_qkv = (size_t)c_dim * kTNP * sizeof(float);
+  const size_t smem_ctx = (size_t)ctx_smem_floats(dh) * sizeof(float);
   const size_t smem_out =
-      ((size_t)2 * f * kTNP + (size_t)f * kD + (size_t)kTN * c_dim) * sizeof(float);
-  if (smem_qkv > (size_t)kMaxSmem || smem_out > (size_t)kMaxSmem)
+      ((size_t)2 * f * kTNP + (size_t)f * dh + (size_t)kTN * c_dim) * sizeof(float);
+  if (smem_qkv > (size_t)kMaxSmem || smem_ctx > (size_t)kMaxSmem || smem_out > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   int err = allow_smem<qkv_kernel<T>>(kMaxSmem);
+  if (!err) err = allow_smem<ctx_kernel>(kMaxSmem);
   if (!err) err = allow_smem<out_kernel<T>>(kMaxSmem);
   if (err) return err;
   qkv_kernel<T><<<tok_grid, kThreads, smem_qkv, stream>>>(
@@ -1212,13 +956,13 @@ int launch_cores(const void* x, const void* g_pre, const void* wqkv, const void*
       n_tok, c_dim, 3 * f);
   err = (int)cudaGetLastError();
   if (err) return err;
-  ctx_kernel<<<dim3(heads, batch), kThreads, 0, stream>>>(qkv, ctx, n_tok, f);
+  ctx_kernel<<<dim3(heads, batch), kThreads, smem_ctx, stream>>>(qkv, ctx, n_tok, f, dh);
   err = (int)cudaGetLastError();
   if (err) return err;
   out_kernel<T><<<tok_grid, kThreads, smem_out, stream>>>(
       static_cast<const T*>(x), qkv, ctx, static_cast<const T*>(wout),
       static_cast<const T*>(bout), static_cast<const T*>(g_out), static_cast<T*>(y), n_tok, c_dim,
-      f);
+      f, dh);
   return (int)cudaGetLastError();
 }
 
@@ -1227,9 +971,9 @@ int launch_cores(const void* x, const void* g_pre, const void* wqkv, const void*
 // The plan of one call: writes the route (0 CUDA cores, 1 fused, 2 split,
 // -1 an empty shape), the tokens of a tile and the splits per batch row to
 // out[0..2] (if out is not null); returns the workspace bytes the call needs.
-extern "C" long long ccdm_attn_block_plan(int batch, int n_tok, int c_dim, int heads, int is_bf16,
-                                          int* out) {
-  const Plan p = make_plan(batch, n_tok, c_dim, heads, is_bf16);
+extern "C" long long ccdm_attn_block_plan(int batch, int n_tok, int c_dim, int heads, int dim_head,
+                                          int is_bf16, int* out) {
+  const Plan p = make_plan(batch, n_tok, c_dim, heads, dim_head, is_bf16);
   if (out) {
     out[0] = p.route;
     out[1] = p.route == kRouteCores ? kTN : kBM;
@@ -1239,22 +983,24 @@ extern "C" long long ccdm_attn_block_plan(int batch, int n_tok, int c_dim, int h
 }
 
 // x, y [B, N, C] and the weights (g_pre [C], wqkv [C, 3F], wout [F, C],
-// bout [C], g_out [C]) in one type, bf16 if is_bf16, else f32; ws the
+// bout [C], g_out [C], F = heads dim_head) in one type, bf16 if is_bf16,
+// else f32; ws the
 // workspace of ws_bytes >= what ccdm_attn_block_plan returns. Launches on
 // `stream` and returns the cudaError_t of the last launch check.
 extern "C" int ccdm_attn_block_forward(const void* x, const void* g_pre, const void* wqkv,
                                        const void* wout, const void* bout, const void* g_out,
                                        void* y, void* ws, int batch, int n_tok, int c_dim,
-                                       int heads, int is_bf16, long long ws_bytes, void* stream) {
+                                       int heads, int dim_head, int is_bf16, long long ws_bytes,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan p = make_plan(batch, n_tok, c_dim, heads, is_bf16);
+  const Plan p = make_plan(batch, n_tok, c_dim, heads, dim_head, is_bf16);
   if (p.route == kRouteNone || ws_bytes < p.ws_bytes || (p.ws_bytes && !ws))
     return (int)cudaErrorInvalidValue;
   if (p.route == kRouteCores)
     return is_bf16 ? launch_cores<__nv_bfloat16>(x, g_pre, wqkv, wout, bout, g_out, y, ws, batch,
-                                                 n_tok, c_dim, heads, s)
+                                                 n_tok, c_dim, heads, dim_head, s)
                    : launch_cores<float>(x, g_pre, wqkv, wout, bout, g_out, y, ws, batch, n_tok,
-                                         c_dim, heads, s);
+                                         c_dim, heads, dim_head, s);
   const bf16* xb = static_cast<const bf16*>(x);
   const Weights wt{static_cast<const bf16*>(g_pre), static_cast<const bf16*>(wqkv),
                    static_cast<const bf16*>(wout), static_cast<const bf16*>(bout),

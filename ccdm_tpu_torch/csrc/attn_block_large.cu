@@ -12,7 +12,8 @@
 //      per batch, dWout, dbout, dg_out;
 //   #5 _kernel_bwd_b      -> ccdm_attn_bwd_b: q-softmax and column-softmax
 //      backward, dWqkv, dg_pre, dx (+ dy).
-// Norms, softmaxes and their backward run in f32; every product takes its
+// H heads of D channels (dim_head, F = H D). Norms, softmaxes and their
+// backward run in f32; every product takes its
 // operands rounded to the activation type (bf16 or f32) and accumulates in
 // f32, where the TPU kernels feed their MXU (d_a of #5 is f32 there, and
 // stays so here). Per-head sums are reduced per head directly (the TPU
@@ -24,8 +25,9 @@
 // order, so every sum across blocks is written as per-block partials and
 // reduced by a second launch, in a fixed order (deterministic, no atomics):
 //   - pass A: each block keeps a running column max of k and rescales its
-//     a and s when it grows (as an online softmax does); ctx_reduce merges
-//     the blocks' (max, s, a) into the exact kmax and a, s relative to it;
+//     a and s when it grows (as an online softmax does); a reduce (ctx_reduce
+//     or ctx_merge) merges the blocks' (max, s, a) into the exact kmax and
+//     a, s relative to it;
 //   - the backward: per-block partials of d_ctx, dWout (tensor cores) and
 //     the vectors, summed by sum_parts; dWqkv from xn and d_qkv written by
 //     #5, through a split-K product (wgrad_tc_kernel, or wgrad_kernel on the
@@ -33,20 +35,21 @@
 //
 // What bounds them on this card (NVIDIA H100 SXM, 700 W, data-sheet peaks
 // of 989 TFLOP/s bf16 and 3.35 TB/s): at the 64x64 training shape (B 128,
-// N 4096, C 64, F 128) #4 moves ~270 MB and does ~43 GFLOP, #5 ~340 MB
-// and ~99 GFLOP: 0.08 and 0.10 ms by bytes, 0.04 and 0.10 ms by operations
-// (chip_smoke.large_bound_parts). Only products on the tensor cores with
-// few intermediates in device memory come near that.
-// Routes of #4 and #5 (make_bwd_plan, exported as ccdm_attn_bwd_plan; a
+// N 4096, C 64, F 128) #2 moves ~69 MB and does ~21 GFLOP, #3 moves
+// ~135 MB and does ~21 GFLOP, #4 ~270 MB and ~43 GFLOP, #5 ~340 MB and
+// ~99 GFLOP: 0.02, 0.04, 0.08 and 0.10 ms by bytes, 0.02, 0.02, 0.04 and
+// 0.10 ms by operations (chip_smoke.large_bound_parts). Only products on
+// the tensor cores with few intermediates in device memory come near that.
+// Routes of #2-#5 (make_large_plan, exported as ccdm_attn_large_plan; a
 // function of the shape alone, never of a failure):
-//   - tensor cores, for bf16 at 4 heads and C a multiple of 32 up to 128
+//   - tensor cores, for bf16 at 4 heads of 32 and C a multiple of 32 up to 128
 //     (every two-pass shape of the 64x64, 128x128 and 192x192 UNets): the
-//     section "bf16 backward: tensor cores" below;
+//     sections "bf16 forward: tensor cores" and "bf16 backward: tensor
+//     cores" below;
 //   - CUDA cores, for f32 (the checks whose bounds TF32 would break) and
-//     every other shape: the first design, every product as f32 FMAs from
+//     every other shape, at any D: the first design, every product as f32 FMAs from
 //     shared memory in register tiles of 8 tokens, the weight products
 //     through [B, N, *] operands in device memory and wgrad_kernel.
-// #2 and #3 keep the CUDA-core design in both types.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,58 +58,11 @@
 
 #include "ptx.cuh"
 #include "common.cuh"
+#include "attn_common.cuh"
 
 namespace {
 
-constexpr int kD = 32;  // dim_head: one warp lane per head channel
-constexpr int kDP = kD + 1;  // padded row of a [F][D] matrix read down a column
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTG = 8;       // tokens per thread in a register tile
-constexpr int kSmemLimit = 232448;     // dynamic shared memory of one block
 constexpr int kSmemTwoBlocks = 115712;  // per block, with two blocks on an SM
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Round to the operand type of the products and back to f32.
-template <typename T>
-__device__ __forceinline__ float as_operand(float v) { return to_f32(from_f32<T>(v)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// acc[t] += a[t] * w for the 8 tokens of a tile row in shared memory.
-__device__ __forceinline__ void fma8(float (&acc)[kTG], const float* a, float w) {
-  const float4 lo = *reinterpret_cast<const float4*>(a);
-  const float4 hi = *reinterpret_cast<const float4*>(a + 4);
-  acc[0] = fmaf(lo.x, w, acc[0]);
-  acc[1] = fmaf(lo.y, w, acc[1]);
-  acc[2] = fmaf(lo.z, w, acc[2]);
-  acc[3] = fmaf(lo.w, w, acc[3]);
-  acc[4] = fmaf(hi.x, w, acc[4]);
-  acc[5] = fmaf(hi.y, w, acc[5]);
-  acc[6] = fmaf(hi.z, w, acc[6]);
-  acc[7] = fmaf(hi.w, w, acc[7]);
-}
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
@@ -193,44 +149,54 @@ __device__ void tile_times_wt(const float* in_t, int k_dim, int tn, int tnp,
 }
 
 // In place: q_t[h*D + d][i] <- operand(softmax_d(q[i, head h]) * D^-1/2),
-// one warp per (token, head); tokens past N become zeros.
+// one warp per (token, head), its lanes striding the head's dh channels;
+// tokens past N become zeros.
 template <typename T>
-__device__ void q_softmax_tile(float* q_t, int tn, int tnp, int valid, int heads) {
+__device__ void q_softmax_tile(float* q_t, int tn, int tnp, int valid, int heads, int dh) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const float scale = rsqrtf((float)kD);
+  const float scale = rsqrtf((float)dh);
   for (int task = warp; task < tn * heads; task += kWarps) {
     const int i = task / heads;
     const int h = task % heads;
-    float* cell = q_t + (h * kD + lane) * tnp + i;
-    float qs = 0.f;
+    float* col = q_t + h * dh * tnp + i;  // channel d at col[d * tnp]
     if (i < valid) {  // uniform across the warp
-      const float q = *cell;
-      const float e = expf(q - warp_max(q));
-      qs = as_operand<T>(e / fmaxf(warp_sum(e), 1e-30f) * scale);
+      float m = -INFINITY;
+      for (int d = lane; d < dh; d += 32) m = fmaxf(m, col[d * tnp]);
+      m = warp_max(m);
+      float sum = 0.f;
+      for (int d = lane; d < dh; d += 32) {
+        const float e = expf(col[d * tnp] - m);
+        col[d * tnp] = e;
+        sum += e;
+      }
+      sum = fmaxf(warp_sum(sum), 1e-30f);
+      for (int d = lane; d < dh; d += 32) col[d * tnp] = as_operand<T>(col[d * tnp] / sum * scale);
+    } else {
+      for (int d = lane; d < dh; d += 32) col[d * tnp] = 0.f;
     }
-    *cell = qs;
   }
 }
 
-// Per head h, a tile of F rows times a D x D matrix m ([F][kDP], row h*D + r
-// of head h): out_t[h*D + o][t] = sum_i in_t[h*D + i][t] * M[i][o], with
-// M[i][o] = m[(h*D + i) * kDP + o], or its transpose if `transpose`;
-// rounded to the operand type if `round_out`.
+// Per head h, a tile of F rows times a D x D matrix m ([F][D + 1], row
+// h*D + r of head h; D = dh): out_t[h*D + o][t] = sum_i in_t[h*D + i][t] *
+// M[i][o], with M[i][o] = m[(h*D + i) * (D + 1) + o], or its transpose if
+// `transpose`; rounded to the operand type if `round_out`.
 template <typename T>
 __device__ void head_product(const float* in_t, const float* m, bool transpose, bool round_out,
-                             int tn, int tnp, int f, float* out_t) {
+                             int tn, int tnp, int f, int dh, float* out_t) {
   const int groups = tn / kTG;
+  const int dp = dh + 1;
   for (int task = threadIdx.x; task < f * groups; task += kThreads) {
     const int col = task % f;
     const int g = task / f;
-    const int h = col / kD;
-    const int o = col % kD;
+    const int h = col / dh;
+    const int o = col % dh;
     float acc[kTG] = {};
-    const float* mh = m + h * kD * kDP;
-    const float* ih = in_t + h * kD * tnp + g * kTG;
-    for (int i = 0; i < kD; ++i)
-      fma8(acc, ih + i * tnp, transpose ? mh[o * kDP + i] : mh[i * kDP + o]);
+    const float* mh = m + h * dh * dp;
+    const float* ih = in_t + h * dh * tnp + g * kTG;
+    for (int i = 0; i < dh; ++i)
+      fma8(acc, ih + i * tnp, transpose ? mh[o * dp + i] : mh[i * dp + o]);
 #pragma unroll
     for (int t = 0; t < kTG; ++t)
       out_t[col * tnp + g * kTG + t] = round_out ? as_operand<T>(acc[t]) : acc[t];
@@ -240,8 +206,8 @@ __device__ void head_product(const float* in_t, const float* m, bool transpose, 
 // a_t[h*D + e][t] = operand(sum_d qs_t[h*D + d][t] * ctx[h][d][e]).
 template <typename T>
 __device__ void attn_out_tile(const float* qs_t, const float* ctx_s, int tn, int tnp, int f,
-                              float* a_t) {
-  head_product<T>(qs_t, ctx_s, false, true, tn, tnp, f, a_t);
+                              int dh, float* a_t) {
+  head_product<T>(qs_t, ctx_s, false, true, tn, tnp, f, dh, a_t);
 }
 
 // o_s[t][c] = sum_f a_t[f][t] * wout[f][c] + bout[c], f32.
@@ -261,11 +227,11 @@ __device__ void out_proj_tile(const float* a_t, const T* __restrict__ wout,
   }
 }
 
-// ctx_s[f * kDP + e] = ctx[b][f][e] in f32 (ctx is already in operand type).
+// ctx_s[f * (dh + 1) + e] = ctx[b][f][e] in f32 (ctx is already in operand type).
 template <typename T>
-__device__ void load_ctx(const T* __restrict__ ctxb, int f, float* ctx_s) {
-  for (int idx = threadIdx.x; idx < f * kD; idx += kThreads)
-    ctx_s[(idx / kD) * kDP + idx % kD] = to_f32(ctxb[idx]);
+__device__ void load_ctx(const T* __restrict__ ctxb, int f, int dh, float* ctx_s) {
+  for (int idx = threadIdx.x; idx < f * dh; idx += kThreads)
+    ctx_s[(idx / dh) * (dh + 1) + idx % dh] = to_f32(ctxb[idx]);
 }
 
 // ------------------------------------------------------------ #2: pass A
@@ -278,7 +244,7 @@ __global__ void __launch_bounds__(kThreads)
 ctx_partial_kernel(const T* __restrict__ x, const float* __restrict__ g_pre,
                    const T* __restrict__ wqkv, float* __restrict__ m_part,
                    float* __restrict__ s_part, float* __restrict__ a_part, int n_tok, int c_dim,
-                   int f, int tn) {
+                   int f, int dh, int tn) {
   extern __shared__ __align__(16) float smem[];
   const int tnp = tn + 4;
   float* xn_t = smem;
@@ -298,7 +264,7 @@ ctx_partial_kernel(const T* __restrict__ x, const float* __restrict__ g_pre,
     m_s[j] = -INFINITY;
     s_s[j] = 0.f;
   }
-  for (int idx = threadIdx.x; idx < f * kD; idx += kThreads) a_s[idx] = 0.f;
+  for (int idx = threadIdx.x; idx < f * dh; idx += kThreads) a_s[idx] = 0.f;
   __syncthreads();
 
   for (int n0 = begin; n0 < end; n0 += tn) {
@@ -329,11 +295,11 @@ ctx_partial_kernel(const T* __restrict__ x, const float* __restrict__ g_pre,
       }
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < f * kD; idx += kThreads) {
-      const int r = idx / kD;  // k channel h*D + d
-      const int e = idx % kD;
+    for (int idx = threadIdx.x; idx < f * dh; idx += kThreads) {
+      const int r = idx / dh;  // k channel h*D + d
+      const int e = idx % dh;
       const float* ek = kv_t + r * tnp;
-      const float* vv = kv_t + (f + (r / kD) * kD + e) * tnp;
+      const float* vv = kv_t + (f + (r / dh) * dh + e) * tnp;
       float acc = a_s[idx] * scale_s[r];
       for (int t = 0; t < tn; ++t) acc = fmaf(ek[t], vv[t], acc);
       a_s[idx] = acc;
@@ -345,8 +311,8 @@ ctx_partial_kernel(const T* __restrict__ x, const float* __restrict__ g_pre,
     m_part[(size_t)part * f + j] = m_s[j];
     s_part[(size_t)part * f + j] = s_s[j];
   }
-  for (int idx = threadIdx.x; idx < f * kD; idx += kThreads)
-    a_part[(size_t)part * f * kD + idx] = a_s[idx];
+  for (int idx = threadIdx.x; idx < f * dh; idx += kThreads)
+    a_part[(size_t)part * f * dh + idx] = a_s[idx];
 }
 
 // Per batch: kmax = max of the splits' maxima; s and a summed in split
@@ -354,12 +320,12 @@ ctx_partial_kernel(const T* __restrict__ x, const float* __restrict__ g_pre,
 __global__ void __launch_bounds__(kThreads)
 ctx_reduce_kernel(const float* __restrict__ m_part, const float* __restrict__ s_part,
                   const float* __restrict__ a_part, float* __restrict__ kmax,
-                  float* __restrict__ s, float* __restrict__ a, int nsplit, int f) {
+                  float* __restrict__ s, float* __restrict__ a, int nsplit, int f, int dh) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   const float* mb = m_part + (size_t)b * nsplit * f;
   const float* sb = s_part + (size_t)b * nsplit * f;
-  const float* ab = a_part + (size_t)b * nsplit * f * kD;
+  const float* ab = a_part + (size_t)b * nsplit * f * dh;
   for (int j = threadIdx.x; j < f; j += kThreads) {
     float m = -INFINITY;
     for (int p = 0; p < nsplit; ++p) m = fmaxf(m, mb[p * f + j]);
@@ -371,34 +337,34 @@ ctx_reduce_kernel(const float* __restrict__ m_part, const float* __restrict__ s_
     s[(size_t)b * f + j] = acc;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < f * kD; idx += kThreads) {
-    const int r = idx / kD;
+  for (int idx = threadIdx.x; idx < f * dh; idx += kThreads) {
+    const int r = idx / dh;
     float acc = 0.f;
     for (int p = 0; p < nsplit; ++p) {
       const float mp = mb[p * f + r];
-      if (mp > -INFINITY) acc += ab[(size_t)p * f * kD + idx] * expf(mp - smem[r]);
+      if (mp > -INFINITY) acc += ab[(size_t)p * f * dh + idx] * expf(mp - smem[r]);
     }
-    a[(size_t)b * f * kD + idx] = acc;
+    a[(size_t)b * f * dh + idx] = acc;
   }
 }
 
 // ------------------------------------------------------------ #3: pass B
 // Per (token tile, batch): q projection, q softmax, . ctx, . Wout + bout,
 // out-norm and the residual. Shared: xn_t [C][tnp], q_t [F][tnp],
-// ctx_s [F][kDP], a_t [F][tnp], o_s [tn][C].
+// ctx_s [F][D + 1], a_t [F][tnp], o_s [tn][C].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 out_large_kernel(const T* __restrict__ x, const float* __restrict__ g_pre,
                  const T* __restrict__ wqkv, const T* __restrict__ ctx,
                  const T* __restrict__ wout, const float* __restrict__ bout,
                  const float* __restrict__ g_out, T* __restrict__ y, int n_tok, int c_dim, int f,
-                 int tn) {
+                 int dh, int tn) {
   extern __shared__ __align__(16) float smem[];
   const int tnp = tn + 4;
   float* xn_t = smem;
   float* q_t = xn_t + align4(c_dim * tnp);
   float* ctx_s = q_t + f * tnp;
-  float* a_t = ctx_s + f * kDP;
+  float* a_t = ctx_s + f * (dh + 1);
   float* o_s = a_t + f * tnp;
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * tn;
@@ -408,13 +374,13 @@ out_large_kernel(const T* __restrict__ x, const float* __restrict__ g_pre,
   const T* xb = x + (size_t)b * n_tok * c_dim;
 
   norm_tile<T>(xb, g_pre, n0, valid, tn, tnp, c_dim, xn_t, nullptr, nullptr);
-  load_ctx<T>(ctx + (size_t)b * f * kD, f, ctx_s);
+  load_ctx<T>(ctx + (size_t)b * f * dh, f, dh, ctx_s);
   __syncthreads();
   tile_times_w<T>(xn_t, c_dim, tn, tnp, wqkv, 3 * f, 0, f, q_t);
   __syncthreads();
-  q_softmax_tile<T>(q_t, tn, tnp, valid, f / kD);
+  q_softmax_tile<T>(q_t, tn, tnp, valid, f / dh, dh);
   __syncthreads();
-  attn_out_tile<T>(q_t, ctx_s, tn, tnp, f, a_t);
+  attn_out_tile<T>(q_t, ctx_s, tn, tnp, f, dh, a_t);
   __syncthreads();
   out_proj_tile<T>(a_t, wout, bout, tn, tnp, f, c_dim, o_s);
   __syncthreads();
@@ -433,7 +399,7 @@ out_large_kernel(const T* __restrict__ x, const float* __restrict__ g_pre,
 // Per (split, batch), over the split's tokens: recompute q', out and o;
 // do = out-norm backward of dy (written in f32); out (operand) written for
 // the dWout product; d_ctx, dbout and dg_out summed per block.
-// Shared: xn_t [C][tnp] (then do, operand), q_t [F][tnp], ctx_s [F][kDP],
+// Shared: xn_t [C][tnp] (then do, operand), q_t [F][tnp], ctx_s [F][D + 1],
 // a_t [F][tnp], o_s [tn][C] (then do, f32), dyon_s [tn][C],
 // dout_t [F][tnp], dctx_s [F][D], db_s, dg_s [C].
 template <typename T>
@@ -443,18 +409,18 @@ bwd_a_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
              const float* __restrict__ bout, const float* __restrict__ g_out,
              float* __restrict__ do_g, T* __restrict__ out_g, float* __restrict__ dctx_part,
              float* __restrict__ db_part, float* __restrict__ dg_part, int n_tok, int c_dim,
-             int f, int tn) {
+             int f, int dh, int tn) {
   extern __shared__ __align__(16) float smem[];
   const int tnp = tn + 4;
   float* xn_t = smem;
   float* q_t = xn_t + align4(c_dim * tnp);
   float* ctx_s = q_t + f * tnp;
-  float* a_t = ctx_s + f * kDP;
+  float* a_t = ctx_s + f * (dh + 1);
   float* o_s = a_t + f * tnp;
   float* dyon_s = o_s + align4(tn * c_dim);
   float* dout_t = dyon_s + align4(tn * c_dim);
   float* dctx_s = dout_t + f * tnp;
-  float* db_s = dctx_s + f * kD;
+  float* db_s = dctx_s + f * dh;
   float* dg_s = db_s + align4(c_dim);
   const int split = blockIdx.x;
   const int b = blockIdx.y;
@@ -465,8 +431,8 @@ bwd_a_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
   int begin, end;
   split_range(split, gridDim.x, n_tok, &begin, &end);
 
-  load_ctx<T>(ctx + (size_t)b * f * kD, f, ctx_s);
-  for (int idx = threadIdx.x; idx < f * kD; idx += kThreads) dctx_s[idx] = 0.f;
+  load_ctx<T>(ctx + (size_t)b * f * dh, f, dh, ctx_s);
+  for (int idx = threadIdx.x; idx < f * dh; idx += kThreads) dctx_s[idx] = 0.f;
   for (int c = threadIdx.x; c < c_dim; c += kThreads) db_s[c] = dg_s[c] = 0.f;
   __syncthreads();
 
@@ -476,9 +442,9 @@ bwd_a_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
     __syncthreads();
     tile_times_w<T>(xn_t, c_dim, tn, tnp, wqkv, 3 * f, 0, f, q_t);
     __syncthreads();
-    q_softmax_tile<T>(q_t, tn, tnp, valid, f / kD);
+    q_softmax_tile<T>(q_t, tn, tnp, valid, f / dh, dh);
     __syncthreads();
-    attn_out_tile<T>(q_t, ctx_s, tn, tnp, f, a_t);
+    attn_out_tile<T>(q_t, ctx_s, tn, tnp, f, dh, a_t);
     __syncthreads();
     out_proj_tile<T>(a_t, wout, bout, tn, tnp, f, c_dim, o_s);
     for (int idx = threadIdx.x; idx < f * valid; idx += kThreads) {
@@ -532,10 +498,10 @@ bwd_a_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
     tile_times_wt<T>(xn_t, c_dim, tn, tnp, wout, c_dim, f, dout_t);  // d_out = do . Wout^T
     __syncthreads();
     // d_ctx[h][d][e] += sum_t q'[t][h*D + d] * d_out[t][h*D + e] (operands)
-    for (int idx = threadIdx.x; idx < f * kD; idx += kThreads) {
-      const int r = idx / kD;
+    for (int idx = threadIdx.x; idx < f * dh; idx += kThreads) {
+      const int r = idx / dh;
       const float* qr = q_t + r * tnp;
-      const float* dr = dout_t + ((r / kD) * kD + idx % kD) * tnp;
+      const float* dr = dout_t + ((r / dh) * dh + idx % dh) * tnp;
       float acc = dctx_s[idx];
       for (int t = 0; t < tn; ++t) acc = fmaf(qr[t], dr[t], acc);
       dctx_s[idx] = acc;
@@ -543,8 +509,8 @@ bwd_a_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
     __syncthreads();
   }
 
-  for (int idx = threadIdx.x; idx < f * kD; idx += kThreads)
-    dctx_part[(size_t)part * f * kD + idx] = dctx_s[idx];
+  for (int idx = threadIdx.x; idx < f * dh; idx += kThreads)
+    dctx_part[(size_t)part * f * dh + idx] = dctx_s[idx];
   for (int c = threadIdx.x; c < c_dim; c += kThreads) {
     db_part[(size_t)part * c_dim + c] = db_s[c];
     dg_part[(size_t)part * c_dim + c] = dg_s[c];
@@ -561,7 +527,7 @@ bwd_a_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
 // the projections; only the softmax backward is per (token, head).
 // Shared: xn_t [C][tnp] (then do, operand), xf_s [tn][C], inv_s [tn],
 // qkv_t [3F][tnp] (then d_qkv in place), dout_t [F][tnp] (then e, operand),
-// x_t (d_qs) and y_t (d_e, then d_k) [F][tnp], ctx_s and da_s [F][kDP],
+// x_t (d_qs) and y_t (d_e, then d_k) [F][tnp], ctx_s and da_s [F][D + 1],
 // kmax_s and ds_s [F], dxn_s [tn][C], dg_s [C].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -571,11 +537,12 @@ bwd_b_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
              const float* __restrict__ kmax, const float* __restrict__ d_a,
              const float* __restrict__ d_s, T* __restrict__ dx, T* __restrict__ xn_g,
              T* __restrict__ dqkv_g, float* __restrict__ dg_part, int n_tok, int c_dim, int f,
-             int tn) {
+             int dh, int tn) {
   extern __shared__ __align__(16) float smem[];
   const int tnp = tn + 4;
   const int f3 = 3 * f;
-  const int heads = f / kD;
+  const int heads = f / dh;
+  const int dp = dh + 1;
   float* xn_t = smem;
   float* xf_s = xn_t + align4(c_dim * tnp);
   float* inv_s = xf_s + align4(tn * c_dim);
@@ -584,8 +551,8 @@ bwd_b_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
   float* x_t = dout_t + f * tnp;
   float* y_t = x_t + f * tnp;
   float* ctx_s = y_t + f * tnp;
-  float* da_s = ctx_s + f * kDP;
-  float* kmax_s = da_s + f * kDP;
+  float* da_s = ctx_s + f * dp;
+  float* kmax_s = da_s + f * dp;
   float* ds_s = kmax_s + f;
   float* dxn_s = ds_s + f;
   float* dg_s = dxn_s + align4(tn * c_dim);
@@ -594,14 +561,14 @@ bwd_b_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
   const int part = b * gridDim.x + split;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const float scale = rsqrtf((float)kD);
+  const float scale = rsqrtf((float)dh);
   const T* xb = x + (size_t)b * n_tok * c_dim;
   int begin, end;
   split_range(split, gridDim.x, n_tok, &begin, &end);
 
-  load_ctx<T>(ctx + (size_t)b * f * kD, f, ctx_s);
-  for (int idx = threadIdx.x; idx < f * kD; idx += kThreads)
-    da_s[(idx / kD) * kDP + idx % kD] = d_a[(size_t)b * f * kD + idx];
+  load_ctx<T>(ctx + (size_t)b * f * dh, f, dh, ctx_s);
+  for (int idx = threadIdx.x; idx < f * dh; idx += kThreads)
+    da_s[(idx / dh) * dp + idx % dh] = d_a[(size_t)b * f * dh + idx];
   for (int j = threadIdx.x; j < f; j += kThreads) {
     kmax_s[j] = kmax[(size_t)b * f + j];
     ds_s[j] = d_s[(size_t)b * f + j];
@@ -639,33 +606,33 @@ bwd_b_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
     }
     __syncthreads();
     // x_t = d_qs = d_out . ctx_h^T; y_t = v . d_a_h^T (d_e without d_s)
-    head_product<T>(dout_t, ctx_s, true, false, tn, tnp, f, x_t);
-    head_product<T>(qkv_t + 2 * f * tnp, da_s, true, false, tn, tnp, f, y_t);
+    head_product<T>(dout_t, ctx_s, true, false, tn, tnp, f, dh, x_t);
+    head_product<T>(qkv_t + 2 * f * tnp, da_s, true, false, tn, tnp, f, dh, y_t);
     __syncthreads();
     // q rows <- operand(d_q), d_q = p (d_p - sum_h d_p p), d_p = d_qs D^-1/2,
     // p = softmax of the head's q: one thread per (token, head)
     for (int task = threadIdx.x; task < tn * heads; task += kThreads) {
       const int t = task % tn;
-      float* q = qkv_t + (task / tn) * kD * tnp + t;
-      const float* dqs = x_t + (task / tn) * kD * tnp + t;
+      float* q = qkv_t + (task / tn) * dh * tnp + t;
+      const float* dqs = x_t + (task / tn) * dh * tnp + t;
       if (t < valid) {
         float mx = -INFINITY;
-        for (int d = 0; d < kD; ++d) mx = fmaxf(mx, q[d * tnp]);
+        for (int d = 0; d < dh; ++d) mx = fmaxf(mx, q[d * tnp]);
         float sum = 0.f;
-        for (int d = 0; d < kD; ++d) {
+        for (int d = 0; d < dh; ++d) {
           q[d * tnp] = expf(q[d * tnp] - mx);
           sum += q[d * tnp];
         }
         const float inv = 1.f / fmaxf(sum, 1e-30f);
         float pg = 0.f;
-        for (int d = 0; d < kD; ++d) {
+        for (int d = 0; d < dh; ++d) {
           q[d * tnp] *= inv;
           pg = fmaf(dqs[d * tnp] * scale, q[d * tnp], pg);
         }
-        for (int d = 0; d < kD; ++d)
+        for (int d = 0; d < dh; ++d)
           q[d * tnp] = as_operand<T>(q[d * tnp] * (dqs[d * tnp] * scale - pg));
       } else {
-        for (int d = 0; d < kD; ++d) q[d * tnp] = 0.f;
+        for (int d = 0; d < dh; ++d) q[d * tnp] = 0.f;
       }
     }
     // y_t <- operand(d_k), d_k = e (d_e + d_s); dout_t <- operand(e)
@@ -678,7 +645,7 @@ bwd_b_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
     }
     __syncthreads();
     // v rows <- operand(d_v), d_v = e . d_a_h; k rows <- d_k
-    head_product<T>(dout_t, da_s, false, true, tn, tnp, f, qkv_t + 2 * f * tnp);
+    head_product<T>(dout_t, da_s, false, true, tn, tnp, f, dh, qkv_t + 2 * f * tnp);
     for (int idx = threadIdx.x; idx < f * tn; idx += kThreads) {
       const int j = idx / tn;
       const int t = idx % tn;
@@ -832,15 +799,9 @@ sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out, int ou
 //     tensor cores (64 x 128 output tiles, a 3-stage cp.async ring of
 //     32-token slices), sums them; sum_parts reduces its splits in order.
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kHeads = 4;             // heads of the tensor-core route
-constexpr int kF = kHeads * kD;       // 128
 constexpr int kTM = kWarps * 16;      // tokens per tile: 16 rows a warp
 constexpr int kMaxC = 128;            // widest C of the tensor-core route
-constexpr int kWave = 132;            // blocks that fill the card once: the SMs of an H100 SXM
 constexpr int kWgradBlocks = 264;     // blocks a dWqkv launch aims at
-constexpr int kMaxSmem = kSmemLimit;  // dynamic shared memory a block may use (227 KB)
 constexpr int kLF = kF + 8;           // bf16 per row of a [tokens][F] tile
 constexpr int kLW = 3 * kF + 8;       // bf16 per row of Wqkv [C][3F] in shared memory
 constexpr int kLH = kD + 8;           // bf16 per row of ctx and d_a [F][D]
@@ -1040,13 +1001,18 @@ __device__ void copy_rows(bf16* dst, int ldd, const bf16* __restrict__ src, int 
   }
 }
 
-// In place, the warp's 16 rows at p ([16][ld], C = c, c % 32 == 0): row <-
-// bf16(row / rms(row) * g), rows past valid zeros; 1 / rms to inv_out[r]
-// where given. Two lanes a row, c / 16 chunks of 8 each.
-__device__ void warp_norm16(bf16* p, int ld, const float* g, int valid, int c, float* inv_out,
-                            int lane) {
+// The warp's 16 rows at src ([16][ld], C = c, c % 32 == 0) to dst (the same
+// layout; dst may be src): row <- bf16(row / rms(row) * g), rows past valid
+// zeros; 1 / rms to inv_out[r] where given. Two lanes a row, each summing
+// the squares of its half of the row (c / 16 chunks of 8) in order, then
+// the two halves; 1 / rms correctly rounded (__frsqrt_rn), so that a plain
+// version can form the same xn (ops/attn_block.tensor_route_prenorm).
+// #2-#5 all form xn here: the k whose column max #2 writes is the k that
+// #5 exponentiates.
+__device__ void warp_norm16(bf16* dst, const bf16* src, int ld, const float* g, int valid, int c,
+                            float* inv_out, int lane) {
   const int r = lane >> 1, off = (lane & 1) * (c / 2), chunks = c / 16;
-  bf16* row = p + r * ld + off;
+  const bf16* row = src + r * ld + off;
   float ss = 0.f;
   for (int k = 0; k < chunks; ++k) {
     float v[8];
@@ -1056,7 +1022,8 @@ __device__ void warp_norm16(bf16* p, int ld, const float* g, int valid, int c, f
   }
   ss += __shfl_xor_sync(0xffffffffu, ss, 1);
   const bool ok = r < valid;
-  const float inv = rsqrtf(ss / (float)c + 1e-12f);
+  const float inv = __frsqrt_rn(ss / (float)c + 1e-12f);
+  bf16* out_row = dst + r * ld + off;
   for (int k = 0; k < chunks; ++k) {
     float v[8];
     unpack8(*reinterpret_cast<const uint4*>(row + 8 * k), v);
@@ -1068,17 +1035,265 @@ __device__ void warp_norm16(bf16* p, int ld, const float* g, int valid, int c, f
       out.z = pack_bf16(v[4] * inv * gk[4], v[5] * inv * gk[5]);
       out.w = pack_bf16(v[6] * inv * gk[6], v[7] * inv * gk[7]);
     }
-    *reinterpret_cast<uint4*>(row + 8 * k) = out;
+    *reinterpret_cast<uint4*>(out_row + 8 * k) = out;
   }
   if (inv_out && (lane & 1) == 0) inv_out[r] = ok ? inv : 0.f;
 }
 
-// The tiles [t0, t1) of split z of a row of `tiles` tiles.
-struct TileRange {
-  int t0, t1;
-  __device__ TileRange(int z, int splits, int tiles)
-      : t0(z * tiles / splits), t1((z + 1) * tiles / splits) {}
+// The attention of a warp's 16 rows of xn at xw (row stride C + 8, C = 32
+// NC): per head h, q' = softmax(xn . Wq_h) D^-1/2 (rows at or past valid
+// zeros) and out_h = q' . ctx_h, each rounded to bf16, and o[j] += out .
+// Wout[:, 32 j, 32 j + 32). q' and out also go to qs_w and out_w ([16][kLF])
+// where given (#4's sums over the tokens). #3's forward and #4's recompute of
+// it, so that #4 rebuilds exactly the o that #3 normalised.
+template <int NC>
+__device__ __forceinline__ void attn_rows(Acc (&o)[NC], const bf16* xw, const bf16* wq_s,
+                                          const bf16* ctx_s, const bf16* wo_s, const Quad& q,
+                                          int valid, bf16* qs_w, bf16* out_w) {
+  constexpr int C = 32 * NC, LC = ldc(C);
+  for (int h = 0; h < kHeads; ++h) {
+    float qa[4][4] = {};
+    mma_rows(qa, xw, LC, wq_s + h * kD, kLF, C, q.lane);
+    head_softmax(qa, q, valid, rsqrtf((float)kD));
+    if (qs_w) store_rows(qs_w + h * kD, kLF, qa, q, 16);
+    uint32_t aq[2][4];
+    as_a(aq, qa);
+    float oa[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t bfr[2][4];
+      b_kn(bfr, ctx_s + (h * kD + kk * 16) * kLH, kLH, q.lane);
+      mma_n32(oa, aq[kk], bfr);
+    }
+    if (out_w) store_rows(out_w + h * kD, kLF, oa, q, 16);
+    uint32_t ao[2][4];
+    as_a(ao, oa);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        uint32_t bfr[2][4];
+        b_kn(bfr, wo_s + (h * kD + kk * 16) * LC + j * 32, LC, q.lane);
+        mma_n32(o[j], ao[kk], bfr);
+      }
+  }
+}
+
+// ------------------------------------------ bf16 forward: tensor cores
+// #2 and #3 in bf16 on the domain of #4 and #5's tensor route. Both walk
+// the 128-token tiles of a split of a batch row, the next tile's x loading
+// (cp.async) while they work on the current one, and both form xn with
+// warp_norm16, as #4 and #5 do.
+//   - #2 (ctx_tc_kernel): each warp normalises 16 rows of the tile in
+//     place; then, for each 64-row half, k and v = xn . Wkv (Wkv resident)
+//     in #1's split pass 1 (a 2 x 4 grid of warps, a head a warp column,
+//     mma_resident) fold into #1's online softmax (online_update: a running
+//     column max m, s = sum exp(k - m) and a_h = bf16(exp(k_h - m_h))^T .
+//     bf16(v_h), a sum over the tokens through ldmatrix .trans, rescaled
+//     when m grows). Each block writes one f32 record (m, s, a) a warp row;
+//     ctx_merge_kernel merges a batch row's records in a fixed order
+//     (merge_records) into kmax, s and a, f32.
+//   - #3 (out_tc_kernel): each warp loads, normalises and works its own 16
+//     rows with no block barrier in the loop: attn_rows (Wq, Wout and ctx
+//     resident), then + bout, the out-norm and the residual in f32 on the
+//     accumulators, y staged in bf16 in the warp's xn rows and stored 16
+//     bytes a lane.
+
+// #2's shared memory: Wk and Wv side by side [C][2 kBN + 8] (load_slab<2>),
+// g_pre [C] f32, two x tiles [kTM][C + 8] and the warps' online_update
+// scratch.
+struct CtxLayout {
+  int w, g, x, scratch, total;
 };
+__host__ __device__ inline CtxLayout ctx_layout(int c) {
+  CtxLayout l{};
+  l.g = c * (2 * kBN + 8) * 2;
+  l.x = l.g + c * 4;
+  l.scratch = l.x + 2 * kTM * ldc(c) * 2;
+  l.total = l.scratch + kWarps * kWarpScratch;
+  return l;
+}
+
+// #3's: Wq [C][kLF], Wout [F][C + 8], ctx [F][kLH], g_pre, bout, g_out [3][C]
+// f32, two x tiles and the xn tile [kTM][C + 8].
+struct OutLayout {
+  int wq, wo, ctx, vec, x, xn, total;
+};
+__host__ __device__ inline OutLayout out_layout(int c) {
+  OutLayout l{};
+  l.wo = c * kLF * 2;
+  l.ctx = l.wo + kF * ldc(c) * 2;
+  l.vec = l.ctx + kF * kLH * 2;
+  l.x = l.vec + 3 * c * 4;
+  l.xn = l.x + 2 * kTM * ldc(c) * 2;
+  l.total = l.xn + kTM * ldc(c) * 2;
+  return l;
+}
+
+// #2: block (z, b) folds the tiles of split z of batch row b and writes one
+// record per warp row to parts [B][splits][2][kPart].
+__global__ void __launch_bounds__(kThreads, 2)
+ctx_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
+              const bf16* __restrict__ wqkv, float* __restrict__ parts, int n, int c,
+              int splits, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  const CtxLayout l = ctx_layout(c);
+  bf16* w_s = reinterpret_cast<bf16*>(base + l.w);
+  float* gs = reinterpret_cast<float*>(base + l.g);
+  bf16* xbuf = reinterpret_cast<bf16*>(base + l.x);
+  const int lc = ldc(c), w = threadIdx.x >> 5, wm = Lane().wm, b = blockIdx.y;
+  const TileRange tr(blockIdx.x, splits, (n + kTM - 1) / kTM);
+  const bf16* xb = x + (size_t)b * n * c;
+  char* scratch = base + l.scratch + w * kWarpScratch;
+  // tile `tile` into its buffer as one commit group (an empty one past t1)
+  auto prefetch = [&](int tile) {
+    if (tile < tr.t1)
+      copy_rows(xbuf + ((tile - tr.t0) & 1) * kTM * lc, lc, xb + (size_t)tile * kTM * c, c, kTM,
+                min(kTM, n - tile * kTM), c, vec, threadIdx.x, kThreads);
+    cp_async_commit();
+  };
+  for (int i = threadIdx.x; i < c; i += kThreads) gs[i] = g_pre[i];
+  load_slab<2>(w_s, WSlab{wqkv, 3 * kF, kF, kF, 3 * kF}, 0, c, c, vec);
+  prefetch(tr.t0);  // with the weights
+  WarpCtx st;
+  st.init();
+  for (int tile = tr.t0; tile < tr.t1; ++tile) {
+    bf16* cur = xbuf + ((tile - tr.t0) & 1) * kTM * lc;
+    prefetch(tile + 1);
+    cp_async_wait<1>();  // this tile (and the weights) have landed
+    __syncthreads();
+    const int rows = min(kTM, n - tile * kTM);
+    warp_norm16(cur + w * 16 * lc, cur + w * 16 * lc, lc, gs, max(0, min(16, rows - w * 16)), c,
+                nullptr, threadIdx.x & 31);
+    __syncthreads();
+    for (int half = 0; half < 2; ++half) {
+      float kv[2][2][4][4] = {};
+      mma_resident<2>(kv, cur + half * 64 * lc, lc, w_s, c);
+      online_update(st, kv[0], kv[1], rows - half * 64 - wm * 32, scratch);
+    }
+    __syncthreads();  // every warp is done with this buffer before it loads again
+  }
+  cp_async_wait<0>();
+  write_record(st, parts + ((size_t)(b * splits + blockIdx.x) * 2 + wm) * kPart);
+}
+
+// #2's merge: block (b, y) merges row b's `count` records for its kThreads
+// elements of a [B][F][D], one a thread; the thread of each channel's
+// element 0 writes the channel's kmax and s.
+__global__ void __launch_bounds__(kThreads)
+ctx_merge_kernel(const float* __restrict__ parts, float* __restrict__ kmax,
+                 float* __restrict__ s, float* __restrict__ a, int count) {
+  const int b = blockIdx.x;
+  merge_records(parts + (size_t)b * count * kPart, count, blockIdx.y * kThreads + threadIdx.x,
+                kF * kD, [&](int i, float m, float sv, float av) {
+                  a[(size_t)b * kF * kD + i] = av;
+                  if (i % kD == 0) {
+                    kmax[b * kF + i / kD] = m;
+                    s[b * kF + i / kD] = sv;
+                  }
+                });
+}
+
+// #3: block (z, b) writes y for the tiles of split z of batch row b; each
+// warp its 16 rows of each tile, its x rows double-buffered.
+template <int NC>
+__global__ void __launch_bounds__(kThreads, NC <= 2 ? 2 : 1)
+out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
+              const bf16* __restrict__ wqkv, const bf16* __restrict__ ctx,
+              const bf16* __restrict__ wout, const float* __restrict__ bout,
+              const float* __restrict__ g_out, bf16* __restrict__ y, int n, int splits,
+              int vec) {
+  constexpr int C = 32 * NC, LC = ldc(C);
+  extern __shared__ __align__(16) float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  const OutLayout l = out_layout(C);
+  bf16* wq_s = reinterpret_cast<bf16*>(base + l.wq);
+  bf16* wo_s = reinterpret_cast<bf16*>(base + l.wo);
+  bf16* ctx_s = reinterpret_cast<bf16*>(base + l.ctx);
+  float* vs = reinterpret_cast<float*>(base + l.vec);
+  const Quad q;
+  const int b = blockIdx.y, r0 = q.w * 16;
+  const TileRange tr(blockIdx.x, splits, (n + kTM - 1) / kTM);
+  const size_t tok0 = (size_t)b * n;  // the batch row's first token
+  bf16* xw[2] = {reinterpret_cast<bf16*>(base + l.x) + r0 * LC,
+                 reinterpret_cast<bf16*>(base + l.x) + (kTM + r0) * LC};
+  bf16* xnw = reinterpret_cast<bf16*>(base + l.xn) + r0 * LC;
+  auto rows_of = [&](int tile) { return max(0, min(16, min(kTM, n - tile * kTM) - r0)); };
+  // the warp's rows of tile `tile` into its buffer as one commit group
+  auto prefetch = [&](int tile) {
+    if (tile < tr.t1)
+      copy_rows(xw[(tile - tr.t0) & 1], LC, x + (tok0 + (size_t)tile * kTM + r0) * C, C, 16,
+                rows_of(tile), C, vec, q.lane, 32);
+    cp_async_commit();
+  };
+
+  copy_rows(wq_s, kLF, wqkv, 3 * kF, C, C, kF, vec, threadIdx.x, kThreads);
+  copy_rows(wo_s, LC, wout, C, kF, kF, C, vec, threadIdx.x, kThreads);
+  copy_rows(ctx_s, kLH, ctx + (size_t)b * kF * kD, kD, kF, kF, kD, vec, threadIdx.x, kThreads);
+  for (int i = threadIdx.x; i < C; i += kThreads) {
+    vs[i] = g_pre[i];
+    vs[C + i] = bout[i];
+    vs[2 * C + i] = g_out[i];
+  }
+  prefetch(tr.t0);
+  cp_async_wait<0>();
+  __syncthreads();  // the weights, ctx and vectors, for every warp
+  for (int tile = tr.t0; tile < tr.t1; ++tile) {
+    const bf16* cur = xw[(tile - tr.t0) & 1];
+    prefetch(tile + 1);
+    cp_async_wait<1>();  // this tile's rows have landed
+    __syncwarp();
+    const int valid = rows_of(tile);
+    warp_norm16(xnw, cur, LC, vs, valid, C, nullptr, q.lane);
+    __syncwarp();
+    float o[NC][4][4] = {};
+    attn_rows<NC>(o, xnw, wq_s, ctx_s, wo_s, q, valid, nullptr, nullptr);
+    // o += bout; y = x + o r2 g_out with r2 = 1 / rms(o), as #4 recomputes it
+    float ss[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& ov = o[j][ni][e];
+          ov += vs[C + j * 32 + ni * 8 + 2 * q.t + (e & 1)];
+          ss[e >> 1] = fmaf(ov, ov, ss[e >> 1]);
+        }
+    float r2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) r2[h] = rsqrtf(quad_sum(ss[h]) / (float)C + 1e-12f);
+    __syncwarp();  // every lane has read xn: y takes its place
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = q.g + 8 * h, col = j * 32 + ni * 8 + 2 * q.t;
+          float yv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            yv[e] = bf(cur[r * LC + col + e]) + o[j][ni][2 * h + e] * r2[h] * vs[2 * C + col + e];
+          *reinterpret_cast<uint32_t*>(xnw + r * LC + col) = pack_bf16(yv[0], yv[1]);
+        }
+    __syncwarp();
+    bf16* yw = y + (tok0 + (size_t)tile * kTM + r0) * C;
+    for (int i = q.lane; i < valid * (C / 8); i += 32) {
+      const int r = i / (C / 8), ch = (i % (C / 8)) * 8;
+      if (vec) {
+        *reinterpret_cast<uint4*>(yw + r * C + ch) =
+            *reinterpret_cast<const uint4*>(xnw + r * LC + ch);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) yw[r * C + ch + e] = xnw[r * LC + ch + e];
+      }
+    }
+    __syncwarp();  // y has left xn before the next tile's norm writes it
+  }
+  cp_async_wait<0>();
+}
 
 // #4: block (z, b) walks the tiles of split z of batch row b and writes the
 // block's partials part = b * splits + z: d_ctx [F][D], dbout [C], dg_out
@@ -1136,36 +1351,10 @@ bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    warp_norm16(xw, LC, vs, valid, C, nullptr, q.lane);
+    warp_norm16(xw, xw, LC, vs, valid, C, nullptr, q.lane);
     __syncwarp();
-    // per head: q' = softmax(xn . Wq_h) D^-1/2, out_h = q' . ctx_h, o += out_h . Wout_h
     float o[NC][4][4] = {};
-    for (int h = 0; h < kHeads; ++h) {
-      float qa[4][4] = {};
-      mma_rows(qa, xw, LC, wq_s + h * kD, kLF, C, q.lane);
-      head_softmax(qa, q, valid, rsqrtf((float)kD));
-      store_rows(qs_s + r0 * kLF + h * kD, kLF, qa, q, 16);
-      uint32_t aq[2][4];
-      as_a(aq, qa);
-      float oa[4][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t bfr[2][4];
-        b_kn(bfr, ctx_s + (h * kD + kk * 16) * kLH, kLH, q.lane);
-        mma_n32(oa, aq[kk], bfr);
-      }
-      store_rows(out_s + r0 * kLF + h * kD, kLF, oa, q, 16);
-      uint32_t ao[2][4];
-      as_a(ao, oa);
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          uint32_t bfr[2][4];
-          b_kn(bfr, wo_s + (h * kD + kk * 16) * LC + j * 32, LC, q.lane);
-          mma_n32(o[j], ao[kk], bfr);
-        }
-    }
+    attn_rows<NC>(o, xw, wq_s, ctx_s, wo_s, q, valid, qs_s + r0 * kLF, out_s + r0 * kLF);
     // o += bout; the out-norm's backward: do = r2 dy g_out - o r2^3 mean(o dy g_out)
     const bool ok[2] = {q.g < valid, q.g + 8 < valid};
     const size_t row0 = (size_t)(t0 + r0 + q.g) * C, row1 = row0 + 8 * (size_t)C;
@@ -1339,7 +1528,7 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     const size_t trow = tok0 + (size_t)tile * kTM + r0;  // token of the warp's row 0
     cp_async_wait<0>();
     __syncwarp();
-    warp_norm16(xw, LC, gp_s, valid, C, inv_s + r0, q.lane);
+    warp_norm16(xw, xw, LC, gp_s, valid, C, inv_s + r0, q.lane);
     __syncwarp();
     for (int i = q.lane; i < valid * (C / 8); i += 32) {
       const int r = i / (C / 8), ch = (i % (C / 8)) * 8;
@@ -1604,38 +1793,39 @@ wgrad_tc_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* _
 }
 
 // ------------------------------------------------------------- launches
-// Shared-memory floats of each CUDA-core per-token kernel for a tile of tn tokens.
-int smem_ctx_partial(int c, int f, int tn) {
-  return align4(c * (tn + 4)) + 2 * f * (tn + 4) + 3 * f + f * kD;
+// Shared-memory floats of each CUDA-core per-token kernel for a tile of tn
+// tokens, at F = f and D = dh.
+int smem_ctx_partial(int c, int f, int dh, int tn) {
+  return align4(c * (tn + 4)) + 2 * f * (tn + 4) + 3 * f + f * dh;
 }
-int smem_out_large(int c, int f, int tn) {
-  return align4(c * (tn + 4)) + 2 * f * (tn + 4) + f * kDP + tn * c;
+int smem_out_large(int c, int f, int dh, int tn) {
+  return align4(c * (tn + 4)) + 2 * f * (tn + 4) + f * (dh + 1) + tn * c;
 }
-int smem_bwd_a(int c, int f, int tn) {
-  return align4(c * (tn + 4)) + 3 * f * (tn + 4) + f * kDP + 2 * align4(tn * c) + f * kD +
+int smem_bwd_a(int c, int f, int dh, int tn) {
+  return align4(c * (tn + 4)) + 3 * f * (tn + 4) + f * (dh + 1) + 2 * align4(tn * c) + f * dh +
          2 * align4(c);
 }
-int smem_bwd_b(int c, int f, int tn) {
-  return align4(c * (tn + 4)) + 2 * align4(tn * c) + tn + 6 * f * (tn + 4) + 2 * f * kDP +
+int smem_bwd_b(int c, int f, int dh, int tn) {
+  return align4(c * (tn + 4)) + 2 * align4(tn * c) + tn + 6 * f * (tn + 4) + 2 * f * (dh + 1) +
          2 * f + align4(c);
 }
 
 // The largest tile of 32, 16 or 8 tokens whose shared memory lets two
 // blocks share an SM (latency hiding for these FMA loops); else the
 // largest that fits one block; else 0. The bytes to *bytes.
-int cores_tile(int (*floats)(int, int, int), int c, int f, size_t* bytes) {
-  const size_t limits[2] = {(size_t)kSmemTwoBlocks, (size_t)kSmemLimit};
+int cores_tile(int (*floats)(int, int, int, int), int c, int f, int dh, size_t* bytes) {
+  const size_t limits[2] = {(size_t)kSmemTwoBlocks, (size_t)kMaxSmem};
   for (size_t limit : limits)
     for (int tn = 32; tn >= 8; tn /= 2) {
-      *bytes = (size_t)floats(c, f, tn) * sizeof(float);
+      *bytes = (size_t)floats(c, f, dh, tn) * sizeof(float);
       if (*bytes <= limit) return tn;
     }
   return 0;
 }
 
 template <typename K>
-int pick_tile(int (*floats)(int, int, int), int c, int f, K kernel, size_t* bytes) {
-  const int tn = cores_tile(floats, c, f, bytes);
+int pick_tile(int (*floats)(int, int, int, int), int c, int f, int dh, K kernel, size_t* bytes) {
+  const int tn = cores_tile(floats, c, f, dh, bytes);
   if (tn && cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)*bytes) != cudaSuccess)
     return 0;
@@ -1664,16 +1854,19 @@ int wgrad(const TA* a, const TB* b, float* part, float* out, int m, int i_dim, i
 // ----------------------------------------------------------- the plan
 constexpr int kRouteCores = 0, kRouteTensor = 1, kRouteNone = -1;
 
-// The route of one call of #4 (kernel 4) or #5 (kernel 5), the tokens of
-// its tile, its blocks per batch row (splits), the token splits of its
-// weight-gradient launch (wsplits) and its workspace, in regions of
-// `bytes` (each 256-byte aligned): a function of the shape alone.
+// The route of one call of #2-#5 (kernel 2 to 5), the tokens of its tile,
+// its blocks per batch row (splits), the token splits of its weight-gradient
+// launch (wsplits) and its workspace, in regions of `bytes` (each 256-byte
+// aligned): a function of the shape alone, never of a failure.
+//   #2 cores: m, s parts [B splits, F], a parts [B splits, F, D], f32;
+//   #2 tensor: records [B splits, 2, kPart] f32;
+//   #3 either: none;
 //   #4 cores: out [B N, F] (activation type), d_ctx parts [B splits, F, D],
 //             dbout, dg_out parts [B splits, C], dWout parts [wsplits, F, C];
 //   #4 tensor: d_ctx, dbout, dg_out parts, dWout parts [B splits, F, C];
 //   #5 either: xn [B N, C], d_qkv [B N, 3F] (activation type), dg_pre parts
 //             [B splits, C], dWqkv parts [wsplits, C, 3F].
-struct BwdPlan {
+struct LargePlan {
   int route, tile, splits, wsplits;
   long long bytes[5];
   long long ws_bytes;
@@ -1684,42 +1877,66 @@ inline int clampi(long long v, int lo, long long hi) {
   return (int)(v < lo ? lo : v > hi ? hi : v);
 }
 
-BwdPlan make_bwd_plan(int kernel, int batch, int n, int c, int heads, int is_bf16) {
-  BwdPlan p{};
-  if (batch < 1 || n < 1 || c < 1 || heads < 1 || (kernel != 4 && kernel != 5)) {
+// Shared-memory bytes of a block of kernel 2-5's tensor-core route at C.
+inline int tc_smem(int kernel, int c) {
+  switch (kernel) {
+    case 2: return ctx_layout(c).total;
+    case 3: return out_layout(c).total;
+    case 4: return bwd_a_layout(c).total;
+    default: return bwd_b_layout(c).total;
+  }
+}
+
+LargePlan make_large_plan(int kernel, int batch, int n, int c, int heads, int dim_head,
+                          int is_bf16) {
+  LargePlan p{};
+  if (batch < 1 || n < 1 || c < 1 || heads < 1 || dim_head < 1 || kernel < 2 || kernel > 5) {
     p.route = kRouteNone;
     return p;
   }
-  const long long f = (long long)heads * kD, m = (long long)batch * n;
+  const long long dh = dim_head, f = (long long)heads * dh, m = (long long)batch * n;
   const int esz = is_bf16 ? 2 : 4;
-  const bool tensor = is_bf16 && heads == kHeads && c % 32 == 0 && c <= kMaxC &&
-                      (kernel == 4 ? bwd_a_layout(c).total : bwd_b_layout(c).total) <= kMaxSmem;
+  const bool tensor = is_bf16 && heads == kHeads && dim_head == kD && c % 32 == 0 &&
+                      c <= kMaxC && tc_smem(kernel, c) <= kMaxSmem;
   if (tensor) {
-    // splits a row: as many as fill one wave (one block an SM: a block's
-    // shared memory is over half the SM's), at most one a tile
+    // splits a row: as many as fill one wave of the blocks an SM holds (two
+    // where their shared memory fits twice: #2 and #3 at C <= 64; #4 and #5
+    // hold over half an SM's at every C), at most one a tile
+    const int per_sm = tc_smem(kernel, c) <= kSmemTwoBlocks ? 2 : 1;
     p.route = kRouteTensor;
     p.tile = kTM;
-    p.splits = clampi(kWave / batch, 1, (n + kTM - 1) / kTM);
+    p.splits = clampi((long long)per_sm * kWave / batch, 1, (n + kTM - 1) / kTM);
   } else {
+    static int (*const floats[4])(int, int, int, int) = {smem_ctx_partial, smem_out_large,
+                                                         smem_bwd_a, smem_bwd_b};
     size_t smem;
     p.route = kRouteCores;
-    p.tile = cores_tile(kernel == 4 ? smem_bwd_a : smem_bwd_b, c, (int)f, &smem);
-    p.splits = clampi((512 + batch - 1) / batch, 1, (n + 31) / 32);
+    p.tile = cores_tile(floats[kernel - 2], c, (int)f, dim_head, &smem);
+    // #3: a block a tile; the others: ~4 waves of blocks, at most one per 32 tokens
+    p.splits = kernel == 3 ? (p.tile ? (n + p.tile - 1) / p.tile : 0)
+                           : clampi((512 + batch - 1) / batch, 1, (n + 31) / 32);
   }
   const long long parts = (long long)batch * p.splits;
-  if (kernel == 4) {
+  if (kernel == 2) {
     if (tensor) {
-      const long long b4[5] = {parts * f * kD * 4, parts * c * 4, parts * c * 4, parts * f * c * 4,
+      p.bytes[0] = parts * 2 * kPart * 4;
+    } else {
+      p.bytes[0] = p.bytes[1] = parts * f * 4;
+      p.bytes[2] = parts * f * dh * 4;
+    }
+  } else if (kernel == 4) {
+    if (tensor) {
+      const long long b4[5] = {parts * f * dh * 4, parts * c * 4, parts * c * 4, parts * f * c * 4,
                                0};
       for (int i = 0; i < 5; ++i) p.bytes[i] = b4[i];
     } else {
       const long long tiles = ((f + kWT - 1) / kWT) * ((c + kWT - 1) / kWT);
       p.wsplits = clampi((512 + tiles - 1) / tiles, 1, (m + 31) / 32);
-      const long long b4[5] = {m * f * esz, parts * f * kD * 4, parts * c * 4, parts * c * 4,
+      const long long b4[5] = {m * f * esz, parts * f * dh * 4, parts * c * 4, parts * c * 4,
                                (long long)p.wsplits * f * c * 4};
       for (int i = 0; i < 5; ++i) p.bytes[i] = b4[i];
     }
-  } else {
+  } else if (kernel == 5) {
     if (tensor) {
       const long long tiles = ((c + kGI - 1) / kGI) * ((3 * f + kGJ - 1) / kGJ);
       p.wsplits = clampi(kWgradBlocks / tiles, 1, (m + kGK - 1) / kGK);
@@ -1736,7 +1953,7 @@ BwdPlan make_bwd_plan(int kernel, int batch, int n, int c, int heads, int is_bf1
 }
 
 // The plan's regions of the workspace ws, in order.
-void carve(const BwdPlan& p, void* ws, char* (&region)[5]) {
+void carve(const LargePlan& p, void* ws, char* (&region)[5]) {
   char* at = static_cast<char*>(ws);
   for (int i = 0; i < 5; ++i) {
     region[i] = at;
@@ -1745,50 +1962,50 @@ void carve(const BwdPlan& p, void* ws, char* (&region)[5]) {
 }
 
 template <typename T>
-int bwd_a_cores(const BwdPlan& p, const void* x, const void* dy, const float* g_pre,
+int bwd_a_cores(const LargePlan& p, const void* x, const void* dy, const float* g_pre,
                 const void* wqkv, const void* ctx, const void* wout, const float* bout,
                 const float* g_out, float* do_g, float* dctx, float* dwout, float* dbout,
-                float* dgout, void* ws, int batch, int n_tok, int c_dim, int heads,
+                float* dgout, void* ws, int batch, int n_tok, int c_dim, int heads, int dh,
                 cudaStream_t st) {
-  const int f = heads * kD;
+  const int f = heads * dh;
   char* r[5];
   carve(p, ws, r);
   T* out_g = reinterpret_cast<T*>(r[0]);
   float *dctx_part = reinterpret_cast<float*>(r[1]), *db_part = reinterpret_cast<float*>(r[2]),
         *dg_part = reinterpret_cast<float*>(r[3]), *wg_part = reinterpret_cast<float*>(r[4]);
   size_t bytes;
-  const int tn = pick_tile(smem_bwd_a, c_dim, f, bwd_a_kernel<T>, &bytes);
+  const int tn = pick_tile(smem_bwd_a, c_dim, f, dh, bwd_a_kernel<T>, &bytes);
   if (!tn) return (int)cudaErrorInvalidValue;
   bwd_a_kernel<T><<<dim3(p.splits, batch), kThreads, bytes, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), g_pre, static_cast<const T*>(wqkv),
       static_cast<const T*>(ctx), static_cast<const T*>(wout), bout, g_out, do_g, out_g,
-      dctx_part, db_part, dg_part, n_tok, c_dim, f, tn);
+      dctx_part, db_part, dg_part, n_tok, c_dim, f, dh, tn);
   int err = check_last();
   if (err) return err;
-  if ((err = sum_parts(dctx_part, dctx, batch, p.splits, f * kD, st))) return err;
+  if ((err = sum_parts(dctx_part, dctx, batch, p.splits, f * dh, st))) return err;
   if ((err = sum_parts(db_part, dbout, 1, batch * p.splits, c_dim, st))) return err;
   if ((err = sum_parts(dg_part, dgout, 1, batch * p.splits, c_dim, st))) return err;
   return wgrad<T, T, float>(out_g, do_g, wg_part, dwout, batch * n_tok, f, c_dim, p.wsplits, st);
 }
 
 template <typename T>
-int bwd_b_cores(const BwdPlan& p, const void* x, const void* dy, const float* do_g,
+int bwd_b_cores(const LargePlan& p, const void* x, const void* dy, const float* do_g,
                 const float* g_pre, const void* wqkv, const void* ctx, const void* wout,
                 const float* kmax, const float* d_a, const float* d_s, void* dx, float* dwqkv,
-                float* dgpre, void* ws, int batch, int n_tok, int c_dim, int heads,
+                float* dgpre, void* ws, int batch, int n_tok, int c_dim, int heads, int dh,
                 cudaStream_t st) {
-  const int f = heads * kD;
+  const int f = heads * dh;
   char* r[5];
   carve(p, ws, r);
   T *xn_g = reinterpret_cast<T*>(r[0]), *dqkv_g = reinterpret_cast<T*>(r[1]);
   float *dg_part = reinterpret_cast<float*>(r[2]), *wg_part = reinterpret_cast<float*>(r[3]);
   size_t bytes;
-  const int tn = pick_tile(smem_bwd_b, c_dim, f, bwd_b_kernel<T>, &bytes);
+  const int tn = pick_tile(smem_bwd_b, c_dim, f, dh, bwd_b_kernel<T>, &bytes);
   if (!tn) return (int)cudaErrorInvalidValue;
   bwd_b_kernel<T><<<dim3(p.splits, batch), kThreads, bytes, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), do_g, g_pre,
       static_cast<const T*>(wqkv), static_cast<const T*>(ctx), static_cast<const T*>(wout),
-      kmax, d_a, d_s, static_cast<T*>(dx), xn_g, dqkv_g, dg_part, n_tok, c_dim, f, tn);
+      kmax, d_a, d_s, static_cast<T*>(dx), xn_g, dqkv_g, dg_part, n_tok, c_dim, f, dh, tn);
   int err = check_last();
   if (err) return err;
   if ((err = sum_parts(dg_part, dgpre, 1, batch * p.splits, c_dim, st))) return err;
@@ -1796,7 +2013,7 @@ int bwd_b_cores(const BwdPlan& p, const void* x, const void* dy, const float* do
 }
 
 template <int NC>
-int bwd_a_tc(const BwdPlan& p, const bf16* x, const bf16* dy, const float* g_pre,
+int bwd_a_tc(const LargePlan& p, const bf16* x, const bf16* dy, const float* g_pre,
              const bf16* wqkv, const bf16* ctx, const bf16* wout, const float* bout,
              const float* g_out, float* do_g, float* dctx, float* dwout, float* dbout,
              float* dgout, void* ws, int batch, int n_tok, int vec, cudaStream_t st) {
@@ -1819,7 +2036,7 @@ int bwd_a_tc(const BwdPlan& p, const bf16* x, const bf16* dy, const float* g_pre
 }
 
 template <int NC>
-int bwd_b_tc(const BwdPlan& p, const bf16* x, const bf16* dy, const float* do_g,
+int bwd_b_tc(const LargePlan& p, const bf16* x, const bf16* dy, const float* do_g,
              const float* g_pre, const bf16* wqkv, const bf16* ctx, const bf16* wout,
              const float* kmax, const float* d_a, const float* d_s, bf16* dx, float* dwqkv,
              float* dgpre, void* ws, int batch, int n_tok, int vec, cudaStream_t st) {
@@ -1844,34 +2061,63 @@ int bwd_b_tc(const BwdPlan& p, const bf16* x, const bf16* dy, const float* do_g,
 }
 
 template <typename T>
-int ctx_large(const void* x, const float* g_pre, const void* wqkv, float* m_part,
-              float* s_part, float* a_part, float* kmax, float* s, float* a, int batch,
-              int n_tok, int c_dim, int heads, int nsplit, cudaStream_t st) {
-  const int f = heads * kD;
+int ctx_cores(const LargePlan& p, const void* x, const float* g_pre, const void* wqkv,
+              float* kmax, float* s, float* a, void* ws, int batch, int n_tok, int c_dim,
+              int heads, int dh, cudaStream_t st) {
+  const int f = heads * dh;
+  char* r[5];
+  carve(p, ws, r);
+  float *m_part = reinterpret_cast<float*>(r[0]), *s_part = reinterpret_cast<float*>(r[1]),
+        *a_part = reinterpret_cast<float*>(r[2]);
   size_t bytes;
-  const int tn = pick_tile(smem_ctx_partial, c_dim, f, ctx_partial_kernel<T>, &bytes);
+  const int tn = pick_tile(smem_ctx_partial, c_dim, f, dh, ctx_partial_kernel<T>, &bytes);
   if (!tn) return (int)cudaErrorInvalidValue;
-  ctx_partial_kernel<T><<<dim3(nsplit, batch), kThreads, bytes, st>>>(
+  ctx_partial_kernel<T><<<dim3(p.splits, batch), kThreads, bytes, st>>>(
       static_cast<const T*>(x), g_pre, static_cast<const T*>(wqkv), m_part, s_part, a_part,
-      n_tok, c_dim, f, tn);
+      n_tok, c_dim, f, dh, tn);
   int err = check_last();
   if (err) return err;
   ctx_reduce_kernel<<<batch, kThreads, f * sizeof(float), st>>>(m_part, s_part, a_part, kmax,
-                                                                 s, a, nsplit, f);
+                                                                 s, a, p.splits, f, dh);
+  return check_last();
+}
+
+int ctx_tc(const LargePlan& p, const bf16* x, const float* g_pre, const bf16* wqkv, float* kmax,
+           float* s, float* a, void* ws, int batch, int n_tok, int c_dim, int vec,
+           cudaStream_t st) {
+  float* parts = static_cast<float*>(ws);
+  int err = allow_smem<ctx_tc_kernel>(kMaxSmem);
+  if (err) return err;
+  ctx_tc_kernel<<<dim3(p.splits, batch), kThreads, ctx_layout(c_dim).total, st>>>(
+      x, g_pre, wqkv, parts, n_tok, c_dim, p.splits, vec);
+  if ((err = check_last())) return err;
+  ctx_merge_kernel<<<dim3(batch, kF * kD / kThreads), kThreads, 0, st>>>(parts, kmax, s, a,
+                                                                       2 * p.splits);
   return check_last();
 }
 
 template <typename T>
-int out_large(const void* x, const float* g_pre, const void* wqkv, const void* ctx,
+int out_cores(const void* x, const float* g_pre, const void* wqkv, const void* ctx,
               const void* wout, const float* bout, const float* g_out, void* y, int batch,
-              int n_tok, int c_dim, int heads, cudaStream_t st) {
-  const int f = heads * kD;
+              int n_tok, int c_dim, int heads, int dh, cudaStream_t st) {
+  const int f = heads * dh;
   size_t bytes;
-  const int tn = pick_tile(smem_out_large, c_dim, f, out_large_kernel<T>, &bytes);
+  const int tn = pick_tile(smem_out_large, c_dim, f, dh, out_large_kernel<T>, &bytes);
   if (!tn) return (int)cudaErrorInvalidValue;
   out_large_kernel<T><<<dim3((n_tok + tn - 1) / tn, batch), kThreads, bytes, st>>>(
       static_cast<const T*>(x), g_pre, static_cast<const T*>(wqkv), static_cast<const T*>(ctx),
-      static_cast<const T*>(wout), bout, g_out, static_cast<T*>(y), n_tok, c_dim, f, tn);
+      static_cast<const T*>(wout), bout, g_out, static_cast<T*>(y), n_tok, c_dim, f, dh, tn);
+  return check_last();
+}
+
+template <int NC>
+int out_tc(const LargePlan& p, const bf16* x, const float* g_pre, const bf16* wqkv,
+           const bf16* ctx, const bf16* wout, const float* bout, const float* g_out, bf16* y,
+           int batch, int n_tok, int vec, cudaStream_t st) {
+  int err = allow_smem<out_tc_kernel<NC>>(kMaxSmem);
+  if (err) return err;
+  out_tc_kernel<NC><<<dim3(p.splits, batch), kThreads, out_layout(32 * NC).total, st>>>(
+      x, g_pre, wqkv, ctx, wout, bout, g_out, y, n_tok, p.splits, vec);
   return check_last();
 }
 
@@ -1879,43 +2125,65 @@ int out_large(const void* x, const float* g_pre, const void* wqkv, const void* c
 
 // Interfaces. x, y, dy, dx, ctx and the matrices wqkv [C, 3F] and wout
 // [F, C] are in the activation type (bf16 if is_bf16, else f32); g_pre,
-// bout, g_out and everything else are f32. a, d_a, ctx, d_ctx are [B, H,
-// 32, 32]; s, kmax, d_s [B, F]. #2's *_part buffers are per-block
-// partials [B * nsplit, ...]. #4's and #5's workspace ws holds ws_bytes >=
-// what ccdm_attn_bwd_plan returns. Each launches on `stream` and returns
-// the first cudaError_t it meets.
+// bout, g_out and everything else are f32. H = heads of D = dim_head
+// channels, F = H D. a, d_a, ctx, d_ctx are [B, H, D, D]; s, kmax, d_s
+// [B, F]. The workspace ws of #2, #4 and #5 holds
+// ws_bytes >= what ccdm_attn_large_plan returns for the call (#3 needs
+// none). Each launches on `stream` and returns the first cudaError_t it
+// meets.
 
+// #2: kmax, s [B, F] and a [B, H, D, D], f32.
 extern "C" int ccdm_attn_ctx_large(const void* x, const float* g_pre, const void* wqkv,
-                                   float* m_part, float* s_part, float* a_part, float* kmax,
-                                   float* s, float* a, int batch, int n_tok, int c_dim,
-                                   int heads, int nsplit, int is_bf16, void* stream) {
+                                   float* kmax, float* s, float* a, void* ws, int batch,
+                                   int n_tok, int c_dim, int heads, int dim_head, int is_bf16,
+                                   long long ws_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return ctx_large<__nv_bfloat16>(x, g_pre, wqkv, m_part, s_part, a_part, kmax, s, a, batch,
-                                    n_tok, c_dim, heads, nsplit, st);
-  return ctx_large<float>(x, g_pre, wqkv, m_part, s_part, a_part, kmax, s, a, batch, n_tok,
-                          c_dim, heads, nsplit, st);
+  const LargePlan p = make_large_plan(2, batch, n_tok, c_dim, heads, dim_head, is_bf16);
+  if (p.route == kRouteNone || ws_bytes < p.ws_bytes || !ws) return (int)cudaErrorInvalidValue;
+  if (p.route == kRouteCores)
+    return is_bf16 ? ctx_cores<__nv_bfloat16>(p, x, g_pre, wqkv, kmax, s, a, ws, batch, n_tok,
+                                              c_dim, heads, dim_head, st)
+                   : ctx_cores<float>(p, x, g_pre, wqkv, kmax, s, a, ws, batch, n_tok, c_dim,
+                                      heads, dim_head, st);
+  const int vec = aligned16(x) && aligned16(wqkv);
+  return ctx_tc(p, static_cast<const bf16*>(x), g_pre, static_cast<const bf16*>(wqkv), kmax, s,
+                a, ws, batch, n_tok, c_dim, vec, st);
 }
 
+// #3: y [B, N, C] in the activation type.
 extern "C" int ccdm_attn_out_large(const void* x, const float* g_pre, const void* wqkv,
                                    const void* ctx, const void* wout, const float* bout,
                                    const float* g_out, void* y, int batch, int n_tok,
-                                   int c_dim, int heads, int is_bf16, void* stream) {
+                                   int c_dim, int heads, int dim_head, int is_bf16,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return out_large<__nv_bfloat16>(x, g_pre, wqkv, ctx, wout, bout, g_out, y, batch, n_tok,
-                                    c_dim, heads, st);
-  return out_large<float>(x, g_pre, wqkv, ctx, wout, bout, g_out, y, batch, n_tok, c_dim,
-                          heads, st);
+  const LargePlan p = make_large_plan(3, batch, n_tok, c_dim, heads, dim_head, is_bf16);
+  if (p.route == kRouteNone) return (int)cudaErrorInvalidValue;
+  if (p.route == kRouteCores)
+    return is_bf16 ? out_cores<__nv_bfloat16>(x, g_pre, wqkv, ctx, wout, bout, g_out, y, batch,
+                                              n_tok, c_dim, heads, dim_head, st)
+                   : out_cores<float>(x, g_pre, wqkv, ctx, wout, bout, g_out, y, batch, n_tok,
+                                      c_dim, heads, dim_head, st);
+  const int vec = aligned16(x) && aligned16(wqkv) && aligned16(ctx) && aligned16(wout) &&
+                  aligned16(y);
+  const bf16 *xb = static_cast<const bf16*>(x), *wq = static_cast<const bf16*>(wqkv),
+             *cb = static_cast<const bf16*>(ctx), *wo = static_cast<const bf16*>(wout);
+  bf16* yb = static_cast<bf16*>(y);
+  switch (c_dim / 32) {
+    case 1: return out_tc<1>(p, xb, g_pre, wq, cb, wo, bout, g_out, yb, batch, n_tok, vec, st);
+    case 2: return out_tc<2>(p, xb, g_pre, wq, cb, wo, bout, g_out, yb, batch, n_tok, vec, st);
+    case 3: return out_tc<3>(p, xb, g_pre, wq, cb, wo, bout, g_out, yb, batch, n_tok, vec, st);
+    default: return out_tc<4>(p, xb, g_pre, wq, cb, wo, bout, g_out, yb, batch, n_tok, vec, st);
+  }
 }
 
-// The plan of one call of #4 (kernel 4) or #5 (kernel 5): writes the route
-// (0 CUDA cores, 1 tensor cores, -1 an empty shape), the tokens of a tile,
-// the blocks per batch row and the weight-gradient launch's token splits
-// to out[0..3] (if out is not null); returns the workspace bytes.
-extern "C" long long ccdm_attn_bwd_plan(int kernel, int batch, int n_tok, int c_dim, int heads,
-                                        int is_bf16, int* out) {
-  const BwdPlan p = make_bwd_plan(kernel, batch, n_tok, c_dim, heads, is_bf16);
+// The plan of one call of #2-#5 (kernel 2 to 5): writes the route (0 CUDA
+// cores, 1 tensor cores, -1 an empty shape), the tokens of a tile, the
+// blocks per batch row and the weight-gradient launch's token splits to
+// out[0..3] (if out is not null); returns the workspace bytes.
+extern "C" long long ccdm_attn_large_plan(int kernel, int batch, int n_tok, int c_dim, int heads,
+                                        int dim_head, int is_bf16, int* out) {
+  const LargePlan p = make_large_plan(kernel, batch, n_tok, c_dim, heads, dim_head, is_bf16);
   if (out) {
     out[0] = p.route;
     out[1] = p.tile;
@@ -1925,23 +2193,23 @@ extern "C" long long ccdm_attn_bwd_plan(int kernel, int batch, int n_tok, int c_
   return p.ws_bytes;
 }
 
-// #4: do [B, N, C], d_ctx [B, H, 32, 32], dwout [F, C], dbout, dgout [C], f32.
+// #4: do [B, N, C], d_ctx [B, H, D, D], dwout [F, C], dbout, dgout [C], f32.
 extern "C" int ccdm_attn_bwd_a(const void* x, const void* dy, const float* g_pre,
                                const void* wqkv, const void* ctx, const void* wout,
                                const float* bout, const float* g_out, float* do_g, float* dctx,
                                float* dwout, float* dbout, float* dgout, void* ws, int batch,
-                               int n_tok, int c_dim, int heads, int is_bf16, long long ws_bytes,
-                               void* stream) {
+                               int n_tok, int c_dim, int heads, int dim_head, int is_bf16,
+                               long long ws_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const BwdPlan p = make_bwd_plan(4, batch, n_tok, c_dim, heads, is_bf16);
+  const LargePlan p = make_large_plan(4, batch, n_tok, c_dim, heads, dim_head, is_bf16);
   if (p.route == kRouteNone || ws_bytes < p.ws_bytes || !ws) return (int)cudaErrorInvalidValue;
   if (p.route == kRouteCores)
     return is_bf16 ? bwd_a_cores<__nv_bfloat16>(p, x, dy, g_pre, wqkv, ctx, wout, bout, g_out,
                                                 do_g, dctx, dwout, dbout, dgout, ws, batch,
-                                                n_tok, c_dim, heads, st)
+                                                n_tok, c_dim, heads, dim_head, st)
                    : bwd_a_cores<float>(p, x, dy, g_pre, wqkv, ctx, wout, bout, g_out, do_g,
                                         dctx, dwout, dbout, dgout, ws, batch, n_tok, c_dim,
-                                        heads, st);
+                                        heads, dim_head, st);
   const int vec = aligned16(x) && aligned16(wqkv) && aligned16(ctx) && aligned16(wout);
   const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
              *wq = static_cast<const bf16*>(wqkv), *cb = static_cast<const bf16*>(ctx),
@@ -1963,17 +2231,18 @@ extern "C" int ccdm_attn_bwd_b(const void* x, const void* dy, const float* do_g,
                                const float* g_pre, const void* wqkv, const void* ctx,
                                const void* wout, const float* kmax, const float* d_a,
                                const float* d_s, void* dx, float* dwqkv, float* dgpre, void* ws,
-                               int batch, int n_tok, int c_dim, int heads, int is_bf16,
-                               long long ws_bytes, void* stream) {
+                               int batch, int n_tok, int c_dim, int heads, int dim_head,
+                               int is_bf16, long long ws_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const BwdPlan p = make_bwd_plan(5, batch, n_tok, c_dim, heads, is_bf16);
+  const LargePlan p = make_large_plan(5, batch, n_tok, c_dim, heads, dim_head, is_bf16);
   if (p.route == kRouteNone || ws_bytes < p.ws_bytes || !ws) return (int)cudaErrorInvalidValue;
   if (p.route == kRouteCores)
     return is_bf16 ? bwd_b_cores<__nv_bfloat16>(p, x, dy, do_g, g_pre, wqkv, ctx, wout, kmax,
                                                 d_a, d_s, dx, dwqkv, dgpre, ws, batch, n_tok,
-                                                c_dim, heads, st)
+                                                c_dim, heads, dim_head, st)
                    : bwd_b_cores<float>(p, x, dy, do_g, g_pre, wqkv, ctx, wout, kmax, d_a, d_s,
-                                        dx, dwqkv, dgpre, ws, batch, n_tok, c_dim, heads, st);
+                                        dx, dwqkv, dgpre, ws, batch, n_tok, c_dim, heads,
+                                        dim_head, st);
   const int vec = aligned16(x) && aligned16(wqkv) && aligned16(ctx) && aligned16(wout);
   const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
              *wq = static_cast<const bf16*>(wqkv), *cb = static_cast<const bf16*>(ctx),

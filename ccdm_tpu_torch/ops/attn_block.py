@@ -11,11 +11,14 @@ module's `_dispatch`, `_can_fuse_bwd` and `_fwd` (attn_block.py:557-611):
 - with a gradient, N % 2048 == 0 and F % 128 == 0: `_TwoPassBlock`. Its
   forward is the two-pass kernels #2 + #3 (`attn_ctx_large`,
   `attn_out_large`), saving the residuals (a, s, kmax); its backward is the
-  fused kernels #4 + #5 (`attn_bwd_a`, `attn_bwd_b`; in bf16 on the tensor
-  cores at the UNets' shapes, `bwd_plan`); all four are in
-  csrc/attn_block_large.cu;
+  fused kernels #4 + #5 (`attn_bwd_a`, `attn_bwd_b`); all four are in
+  csrc/attn_block_large.cu, in bf16 on the tensor cores at the UNets' shapes
+  (`large_plan`);
 - with a gradient otherwise: `_SinglePassBlock`, kernel #1 forward and the
   backward by autograd through `attn_block_reference`, as `jax.vjp` does.
+Every kernel takes any dim_head: the tensor-core routes take heads of
+DIM_HEAD (32) channels, and the plans send every other dim_head to the
+kernels' CUDA-core routes, as they do f32.
 Each kernel wrapper launches its kernel on a CUDA tensor and runs its plain
 PyTorch version (beside it here) on a CPU tensor, so the CPU tests drive the
 same autograd Functions. Nothing falls back from one to the other.
@@ -31,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import NamedTuple
 
 import torch
@@ -39,9 +41,8 @@ import torch
 from ccdm_tpu_torch.ops import _build
 from ccdm_tpu_torch.ops.linear_attention import _op, finalize_ctx, linear_attention_reference
 
-DIM_HEAD = 32  # the kernels map one warp lane to each channel of a head
+DIM_HEAD = 32  # the dim_head of the tensor-core routes: a warp column of 32 a head
 TWO_PASS_CHUNK = 2048  # N % 2048 == 0 takes the two-pass training path (as JAX)
-_BLOCKS = 512  # blocks a pass-A launch aims at (132 SMs, ~4 waves)
 
 
 def _rms_norm(x: torch.Tensor, g: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -89,19 +90,47 @@ def _q_prime(xn, wqkv, heads, dt):
     f = wqkv.shape[1] // 3
     q = torch.matmul(_op(xn, dt), _op(wqkv[:, :f], dt))
     p = torch.softmax(_heads(q, heads), dim=-1)
-    return p, _op(p * DIM_HEAD ** -0.5, dt)
+    return p, _op(p * p.shape[-1] ** -0.5, dt)
 
 
-def ctx_large_reference(x2d, g_pre, wqkv, heads):
-    """Plain kernel #2: (a [B, H, D, D], s [B, F], kmax [B, F]), f32."""
-    dt, f = x2d.dtype, wqkv.shape[1] // 3
-    _, _, xn = _prenorm(x2d, g_pre)
+def _ctx_of(xn, wqkv, heads, dt):
+    """(a, s, kmax) of kernel #2 from xn in f32, products on `dt` operands."""
+    f = wqkv.shape[1] // 3
     kv = torch.matmul(_op(xn, dt), _op(wqkv[:, f:], dt))
     k, v = kv[..., :f], kv[..., f:]
     kmax = k.amax(dim=1)
     e = torch.exp(k - kmax[:, None])
     a = torch.einsum("bnhd,bnhe->bhde", _heads(_op(e, dt), heads), _heads(_op(v, dt), heads))
     return a, e.sum(dim=1), kmax
+
+
+def ctx_large_reference(x2d, g_pre, wqkv, heads):
+    """Plain kernel #2: (a [B, H, D, D], s [B, F], kmax [B, F]), f32."""
+    return _ctx_of(_prenorm(x2d, g_pre)[2], wqkv, heads, x2d.dtype)
+
+
+def tensor_route_prenorm(x2d, g_pre):
+    """xn in f32, before its bf16 rounding, as the tensor-core route of
+    kernels #2-#5 forms it (csrc/attn_block_large.cu, warp_norm16): the
+    squares of each half of a row summed in order, the two halves added,
+    divided by C, plus 1e-12, then 1 / sqrt correctly rounded to f32, and
+    x inv g_pre. For bf16 x each square is exact in f32, so the kernel's
+    fmaf adds it as + does here."""
+    xf = x2d.float()
+    sq, half = xf * xf, x2d.shape[-1] // 2
+    lo, hi = torch.zeros_like(sq[..., 0]), torch.zeros_like(sq[..., 0])
+    for j in range(half):
+        lo, hi = lo + sq[..., j], hi + sq[..., half + j]
+    v = (lo + hi) / x2d.shape[-1] + 1e-12
+    inv = (1 / torch.sqrt(v.double())).float()
+    return xf * inv[..., None] * g_pre.float()
+
+
+def ctx_large_tensor_reference(x2d, g_pre, wqkv, heads):
+    """Plain kernel #2 at the rounding points of its bf16 tensor-core route:
+    ctx_large_reference with xn formed as tensor_route_prenorm forms it, so
+    that its kmax is the kernel's up to the order of the products' sums."""
+    return _ctx_of(tensor_route_prenorm(x2d, g_pre), wqkv, heads, x2d.dtype)
 
 
 def finalize_ctx_backward(d_ctx, a, s):
@@ -148,7 +177,7 @@ def bwd_b_reference(x2d, dy, do, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, heads):
     k, v = qkv[..., f:2 * f], qkv[..., 2 * f:]
     d_out = _op(torch.matmul(_op(do, dt), _op(wout, dt).T), dt)
     p, _ = _q_prime(xn, wqkv, heads, dt)
-    d_p = torch.einsum("bnhe,bhde->bnhd", _heads(d_out, heads), ctx.float()) * DIM_HEAD ** -0.5
+    d_p = torch.einsum("bnhe,bhde->bnhd", _heads(d_out, heads), ctx.float()) * ctx.shape[-1] ** -0.5
     d_q = p * (d_p - (d_p * p).sum(-1, keepdim=True))
     e = torch.exp(k - kmax[:, None])
     d_e = torch.einsum("bnhe,bhde->bnhd", _heads(_op(v, dt), heads), d_a).flatten(2)
@@ -170,9 +199,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the ctypes signatures of csrc/attn_block.cu's entry points on a
     library built from it (here, in the g++ emulation or as a variant)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ccdm_attn_block_forward.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_longlong, p]
+    lib.ccdm_attn_block_forward.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_longlong, p]
     lib.ccdm_attn_block_forward.restype = i
-    lib.ccdm_attn_block_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    lib.ccdm_attn_block_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     lib.ccdm_attn_block_plan.restype = ctypes.c_longlong
     lib.ccdm_cuda_error_string.argtypes = [i]
     lib.ccdm_cuda_error_string.restype = ctypes.c_char_p
@@ -189,16 +218,15 @@ def declare_large(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the ctypes signatures of csrc/attn_block_large.cu's entry points
     on a library built from it (here, in the g++ emulation or as a variant)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, n_ptr, n_int in (("ccdm_attn_ctx_large", 9, 6), ("ccdm_attn_out_large", 8, 5)):
-        fn = getattr(lib, name)
-        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
-        fn.restype = i
+    lib.ccdm_attn_ctx_large.argtypes = [p] * 7 + [i] * 6 + [ll, p]
+    lib.ccdm_attn_out_large.argtypes = [p] * 8 + [i] * 6 + [p]
     for name in ("ccdm_attn_bwd_a", "ccdm_attn_bwd_b"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p] * 14 + [i] * 5 + [ll, p]
-        fn.restype = i
-    lib.ccdm_attn_bwd_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)]
-    lib.ccdm_attn_bwd_plan.restype = ll
+        getattr(lib, name).argtypes = [p] * 14 + [i] * 6 + [ll, p]
+    for name in ("ccdm_attn_ctx_large", "ccdm_attn_out_large", "ccdm_attn_bwd_a",
+                 "ccdm_attn_bwd_b"):
+        getattr(lib, name).restype = i
+    lib.ccdm_attn_large_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)]
+    lib.ccdm_attn_large_plan.restype = ll
     lib.ccdm_cuda_error_string.argtypes = [i]
     lib.ccdm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -213,7 +241,7 @@ def _large_library() -> ctypes.CDLL:
 class Plan(NamedTuple):
     """How csrc/attn_block.cu runs one call of kernel #1: route "cores" (CUDA
     cores, three launches through an f32 qkv workspace: f32, or bf16 with
-    heads != 4, C > 512 or no fit in shared memory), "fused" (bf16 on the
+    heads != 4, dim_head != 32, C > 512 or no fit in shared memory), "fused" (bf16 on the
     tensor cores, one launch, a block per batch row) or "split" (bf16 on the
     tensor cores: pass 1 over `splits` blocks per batch row, the reduce,
     pass 2); the tokens of a tile and the workspace bytes the call needs."""
@@ -224,23 +252,25 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def plan(batch: int, n_tok: int, c: int, heads: int, dtype: torch.dtype) -> Plan:
+def plan(batch: int, n_tok: int, c: int, heads: int, dtype: torch.dtype,
+         dim_head: int = DIM_HEAD) -> Plan:
     """Kernel #1's plan at this shape, as the C code computes it (a function
     of the shape alone)."""
     out = (ctypes.c_int * 3)()
-    nbytes = _library().ccdm_attn_block_plan(batch, n_tok, c, heads,
+    nbytes = _library().ccdm_attn_block_plan(batch, n_tok, c, heads, dim_head,
                                              int(dtype == torch.bfloat16), out)
     if out[0] < 0:
         raise ValueError(f"kernel #1 takes no empty shape, got B {batch}, N {n_tok}, C {c}")
     return Plan(("cores", "fused", "split")[out[0]], out[1], out[2], nbytes)
 
 
-class BwdPlan(NamedTuple):
-    """How csrc/attn_block_large.cu runs one call of kernel #4 or #5: route
-    "cores" (CUDA cores: f32, or bf16 at heads != 4 or C not a multiple of
-    32 up to 128) or "tensor" (bf16 on the tensor cores); the tokens of a
-    tile, the blocks per batch row, the token splits of the weight-gradient
-    launch (#4 on the tensor cores has none) and the workspace bytes."""
+class LargePlan(NamedTuple):
+    """How csrc/attn_block_large.cu runs one call of kernel #2, #3, #4 or #5:
+    route "cores" (CUDA cores: f32, or bf16 at heads != 4, dim_head != 32 or
+    C not a multiple of 32 up to 128) or "tensor" (bf16 on the tensor cores); the
+    tokens of a tile, the blocks per batch row, the token splits of the
+    weight-gradient launch (#5 only, and #4 on the CUDA cores) and the
+    workspace bytes (#3 needs none)."""
     route: str
     tile: int
     splits: int
@@ -249,25 +279,23 @@ class BwdPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_plan(kernel: int, batch: int, n_tok: int, c: int, heads: int,
-             dtype: torch.dtype) -> BwdPlan:
-    """Kernel #4's (kernel 4) or #5's (kernel 5) plan at this shape, as the C
-    code computes it (a function of the shape alone)."""
+def large_plan(kernel: int, batch: int, n_tok: int, c: int, heads: int,
+               dtype: torch.dtype, dim_head: int = DIM_HEAD) -> LargePlan:
+    """The plan of kernel #`kernel` (2 to 5) at this shape, as the C code
+    computes it (a function of the shape alone)."""
     out = (ctypes.c_int * 4)()
-    nbytes = _large_library().ccdm_attn_bwd_plan(kernel, batch, n_tok, c, heads,
-                                                 int(dtype == torch.bfloat16), out)
+    nbytes = _large_library().ccdm_attn_large_plan(kernel, batch, n_tok, c, heads, dim_head,
+                                                   int(dtype == torch.bfloat16), out)
     if out[0] < 0:
         raise ValueError(f"kernel #{kernel} takes no empty shape, got B {batch}, N {n_tok}, C {c}")
-    return BwdPlan(("cores", "tensor")[out[0]], out[1], out[2], out[3], nbytes)
+    return LargePlan(("cores", "tensor")[out[0]], out[1], out[2], out[3], nbytes)
 
 
-def _check_activation(x2d, dim_head):
+def _check_activation(x2d):
     if x2d.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the attention kernels take f32 or bf16, got {x2d.dtype}")
     if x2d.ndim != 3:
         raise ValueError(f"x2d must be [B, N, C], got shape {tuple(x2d.shape)}")
-    if dim_head != DIM_HEAD:
-        raise ValueError(f"the CUDA kernels take dim_head {DIM_HEAD}, got {dim_head}")
     if not x2d.is_contiguous():
         raise ValueError("x2d must be contiguous")
 
@@ -280,14 +308,9 @@ def _operand(name, t, shape, dev, dtype):
     return t.detach().to(dtype).contiguous()
 
 
-def _splits(batch: int, n_tok: int) -> int:
-    """Blocks per batch row of kernel #2's per-token launch."""
-    return max(1, min(math.ceil(_BLOCKS / batch), math.ceil(n_tok / 32)))
-
-
 def _launch(x2d, g_pre, wqkv, wout, bout, g_out, heads, dim_head):
     """Kernel #1 on the card."""
-    _check_activation(x2d, dim_head)
+    _check_activation(x2d)
     b, n, c = x2d.shape
     f = heads * dim_head
     dt, dev = x2d.dtype, x2d.device
@@ -295,26 +318,31 @@ def _launch(x2d, g_pre, wqkv, wout, bout, g_out, heads, dim_head):
                for name, w, shape in (("g_pre", g_pre, (c,)), ("wqkv", wqkv, (c, 3 * f)),
                                       ("wout", wout, (f, c)), ("bout", bout, (c,)),
                                       ("g_out", g_out, (c,)))]
-    pl = plan(b, n, c, heads, dt)
+    pl = plan(b, n, c, heads, dt, dim_head)
     y = torch.empty_like(x2d)
     ws = (torch.empty(pl.workspace_bytes // 4, dtype=torch.float32, device=dev)
           if pl.workspace_bytes else None)
     _build.run(_library(), "ccdm_attn_block_forward", "attn_block kernel launch", dev,
-               x2d, *weights, y, ws, b, n, c, heads, int(dt == torch.bfloat16),
+               x2d, *weights, y, ws, b, n, c, heads, dim_head, int(dt == torch.bfloat16),
                pl.workspace_bytes)
     fused_attn_block.launches += 1
     return y
 
 
-def _large_inputs(x2d, heads, named):
+def _dim_head(wqkv, heads):
+    """The dim_head of kernels #2-#5's call: wqkv is [C, 3 heads dim_head]."""
+    return wqkv.shape[-1] // (3 * heads)
+
+
+def _large_inputs(x2d, heads, dim_head, named):
     """Check the activation and cast the named weights as kernels #2-#5
     read them: matrices in the activation dtype, vectors in f32."""
-    _check_activation(x2d, DIM_HEAD)
-    c, f = x2d.shape[2], heads * DIM_HEAD
+    _check_activation(x2d)
+    c, f, d = x2d.shape[2], heads * dim_head, dim_head
     shapes = {"g_pre": (c,), "wqkv": (c, 3 * f), "wout": (f, c), "bout": (c,),
-              "g_out": (c,), "ctx": (x2d.shape[0], heads, DIM_HEAD, DIM_HEAD),
+              "g_out": (c,), "ctx": (x2d.shape[0], heads, d, d),
               "dy": x2d.shape, "do": x2d.shape, "kmax": (x2d.shape[0], f),
-              "d_s": (x2d.shape[0], f), "d_a": (x2d.shape[0], heads, DIM_HEAD, DIM_HEAD)}
+              "d_s": (x2d.shape[0], f), "d_a": (x2d.shape[0], heads, d, d)}
     matrices = ("wqkv", "wout", "ctx", "dy")
     return [_operand(name, t, shapes[name], x2d.device,
                      x2d.dtype if name in matrices else torch.float32)
@@ -325,16 +353,15 @@ def attn_ctx_large(x2d, g_pre, wqkv, heads):
     """Kernel #2 (pass A): (a [B, H, D, D], s [B, F], kmax [B, F]), f32."""
     if x2d.device.type == "cpu":
         return ctx_large_reference(x2d, g_pre, wqkv, heads)
-    g_pre, wqkv = _large_inputs(x2d, heads, (("g_pre", g_pre), ("wqkv", wqkv)))
+    d = _dim_head(wqkv, heads)
+    g_pre, wqkv = _large_inputs(x2d, heads, d, (("g_pre", g_pre), ("wqkv", wqkv)))
     b, n, c = x2d.shape
-    f = heads * DIM_HEAD
-    nsplit = _splits(b, n)
+    pl, ws = _workspace(2, x2d, heads, d)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x2d.device)
-    m_part, s_part, a_part = new(b * nsplit, f), new(b * nsplit, f), new(b * nsplit, f, DIM_HEAD)
-    kmax, s, a = new(b, f), new(b, f), new(b, heads, DIM_HEAD, DIM_HEAD)
+    kmax, s, a = new(b, heads * d), new(b, heads * d), new(b, heads, d, d)
     _build.run(_large_library(), "ccdm_attn_ctx_large", "attn_ctx_large kernel launch", x2d.device,
-               x2d, g_pre, wqkv, m_part, s_part, a_part, kmax, s, a, b, n, c, heads, nsplit,
-               int(x2d.dtype == torch.bfloat16))
+               x2d, g_pre, wqkv, kmax, s, a, ws, b, n, c, heads, d,
+               int(x2d.dtype == torch.bfloat16), pl.workspace_bytes)
     attn_ctx_large.launches += 1
     return a, s, kmax
 
@@ -343,20 +370,21 @@ def attn_out_large(x2d, g_pre, wqkv, ctx, wout, bout, g_out, heads):
     """Kernel #3 (pass B): y [B, N, C] in x's dtype."""
     if x2d.device.type == "cpu":
         return out_large_reference(x2d, g_pre, wqkv, ctx, wout, bout, g_out, heads)
-    ins = _large_inputs(x2d, heads, (("g_pre", g_pre), ("wqkv", wqkv), ("ctx", ctx),
-                                     ("wout", wout), ("bout", bout), ("g_out", g_out)))
+    d = _dim_head(wqkv, heads)
+    ins = _large_inputs(x2d, heads, d, (("g_pre", g_pre), ("wqkv", wqkv), ("ctx", ctx),
+                                        ("wout", wout), ("bout", bout), ("g_out", g_out)))
     b, n, c = x2d.shape
     y = torch.empty_like(x2d)
     _build.run(_large_library(), "ccdm_attn_out_large", "attn_out_large kernel launch", x2d.device,
-               x2d, *ins, y, b, n, c, heads, int(x2d.dtype == torch.bfloat16))
+               x2d, *ins, y, b, n, c, heads, d, int(x2d.dtype == torch.bfloat16))
     attn_out_large.launches += 1
     return y
 
 
-def _workspace(kernel, x2d, heads):
-    """(the plan of #4 or #5 for x2d, its workspace: bytes as f32 on x's device)."""
+def _workspace(kernel, x2d, heads, dim_head):
+    """(the plan of #2, #4 or #5 for x2d, its workspace: bytes as f32 on x's device)."""
     b, n, c = x2d.shape
-    pl = bwd_plan(kernel, b, n, c, heads, x2d.dtype)
+    pl = large_plan(kernel, b, n, c, heads, x2d.dtype, dim_head)
     return pl, torch.empty(-(-pl.workspace_bytes // 4), dtype=torch.float32, device=x2d.device)
 
 
@@ -365,17 +393,17 @@ def attn_bwd_a(x2d, dy, g_pre, wqkv, ctx, wout, bout, g_out, heads):
     d_bout [C], d_gout [C]), f32."""
     if x2d.device.type == "cpu":
         return bwd_a_reference(x2d, dy, g_pre, wqkv, ctx, wout, bout, g_out, heads)
-    ins = _large_inputs(x2d, heads, (("dy", dy), ("g_pre", g_pre), ("wqkv", wqkv),
-                                     ("ctx", ctx), ("wout", wout), ("bout", bout),
-                                     ("g_out", g_out)))
+    d = _dim_head(wqkv, heads)
+    ins = _large_inputs(x2d, heads, d, (("dy", dy), ("g_pre", g_pre), ("wqkv", wqkv),
+                                        ("ctx", ctx), ("wout", wout), ("bout", bout),
+                                        ("g_out", g_out)))
     b, n, c = x2d.shape
-    f = heads * DIM_HEAD
-    pl, ws = _workspace(4, x2d, heads)
+    pl, ws = _workspace(4, x2d, heads, d)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x2d.device)
-    do, d_ctx, d_wout, d_bout, d_gout = (new(b, n, c), new(b, heads, DIM_HEAD, DIM_HEAD),
-                                         new(f, c), new(c), new(c))
+    do, d_ctx, d_wout, d_bout, d_gout = (new(b, n, c), new(b, heads, d, d),
+                                         new(heads * d, c), new(c), new(c))
     _build.run(_large_library(), "ccdm_attn_bwd_a", "attn_bwd_a kernel launch", x2d.device,
-               x2d, *ins, do, d_ctx, d_wout, d_bout, d_gout, ws, b, n, c, heads,
+               x2d, *ins, do, d_ctx, d_wout, d_bout, d_gout, ws, b, n, c, heads, d,
                int(x2d.dtype == torch.bfloat16), pl.workspace_bytes)
     attn_bwd_a.launches += 1
     return do, d_ctx, d_wout, d_bout, d_gout
@@ -385,17 +413,17 @@ def attn_bwd_b(x2d, dy, do, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, heads):
     """Kernel #5: (dx in x's dtype, d_wqkv [C, 3F] f32, d_gpre [C] f32)."""
     if x2d.device.type == "cpu":
         return bwd_b_reference(x2d, dy, do, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, heads)
-    ins = _large_inputs(x2d, heads, (("dy", dy), ("do", do), ("g_pre", g_pre),
-                                     ("wqkv", wqkv), ("ctx", ctx), ("wout", wout),
-                                     ("kmax", kmax), ("d_a", d_a), ("d_s", d_s)))
+    d = _dim_head(wqkv, heads)
+    ins = _large_inputs(x2d, heads, d, (("dy", dy), ("do", do), ("g_pre", g_pre),
+                                        ("wqkv", wqkv), ("ctx", ctx), ("wout", wout),
+                                        ("kmax", kmax), ("d_a", d_a), ("d_s", d_s)))
     b, n, c = x2d.shape
-    f = heads * DIM_HEAD
-    pl, ws = _workspace(5, x2d, heads)
+    pl, ws = _workspace(5, x2d, heads, d)
     dx = torch.empty_like(x2d)
     d_wqkv, d_gpre = (torch.empty(shape, dtype=torch.float32, device=x2d.device)
-                      for shape in ((c, 3 * f), (c,)))
+                      for shape in ((c, 3 * heads * d), (c,)))
     _build.run(_large_library(), "ccdm_attn_bwd_b", "attn_bwd_b kernel launch", x2d.device,
-               x2d, *ins, dx, d_wqkv, d_gpre, ws, b, n, c, heads,
+               x2d, *ins, dx, d_wqkv, d_gpre, ws, b, n, c, heads, d,
                int(x2d.dtype == torch.bfloat16), pl.workspace_bytes)
     attn_bwd_b.launches += 1
     return dx, d_wqkv, d_gpre
@@ -431,7 +459,7 @@ class _TwoPassBlock(torch.autograd.Function):
 
 
 def _single_pass_forward(x2d, g_pre, wqkv, wout, bout, g_out, heads, dim_head):
-    """Kernel #1 on a CUDA tensor, its plain version on a CPU one."""
+    """Kernel #1 on a CUDA tensor; its plain version on a CPU tensor."""
     if x2d.device.type == "cpu":
         return attn_block_reference(x2d, g_pre, wqkv, wout, bout, g_out, heads, dim_head)
     return _launch(x2d, g_pre, wqkv, wout, bout, g_out, heads, dim_head)
@@ -471,9 +499,6 @@ def fused_attn_block(x2d: torch.Tensor, g_pre: torch.Tensor, wqkv: torch.Tensor,
     args = (x2d, g_pre, wqkv, wout, bout, g_out)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         if takes_two_pass(x2d.shape[1], heads * dim_head):
-            if dim_head != DIM_HEAD:
-                raise ValueError(f"the two-pass kernels take dim_head {DIM_HEAD}, "
-                                 f"got {dim_head}")
             return _TwoPassBlock.apply(x2d.contiguous(), *args[1:], heads)
         return _SinglePassBlock.apply(*args, heads, dim_head)
     return _single_pass_forward(*args, heads, dim_head)

@@ -37,14 +37,20 @@ Phases, each announced on a flushed line before it starts:
      (4096, 64), (2048, 64), (16384, 64), (4096, 128) and (36864, 64) at
      B 32, in bf16 and in f32: forward bounds as phase 3 (a and s relative
      to their largest value), kmax within 1e-5 of its largest value (in
-     bf16 at (4096, 128): kmax_check), backward bounds of
+     bf16 against the plain version at the tensor route's rounding points,
+     ctx_large_tensor_reference, and against ctx_large_reference by
+     kmax_check, at every shape), backward bounds of
      tests/test_attn_block.py:301-308 (f32 rtol = atol = 2e-3; bf16 rtol
      1e-1, atol 0.02 max(|g|, 1)); in f32 also #4 + #5 through the autograd
      Function against autograd through the plain block; in bf16 #5 nearer
      its plain version than one with d_a rounded to bf16 (check_rounding),
-     and #4 and #5 on their tensor-core route (asserted); each timed in
-     bf16 (event and host time, TFLOP/s, share of the bound); then #2 + #3
-     against #1 at sampling time (B 64, bf16, N 4096 and 16384);
+     and #2-#5 on their tensor-core route (asserted, with tile and
+     splits); each timed in bf16 (event and host time, TFLOP/s, share of
+     the bound); then #2 + #3 against #1 at sampling time (B 64, bf16, N
+     4096 and 16384); then the block at dim_head 64 (2 heads; B 8, N 4096,
+     C 64; bf16 and f32) through its kernels' CUDA-core routes (asserted,
+     one launch each of #1-#5 counted) against the plain block and autograd
+     through it (dim_head_vs_plain);
   7. one loss + backward of the full-width f32 UNet (TF32 off) with the
      kernels and with plain attention on the same batch and draws: every
      gradient leaf within 1e-3 of its largest |g| (the two biases feeding a
@@ -582,10 +588,6 @@ LARGE_SHAPES = [(4096, 64), (2048, 64), (16384, 64), (4096, 128), (36864, 64)]
 # the batch of each shape: TRAIN_BATCH, but B 32 at N 36864, where the plain
 # versions' f32 intermediates ([B, N, 3F] and more) at B 128 would take tens of GB
 LARGE_BATCH = {(36864, 64): 32}
-# the shapes where #2's bf16 kmax is held by kmax_check, not by the 1e-5
-# bound: (4096, 128), where the kernel and its plain version were seen to
-# round an element of xn to different bf16 neighbours (1 column of 16384)
-KMAX_ROUNDING_SHAPES = {(4096, 128)}
 LARGE = ("attn_ctx_large", "attn_out_large", "attn_bwd_a", "attn_bwd_b")
 LARGE_OUTPUTS = {"attn_ctx_large": ("kmax", "a", "s"), "attn_out_large": ("y",),
                  "attn_bwd_a": ("do", "d_ctx", "d_wout", "d_bout", "d_gout"),
@@ -636,16 +638,16 @@ def large_flops(name: str, n: int, c: int, batch: int = TRAIN_BATCH) -> float:
 
 
 def kmax_check(kmax, rkmax, x, g_pre, wqkv, what: str) -> tuple[float, int]:
-    """#2's kmax in bf16 against its plain version at KMAX_ROUNDING_SHAPES:
-    within 1e-5 of the largest |kmax| (the bound at every other shape),
-    except where the two round one element of xn = bf16(x / rms(x) g_pre)
-    to different neighbours: their f32 sums
-    of squares differ in order, so 1 / rms can differ in its last bit, and
-    a token at the column's max then moves k by up to one bf16 step of that
-    element times its weight. Such a column must lie within that step
-    (the largest over the batch row's tokens and channels) and be at most
-    one in a thousand. Returns the max abs error and the count of those
-    columns."""
+    """#2's kmax in bf16 against ctx_large_reference's (rkmax), at every
+    shape: within 1e-5 of the largest |kmax|, except where the two round one
+    element of xn = bf16(x / rms(x) g_pre) to different neighbours: their
+    f32 sums of squares differ in order, so 1 / rms can differ in its last
+    bit, and a token at the column's max then moves k by up to one bf16 step
+    of that element times its weight. Such a column must lie within that
+    step (the largest over the batch row's tokens and channels) and be at
+    most one in a thousand. (The kernel's own rounding points are held to
+    1e-5 everywhere by ctx_large_tensor_reference.) Returns the max abs
+    error and the count of those columns."""
     atol = 1e-5 * float(rkmax.abs().max())
     diff = (kmax.float() - rkmax.float()).abs()
     if not bool(torch.isfinite(kmax).all()):
@@ -677,7 +679,10 @@ def _check_grad(got, want, dtype, what) -> float:
 def large_vs_plain(device) -> dict:
     """Kernels #2-#5 against their plain versions at LARGE_SHAPES, bf16 and
     f32 (TF32 off), timed in bf16 (event and host time, TFLOP/s and share of
-    the bound; #4's and #5's route from their plan); #4 + #5 in f32 also
+    the bound; each kernel's route, asserted the tensor cores, tile and
+    splits from its plan); #2's bf16 kmax against the plain version at the
+    route's rounding points and against ctx_large_reference (kmax_check);
+    #4 + #5 in f32 also
     against autograd through attn_block_reference; #5 in bf16 nearer its
     plain version than one with d_a rounded to bf16 (check_rounding)."""
     rows = {}
@@ -694,9 +699,15 @@ def large_vs_plain(device) -> dict:
             a, s, kmax = attn_block.attn_ctx_large(x, g_pre, wqkv, HEADS)
             ra, rs, rkmax = attn_block.ctx_large_reference(x, g_pre, wqkv, HEADS)
             fwd = (2e-3, 2e-4) if dt == torch.float32 else (3e-2, 3e-2)
-            rounding = dt == torch.bfloat16 and (n, c) in KMAX_ROUNDING_SHAPES
-            if rounding:
-                err["kmax"], row_flips = kmax_check(kmax, rkmax, x, g_pre, wqkv, f"#2 kmax {tag}")
+            if dt == torch.bfloat16:
+                # the plain version at the tensor route's rounding points (its
+                # xn as warp_norm16 forms it), then ctx_large_reference
+                own = attn_block.ctx_large_tensor_reference(x, g_pre, wqkv, HEADS)[2]
+                err["kmax"] = check_close(kmax, own, 1e-5, 1e-5 * float(own.abs().max()),
+                                          f"#2 kmax {tag}")
+                del own
+                err["kmax_plain"], row_flips = kmax_check(kmax, rkmax, x, g_pre, wqkv,
+                                                          f"#2 kmax against the plain #2 {tag}")
             else:
                 err["kmax"] = check_close(kmax, rkmax, 1e-5, 1e-5 * float(rkmax.abs().max()),
                                           f"#2 kmax {tag}")
@@ -721,7 +732,7 @@ def large_vs_plain(device) -> dict:
             for name, gv, wv in zip(("dx", "d_wqkv", "d_gpre"), got_b, want_b):
                 err[name] = _check_grad(gv, wv, dt, f"#5 {name} {tag}")
             row = {"batch": batch, "max_err": err}
-            if rounding:
+            if dt == torch.bfloat16:
                 row["kmax_rounding_flips"] = row_flips
             if dt == torch.float32:
                 row["autograd_max_err"] = autograd_vs_reference(x, dy, w)
@@ -747,12 +758,12 @@ def large_vs_plain(device) -> dict:
                     t = timing(kernel, plain, parts, reps=reps)
                     t["tflops"] = large_flops(name, n, c, batch) / t["ms"] / 1e9
                     t["share_of_bound"] = t["bound_ms"] / t["ms"]
-                    if name in ("attn_bwd_a", "attn_bwd_b"):
-                        pl = attn_block.bwd_plan(4 if name == "attn_bwd_a" else 5, batch, n, c,
-                                                 HEADS, dt)
-                        if pl.route != "tensor":
-                            raise AssertionError(f"{name} {tag} took the {pl.route} route")
-                        t.update(route=pl.route, splits=pl.splits, wgrad_splits=pl.wgrad_splits)
+                    pl = attn_block.large_plan(2 + LARGE.index(name), batch, n, c, HEADS, dt)
+                    if pl.route != "tensor":
+                        raise AssertionError(f"{name} {tag} took the {pl.route} route")
+                    t.update(route=pl.route, tile=pl.tile, splits=pl.splits)
+                    if name == "attn_bwd_b":
+                        t["wgrad_splits"] = pl.wgrad_splits
                     row[name] = t
             rows[tag] = row
             print(f"   {tag} B={batch}: {json.dumps(row)}", flush=True)
@@ -796,6 +807,76 @@ def two_pass_vs_single_pass(device) -> dict:
                                                                             DIM_HEAD)),
                         "max_abs_diff": err}
         print(f"   N={n} B={BATCH} bf16: {json.dumps(out[f'N{n}'])}", flush=True)
+    return out
+
+
+# --attn_dim_head 64: heads and dim_head (F 128, as at 4 x 32) and (B, N, C)
+# of its check, N % 2048 == 0 so that training takes the two-pass kernels
+OTHER_DIM_HEAD = (2, 64)
+OTHER_DIM_HEAD_SHAPE = (8, 4096, 64)
+
+
+def dim_head_vs_plain(device) -> dict:
+    """The block at dim_head 64 through its kernels, bf16 and f32 (TF32
+    off): every kernel's plan takes the CUDA cores (asserted); without a
+    gradient one launch of #1, with one #2 + #3 and then #4 + #5, one launch
+    each (counted); y against the plain block in f32 at phase 3's bounds,
+    the six gradients against autograd through it at phase 6's. In bf16
+    timed: the forward without a gradient (#1's CUDA-core route) and one
+    forward + backward (#2-#5's), each against the plain block."""
+    heads, dim_head = OTHER_DIM_HEAD
+    b, n, c = OTHER_DIM_HEAD_SHAPE
+    f = heads * dim_head
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tag = f"B={b} N={n} C={c} heads={heads} dim_head={dim_head} {str(dt)[6:]}"
+        routes = [attn_block.plan(b, n, c, heads, dt, dim_head).route] + [
+            attn_block.large_plan(k, b, n, c, heads, dt, dim_head).route for k in (2, 3, 4, 5)]
+        if routes != ["cores"] * 5:
+            raise AssertionError(f"{tag}: routes {routes}")
+        x, w = block_inputs(n, c, b, device, seed=70, x_std=1.0)
+        if w[1].shape[1] != 3 * f:
+            raise AssertionError("OTHER_DIM_HEAD must keep F at HEADS x DIM_HEAD")
+        x = x.to(dt)
+        dy = torch.randn(b, n, c, generator=torch.Generator().manual_seed(71)).to(device)
+        counters = (attn_block.fused_attn_block, *(getattr(attn_block, k) for k in LARGE))
+        before = [fn.launches for fn in counters]
+        with torch.no_grad():
+            y0 = attn_block.fused_attn_block(x, *w, heads, dim_head)
+        leaves = [t.clone().requires_grad_() for t in (x, *w)]
+        y = attn_block.fused_attn_block(*leaves, heads, dim_head)
+        y.backward(dy.to(dt))
+        torch.cuda.synchronize()
+        launches = [fn.launches - n0 for fn, n0 in zip(counters, before)]
+        if launches != [1, 1, 1, 1, 1]:
+            raise AssertionError(f"{tag}: launches of #1-#5 {launches}, not one each")
+        plain = [t.detach().float().requires_grad_() for t in (x, *w)]
+        want = attn_block.attn_block_reference(*plain, heads, dim_head)
+        want.backward(dy)
+        fwd = (2e-3, 2e-4) if dt == torch.float32 else (3e-2, 3e-2)
+        scale = None if dt == torch.float32 else torch.maximum(
+            want.detach().abs(), (want.detach() - x.float()).abs())
+        err = {"y_no_grad": check_close(y0, want.detach(), *fwd, f"#1 y {tag}", scale=scale),
+               "y": check_close(y.detach(), want.detach(), *fwd, f"#2 + #3 y {tag}",
+                                scale=scale)}
+        for name, got, ref in zip(("dx", "d_gpre", "d_wqkv", "d_wout", "d_bout", "d_gout"),
+                                  leaves, plain):
+            err[name] = _check_grad(got.grad, ref.grad, dt, f"#4 + #5 {name} {tag}")
+        out[tag] = {"routes": routes, "launches": launches, "max_err": err}
+        if dt == torch.bfloat16:
+            def step(block):
+                y = block(*leaves, heads, dim_head)
+                y.backward(dy.to(dt))
+            with torch.no_grad():
+                out[tag]["forward_ms"] = time_ms(lambda: attn_block.fused_attn_block(
+                    x, *w, heads, dim_head))
+                out[tag]["forward_plain_ms"] = time_ms(lambda: attn_block.attn_block_reference(
+                    x, *w, heads, dim_head))
+            out[tag]["train_ms"] = time_ms(lambda: step(attn_block.fused_attn_block))
+            out[tag]["train_plain_ms"] = time_ms(lambda: step(attn_block.attn_block_reference))
+        print(f"   {tag}: {json.dumps(out[tag])}", flush=True)
+        del x, w, dy, y0, y, leaves, plain, want
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1753,6 +1834,7 @@ def main() -> int:
           "bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
+    other_dim_head = dim_head_vs_plain(device)
 
     phase("7/19 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
@@ -1850,9 +1932,12 @@ def main() -> int:
             "bound_by": timing["bound_by"], "library_ms": None,
             "ms_is": f"one call at B {TRAIN_BATCH}, N {LARGE_SHAPES[0][0]}, "
                      f"C {LARGE_SHAPES[0][1]}, bf16",
+            "routes": {tag: f"{r[name]['route']} x{r[name]['splits']}"
+                       for tag, r in large_rows.items() if name in r},
             "by_shape": {tag: r.get(name, {}) for tag, r in large_rows.items()},
             "card": card})
     kernels[1]["two_pass_vs_single_pass"] = two_vs_one
+    kernels[1]["dim_head_64"] = other_dim_head
     kernels[3]["grad_parity"] = grads
     kernels[3]["max_err_by_shape"] = {tag: r["max_err"] for tag, r in large_rows.items()}
     kernels[4]["train"] = trained

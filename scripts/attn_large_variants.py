@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Kernels #4 and #5 (the two-pass block's fused backward) on one card, and
-the training step around them.
+"""Kernels #2-#5 (the two-pass block's forward and fused backward) on one
+card, and the training step around them.
 
     python3 scripts/attn_large_variants.py [--root DIR] [--variants | --train | --train-turns PARENT]
 
 Times the wrappers of the ccdm_tpu_torch package under DIR (default: this
 checkout; another commit unpacked with `git archive` under build/ times
 that commit's wrappers with this checkout's helpers):
-- default: #4 and #5 in bf16 at chip_smoke.LARGE_SHAPES (B 128, B 32 at N
-  36864; phase 6's inputs): the event time of 20 back-to-back calls
+- default: #2, #3, #4 and #5 in bf16 at chip_smoke.LARGE_SHAPES (B 128, B
+  32 at N 36864; phase 6's inputs): the event time of 20 back-to-back calls
   (chip_smoke.time_ms), the host's time to issue one (host_ms) and the
   card's own time by kernel name from torch.profiler (device_ms), as JSON
   lines, with the plan each call took;
@@ -51,11 +51,13 @@ COMMITTED = {"kWgradBlocks": 264}
 VARIANTS = [COMMITTED, {"kWgradBlocks": 132}, {"kWgradBlocks": 528}]
 VARIANT_SHAPES = [(4096, 64), (4096, 128)]
 # the kernels of csrc/attn_block_large.cu, by the TPU kernel they serve
-GROUPS = {"#2": ("ctx_partial_kernel", "ctx_reduce_kernel"), "#3": ("out_large_kernel",),
+GROUPS = {"#2": ("ctx_partial_kernel", "ctx_reduce_kernel", "ctx_tc_kernel", "ctx_merge_kernel"),
+          "#3": ("out_large_kernel", "out_tc_kernel"),
           "#4": ("bwd_a_kernel", "bwd_a_tc_kernel"),
           "#5": ("bwd_b_kernel", "bwd_b_tc_kernel", "wgrad_kernel", "wgrad_tc_kernel"),
           "#4/#5 sums": ("sum_parts_kernel",)}
 PROFILE_STEP, TRAIN_STEPS = 33, 35
+LARGE = ("attn_ctx_large", "attn_out_large", "attn_bwd_a", "attn_bwd_b")
 
 
 def load_smoke(root: Path):
@@ -75,9 +77,9 @@ def split(cs, fn) -> dict:
             "device_ms": sum(dev.values()), "device_ms_by_kernel": dev}
 
 
-def backward_calls(cs, n: int, c: int, batch: int, seed: int):
-    """Phase 6's bf16 inputs at (n, c, batch): the calls of #4 and #5 and
-    their plain versions."""
+def large_calls(cs, n: int, c: int, batch: int, seed: int):
+    """Phase 6's bf16 inputs at (n, c, batch): the calls of #2-#5 and their
+    plain versions."""
     ab, device = cs.attn_block, torch.device("cuda")
     x, w = cs.block_inputs(n, c, batch, device, seed=20 + seed, x_std=1.0)
     g = torch.Generator().manual_seed(40 + seed)
@@ -90,7 +92,12 @@ def backward_calls(cs, n: int, c: int, batch: int, seed: int):
     do, d_ctx, *_ = ab.bwd_a_reference(*args_a)
     d_a, d_s = ab.finalize_ctx_backward(d_ctx, ra, rs)
     args_b = (x, dy, do, g_pre, wqkv, ctx, wout, rkmax, d_a, d_s, cs.HEADS)
-    return {"attn_bwd_a": (lambda: ab.attn_bwd_a(*args_a), lambda: ab.bwd_a_reference(*args_a)),
+    args_out = (x, g_pre, wqkv, ctx, wout, bout, g_out, cs.HEADS)
+    return {"attn_ctx_large": (lambda: ab.attn_ctx_large(x, g_pre, wqkv, cs.HEADS),
+                               lambda: ab.ctx_large_reference(x, g_pre, wqkv, cs.HEADS)),
+            "attn_out_large": (lambda: ab.attn_out_large(*args_out),
+                               lambda: ab.out_large_reference(*args_out)),
+            "attn_bwd_a": (lambda: ab.attn_bwd_a(*args_a), lambda: ab.bwd_a_reference(*args_a)),
             "attn_bwd_b": (lambda: ab.attn_bwd_b(*args_b), lambda: ab.bwd_b_reference(*args_b))}
 
 
@@ -98,10 +105,11 @@ def backward_calls(cs, n: int, c: int, batch: int, seed: int):
 def host_and_device(cs, root: Path) -> None:
     for i, (n, c) in enumerate(cs.LARGE_SHAPES):
         batch = cs.LARGE_BATCH.get((n, c), cs.TRAIN_BATCH)
-        for name, (kernel, _) in backward_calls(cs, n, c, batch, i).items():
-            kernel_no = 4 if name == "attn_bwd_a" else 5
-            plan = (cs.attn_block.bwd_plan(kernel_no, batch, n, c, cs.HEADS, torch.bfloat16)
-                    if hasattr(cs.attn_block, "bwd_plan") else None)
+        for name, (kernel, _) in large_calls(cs, n, c, batch, i).items():
+            kernel_no = 2 + LARGE.index(name)
+            plan = None  # the plan, where the tree has one
+            if hasattr(cs.attn_block, "large_plan"):
+                plan = cs.attn_block.large_plan(kernel_no, batch, n, c, cs.HEADS, torch.bfloat16)
             row = split(cs, kernel)
             bound = max(cs.large_bound_parts(name, n, c, batch))
             print(json.dumps({"root": str(root), "kernel": name, "N": n, "C": c, "B": batch,
@@ -142,11 +150,12 @@ def variants(cs) -> None:
         libs = {name_of(v): ab.declare_large(ctypes.CDLL(str(lib)))
                 for v, lib in zip(VARIANTS, pool.map(lambda v: build_variant(cs, v), VARIANTS))}
     print(f"{len(libs)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
-    calls = {(n, c): backward_calls(cs, n, c, cs.TRAIN_BATCH, i)
+    calls = {(n, c): {k: v for k, v in large_calls(cs, n, c, cs.TRAIN_BATCH, i).items()
+                      if k in ("attn_bwd_a", "attn_bwd_b")}
              for i, (n, c) in enumerate(VARIANT_SHAPES)}
     for name in [*libs, name_of(COMMITTED)]:
         ab._large_library = lambda lib=libs[name]: lib
-        ab.bwd_plan.cache_clear()
+        ab.large_plan.cache_clear()
         times = []
         for (n, c), by_kernel in calls.items():
             for kernel_name, (kernel, plain) in by_kernel.items():

@@ -167,6 +167,65 @@ def test_dispatch_by_n(n, route):
     assert attn_block.takes_two_pass(n, F) == (route == "_TwoPassBlockBackward")
 
 
+@pytest.mark.parametrize("n,grad", [(2048, True), (2048, False), (1024, True)])
+def test_dim_head_64_matches_jax(n, grad):
+    """dim_head 64 (2 heads, F 128), C 64, f32, routed as at dim_head 32: at
+    N 2048 the two-pass route (#2-#5's plain versions here, their CUDA-core
+    routes on the card), at N 1024 the single-pass one. The value and all six
+    gradients within 1e-5 of ccdm_tpu's fused_attn_block under jax.vjp;
+    without a gradient, the value."""
+    import jax
+    import jax.numpy as jnp
+
+    from ccdm_tpu.ops import attn_block as jax_attn_block
+
+    heads, dim_head = 2, 64
+    x, w, dy = _inputs(np.random.default_rng(7), 2, n, 64)
+    y_jax, vjp = jax.vjp(lambda *a: jax_attn_block.fused_attn_block(*a, heads, dim_head),
+                         jnp.asarray(x), *map(jnp.asarray, w))
+    close = lambda got, want, name: torch.testing.assert_close(
+        got, torch.from_numpy(np.array(want)), rtol=1e-5,
+        atol=1e-5 * float(np.abs(np.asarray(want)).max()), msg=name)
+    inputs = _torch([x, *w])
+    if not grad:
+        with torch.no_grad():
+            close(attn_block.fused_attn_block(*inputs, heads, dim_head), y_jax, "y")
+        return
+    inputs = [t.requires_grad_() for t in inputs]
+    y = attn_block.fused_attn_block(*inputs, heads, dim_head)
+    assert type(y.grad_fn).__name__ == ("_TwoPassBlockBackward" if n % 2048 == 0 else
+                                        "_SinglePassBlockBackward")
+    close(y.detach(), y_jax, "y")
+    y.backward(torch.from_numpy(dy))
+    for name, t, ref in zip(("dx", "d_gpre", "d_wqkv", "d_wout", "d_bout", "d_gout"), inputs,
+                            vjp(jnp.asarray(dy))):
+        close(t.grad, ref, name)
+
+
+def test_tensor_route_reference_matches_plain():
+    """The plain #2 at the rounding points of its bf16 tensor-core route
+    (ctx_large_tensor_reference: xn as warp_norm16 forms it) against the
+    plain #2 (ctx_large_reference) at phase 6's bounds: a and s within 3e-2
+    of their largest value; kmax within 1e-5 of its largest |kmax| but in
+    columns where the two round an element of xn to different bf16
+    neighbours, each then within that step times its weight, at most 1 in
+    1000 (chip_smoke.kmax_check)."""
+    x, w, _ = _inputs(np.random.default_rng(8), 2, 4096, 128)
+    tx = _torch([x], torch.bfloat16)[0]
+    g_pre, wqkv = _torch([w[0], w[1]])
+    got = attn_block.ctx_large_tensor_reference(tx, g_pre, wqkv, HEADS)
+    want = attn_block.ctx_large_reference(tx, g_pre, wqkv, HEADS)
+    for g, r in zip(got[:2], want[:2]):
+        assert bool(((g - r).abs() <= 3e-2 * (r.abs() + r.abs().max())).all())
+    diff, atol = (got[2] - want[2]).abs(), 1e-5 * float(want[2].abs().max())
+    bad = diff > atol + 1e-5 * want[2].abs()
+    xn = attn_block._prenorm(tx, g_pre)[2].bfloat16().float().abs()
+    step = torch.where(xn > 0, torch.exp2(torch.floor(torch.log2(xn)) - 7), 0 * xn).amax(1)
+    flip = (step[:, :, None] * wqkv[:, F:2 * F].abs()[None]).amax(1)
+    assert not bool((bad & (diff > atol + flip)).any())
+    assert int(bad.sum()) <= max(1, bad.numel() // 1000)
+
+
 def test_kernel_source_exports_the_four_entry_points():
     from ccdm_tpu_torch.ops import _build
 
@@ -223,7 +282,10 @@ def test_cuda_kernels_match_plain_versions(cuda, b, n, c, dtype):
 
     a, s, kmax = attn_block.attn_ctx_large(tx, g_pre, wqkv, HEADS)
     ra, rs, rkmax = attn_block.ctx_large_reference(tx, g_pre, wqkv, HEADS)
-    torch.testing.assert_close(kmax, rkmax, rtol=1e-5, atol=1e-5)
+    # bf16: kmax against the plain version at the kernel's rounding points
+    own = (rkmax if dtype == "float32" else
+           attn_block.ctx_large_tensor_reference(tx, g_pre, wqkv, HEADS)[2])
+    torch.testing.assert_close(kmax, own, rtol=1e-5, atol=1e-5)
     _check_grad(s, rs, dtype, "s")
     _check_grad(a, ra, dtype, "a")
 
@@ -274,7 +336,7 @@ def test_cuda_bwd_tensor_route_matches_plain(cuda, b, n, c):
     tx, tdy = (t.to(cuda) for t in _torch([x, dy], torch.bfloat16))
     g_pre, wqkv, wout, bout, g_out = (t.to(cuda) for t in _torch(w))
     for kernel in (4, 5):
-        assert attn_block.bwd_plan(kernel, b, n, c, HEADS, torch.bfloat16).route == "tensor"
+        assert attn_block.large_plan(kernel, b, n, c, HEADS, torch.bfloat16).route == "tensor"
     ra, rs, rkmax = attn_block.ctx_large_reference(tx, g_pre, wqkv, HEADS)
     ctx = attn_block.finalize_ctx(ra, rs, torch.bfloat16)
     args_a = (tx, tdy, g_pre, wqkv, ctx, wout, bout, g_out, HEADS)
@@ -293,3 +355,74 @@ def test_cuda_bwd_tensor_route_matches_plain(cuda, b, n, c):
         near = float((gv.float() - wv.float()).abs().mean())
         assert near <= 0.25 * float((gv.float() - ov.float()).abs().mean()), name
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(8, 4096, 64), (8, 4096, 128), (8, 2048, 64)])
+def test_cuda_two_pass_tensor_route_matches_plain(cuda, b, n, c):
+    """#2 and #3 in bf16 at B 8 on their tensor-core route, at phase 6's
+    bounds: kmax within 1e-5 of the plain version at the route's rounding
+    points, a and s within 3e-2 of their largest value, y within 3e-2
+    relative to max(|y|, |y - x|); and bit-equal with x (and y) one element
+    past an aligned base, where the kernels take element loads and stores."""
+    x, w, _ = _inputs(np.random.default_rng(9), b, n, c)
+    tx = _torch([x], torch.bfloat16)[0].to(cuda)
+    g_pre, wqkv, wout, bout, g_out = (t.to(cuda) for t in _torch(w))
+    for kernel in (2, 3):
+        assert attn_block.large_plan(kernel, b, n, c, HEADS, torch.bfloat16).route == "tensor"
+    a, s, kmax = attn_block.attn_ctx_large(tx, g_pre, wqkv, HEADS)
+    ra, rs, _ = attn_block.ctx_large_reference(tx, g_pre, wqkv, HEADS)
+    own = attn_block.ctx_large_tensor_reference(tx, g_pre, wqkv, HEADS)[2]
+    torch.testing.assert_close(kmax, own, rtol=1e-5, atol=1e-5 * float(own.abs().max()))
+    for got, want in ((a, ra), (s, rs)):
+        torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2 * float(want.abs().max()))
+    ctx = attn_block.finalize_ctx(ra, rs, torch.bfloat16)
+    args = (g_pre, wqkv, ctx, wout, bout, g_out, HEADS)
+    y = attn_block.attn_out_large(tx, *args)
+    _check_forward(y, attn_block.out_large_reference(tx, *args), tx, "bfloat16")
+
+    xs = torch.empty(tx.numel() + 1, dtype=tx.dtype, device=cuda)[1:].view(b, n, c)
+    xs.copy_(tx)
+    assert xs.data_ptr() % 16
+    for got, want in zip(attn_block.attn_ctx_large(xs, g_pre, wqkv, HEADS), (a, s, kmax)):
+        assert torch.equal(got, want)
+    assert torch.equal(attn_block.attn_out_large(xs, *args), y)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_dim_head_64_runs_the_kernels(cuda, dtype):
+    """dim_head 64 (2 heads) on the card at N 2048, C 64: every kernel's
+    plan takes the CUDA cores; without a gradient one launch of #1, the
+    value at the forward bound of the plain block; with one, #2 + #3 forward
+    and #4 + #5 backward (one launch each), the value and the six gradients
+    at the backward bounds of autograd through the plain block."""
+    dt = getattr(torch, dtype)
+    heads, dim_head, b, n, c = 2, 64, 2, 2048, 64
+    x, w, dy = _inputs(np.random.default_rng(10), b, n, c)
+    tx = _torch([x], dt)[0].to(cuda)
+    ws = [t.to(cuda) for t in _torch(w)]
+    assert attn_block.plan(b, n, c, heads, dt, dim_head).route == "cores"
+    for kernel in (2, 3, 4, 5):
+        assert attn_block.large_plan(kernel, b, n, c, heads, dt, dim_head).route == "cores"
+    counters = (attn_block.fused_attn_block, attn_block.attn_ctx_large,
+                attn_block.attn_out_large, attn_block.attn_bwd_a, attn_block.attn_bwd_b)
+    before = [fn.launches for fn in counters]
+    with torch.no_grad():
+        y0 = attn_block.fused_attn_block(tx, *ws, heads, dim_head)
+    assert [fn.launches - n0 for fn, n0 in zip(counters, before)] == [1, 0, 0, 0, 0]
+    want = attn_block.attn_block_reference(*(t.float() for t in (tx, *ws)), heads, dim_head)
+    _check_forward(y0, want, tx, dtype)
+    leaves = [t.clone().requires_grad_() for t in (tx, *ws)]
+    y = attn_block.fused_attn_block(*leaves, heads, dim_head)
+    assert type(y.grad_fn).__name__ == "_TwoPassBlockBackward"
+    y.backward(torch.from_numpy(dy).to(cuda).to(dt))
+    torch.cuda.synchronize()
+    assert [fn.launches - n0 for fn, n0 in zip(counters, before)] == [1, 1, 1, 1, 1]
+    _check_forward(y.detach(), want, tx, dtype)
+    plain = [t.detach().float().requires_grad_() for t in (tx, *ws)]
+    attn_block.attn_block_reference(*plain, heads, dim_head).backward(
+        torch.from_numpy(dy).to(cuda))
+    for name, t, r in zip(("dx", "d_gpre", "d_wqkv", "d_wout", "d_bout", "d_gout"), leaves, plain):
+        _check_grad(t.grad, r.grad, dtype, name)

@@ -24,7 +24,7 @@ from ccdm_tpu_torch.ops.attn_block import attn_block_reference
 
 torch.set_num_threads(2)
 
-HEADS, F = 4, 128
+HEADS, D, F = 4, 32, 128
 
 CUDA_RUNTIME_H = r"""
 #pragma once
@@ -63,6 +63,7 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* device) { *device = 0; return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated CUDA error"; }
 inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
+inline float __frsqrt_rn(float v) { return float(1.0 / std::sqrt(double(v))); }
 inline float __expf(float v) { return std::exp(v); }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 namespace emu {
@@ -233,14 +234,21 @@ def _to_cpp(src: str) -> str:
 
 def _compile(d, name, subs=None):
     """g++-compile csrc/<name>.cu behind the emulation into d/lib<name>.so,
-    each declaration `old` of `subs` replaced by `new` first."""
+    each declaration `old` of `subs` replaced by `new` first in the one file,
+    the source or a header of csrc/, that declares it (the headers are
+    copied to d, which the source's includes search first)."""
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (d / "cuda_bf16.h").write_text(CUDA_BF16_H)
-    src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+    texts = {f"{name}.cu": (_build.CSRC_DIR / f"{name}.cu").read_text(),
+             **{h.name: h.read_text() for h in _build.CSRC_DIR.glob("*.cuh")}}
     for old, new in (subs or {}).items():
-        assert src.count(old) == 1, old
-        src = src.replace(old, new)
-    (d / f"{name}.cpp").write_text(_to_cpp(src))
+        hits = [f for f, text in texts.items() if old in text]
+        assert len(hits) == 1 and texts[hits[0]].count(old) == 1, old
+        texts[hits[0]] = texts[hits[0]].replace(old, new)
+    for f, text in texts.items():
+        if f.endswith(".cuh"):
+            (d / f).write_text(text)
+    (d / f"{name}.cpp").write_text(_to_cpp(texts[f"{name}.cu"]))
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{d}",
                     f"-I{_build.CSRC_DIR}", "-include", "cuda_runtime.h",
                     "-o", str(d / f"lib{name}.so"), str(d / f"{name}.cpp")],
@@ -274,22 +282,22 @@ def emulated_short(tmp_path_factory):
 ATTN_ROUTES = ("cores", "fused", "split")
 
 
-def _attn_plan(lib, b, n, c, heads, bf16):
+def _attn_plan(lib, b, n, c, heads, bf16, dim_head=D):
     """(route, splits, workspace) of the library's plan for one call of #1."""
     out = (ctypes.c_int * 3)()
-    nbytes = lib.ccdm_attn_block_plan(b, n, c, heads, bf16, out)
+    nbytes = lib.ccdm_attn_block_plan(b, n, c, heads, dim_head, bf16, out)
     assert out[0] >= 0, (b, n, c, bf16)
     return ATTN_ROUTES[out[0]], out[2], nbytes
 
 
-def _attn_inputs(b, n, c, dtype, seed=0, jump=False, heads=HEADS):
+def _attn_inputs(b, n, c, dtype, seed=0, jump=False, heads=HEADS, dim_head=D):
     """x [b, n, c] ~ N(0, 2) in f32 and N(0, 1) in bf16, and the weights
     (g_pre, wqkv, wout, bout, g_out), in `dtype`. With `jump`, channel 0 of x
     is 0 in the first half of the tokens and 30 in the second, its gain 1.5
     and its row of Wk 20 times larger: k rises by tens halfway through the
     row, so the online softmax's running max must rescale what it has summed."""
     rng = np.random.default_rng(seed)
-    f = heads * 32
+    f = heads * dim_head
     x = rng.normal(0, 2.0 if dtype == "float32" else 1.0, (b, n, c))
     w = (1 + 0.5 * rng.normal(size=c), 0.1 * rng.normal(size=(c, 3 * f)),
          0.1 * rng.normal(size=(f, c)), 0.1 * rng.normal(size=c), 1 + 0.5 * rng.normal(size=c))
@@ -301,21 +309,22 @@ def _attn_inputs(b, n, c, dtype, seed=0, jump=False, heads=HEADS):
     return [torch.from_numpy(a.astype(np.float32)).to(dt).contiguous() for a in (x, *w)]
 
 
-def _attn_block(lib, b, n, c, dtype, seed=0, x_offset=0, jump=False, heads=HEADS):
+def _attn_block(lib, b, n, c, dtype, seed=0, x_offset=0, jump=False, heads=HEADS, dim_head=D):
     """#1 in the emulation on _attn_inputs against attn_block_reference, at
     the card's bounds (f32 rtol 2e-3 / atol 2e-4; bf16 3e-2 relative to
     max(|y|, |y - x|)), x at `x_offset` elements past an aligned base.
     Returns (route, splits) and y."""
-    ins = _attn_inputs(b, n, c, dtype, seed, jump, heads)
+    ins = _attn_inputs(b, n, c, dtype, seed, jump, heads, dim_head)
     dt = ins[0].dtype
     xs = torch.empty(ins[0].numel() + x_offset, dtype=dt)[x_offset:].view(b, n, c)
     xs.copy_(ins[0])
     bf16 = int(dt == torch.bfloat16)
-    route, splits, nbytes = _attn_plan(lib, b, n, c, heads, bf16)
+    route, splits, nbytes = _attn_plan(lib, b, n, c, heads, bf16, dim_head)
     ws = torch.empty(nbytes // 4)
     y = torch.empty_like(ins[0])
-    _call(lib, "ccdm_attn_block_forward", xs, *ins[1:], y, ws, b, n, c, heads, bf16, nbytes)
-    want = attn_block_reference(*(t.float() for t in ins), heads, 32)
+    _call(lib, "ccdm_attn_block_forward", xs, *ins[1:], y, ws, b, n, c, heads, dim_head, bf16,
+          nbytes)
+    want = attn_block_reference(*(t.float() for t in ins), heads, dim_head)
     got = y.float()
     assert bool(torch.isfinite(got).all())
     if dtype == "float32":
@@ -390,6 +399,18 @@ def test_emulated_attn_bf16_other_shapes_take_the_cuda_cores(emulated, b, n, c, 
     assert got == ("cores", 1)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads,dim_head", [(2, 64), (8, 16), (3, 40)])
+def test_emulated_attn_other_dim_heads_take_the_cuda_cores(emulated, heads, dim_head, dtype):
+    """#1 at dim_head other than 32 (64 and 16, at F 128 as JAX's kernels
+    take them, and 40, a head that is not a multiple of the warp): the plan
+    sends it to the CUDA cores in both types, whose warps stride a head's
+    channels; at the card's bounds, with a ragged last token tile."""
+    got, _ = _attn_block(emulated, 2, 70, 64, dtype, seed=dim_head, heads=heads,
+                         dim_head=dim_head)
+    assert got == ("cores", 1)
+
+
 def _unet_attn_shapes(size, mults, dim=64):
     """(N, C) of a UNet's attention blocks: each down level at its input
     width, each up level at its output width (models/unet.py)."""
@@ -419,7 +440,7 @@ def test_emulated_attn_plan_at_the_unet_shapes(emulated, batch):
     f32 qkv workspace."""
     for n, c in UNET_ATTN_SHAPES:
         out = (ctypes.c_int * 3)()
-        nbytes = emulated.ccdm_attn_block_plan(batch, n, c, HEADS, 1, out)
+        nbytes = emulated.ccdm_attn_block_plan(batch, n, c, HEADS, D, 1, out)
         route, tile, splits = ATTN_ROUTES[out[0]], out[1], out[2]
         if n <= 128:
             assert (route, tile, splits, nbytes) == ("fused", 64, 1, 0), (n, c)
@@ -428,17 +449,17 @@ def test_emulated_attn_plan_at_the_unet_shapes(emulated, batch):
             assert (route, tile, splits) == ("split", 64, want), (n, c)
             assert nbytes == batch * want * 2 * 4352 * 4 + batch * F * 32 * 2
         f32 = (ctypes.c_int * 3)()
-        assert emulated.ccdm_attn_block_plan(batch, n, c, HEADS, 0, f32) == \
+        assert emulated.ccdm_attn_block_plan(batch, n, c, HEADS, D, 0, f32) == \
             (batch * n * 3 * F + batch * F * 32) * 4 and f32[0] == 0
     # bf16 shapes the tensor-core routes do not take: the CUDA cores (at C 512
     # the fused route's shared memory holds 77 tokens, the split route's none)
     for n, c, heads in ((64, 640, HEADS), (64, 64, 2), (64, 64, 8), (78, 512, HEADS),
                         (1024, 512, HEADS)):
         f = heads * 32
-        assert emulated.ccdm_attn_block_plan(batch, n, c, heads, 1, out) == \
+        assert emulated.ccdm_attn_block_plan(batch, n, c, heads, D, 1, out) == \
             (batch * n * 3 * f + batch * f * 32) * 4 and out[0] == 0, (n, c, heads)
     for n in (48, 77):  # C 512: the wide ring to N 53, the narrow one to N 77
-        assert emulated.ccdm_attn_block_plan(batch, n, 512, HEADS, 1, out) == 0 and out[0] == 1
+        assert emulated.ccdm_attn_block_plan(batch, n, 512, HEADS, D, 1, out) == 0 and out[0] == 1
 
 
 # ------------------------------------------- kernels #2-#5 (two-pass path)
@@ -453,31 +474,54 @@ def emulated_large(tmp_path_factory):
                                      "attn_block_large"))
 
 
+@pytest.fixture(scope="module")
+def emulated_large_short(tmp_path_factory):
+    """#2-#5's library with a wave of 2 blocks: several tiles a split at
+    short rows (splits = min(tiles, 2 blocks an SM x 2 // B) at C <= 64)."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the emulated kernels")
+    from ccdm_tpu_torch.ops import attn_block as ab
+
+    return ab.declare_large(_compile(tmp_path_factory.mktemp("cuda_emu_large_short"),
+                                     "attn_block_large",
+                                     {"constexpr int kWave = 132;": "constexpr int kWave = 2;"}))
+
+
 def _call(lib, name, *args):
     err = getattr(lib, name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                                for a in args), None)
     assert err == 0, name
 
 
-def _large_case(b, n, c, dtype, seed=0):
+def _large_case(b, n, c, dtype, seed=0, jump=None, heads=HEADS):
     """Inputs of kernels #2-#5 as the wrappers pass them (matrices in the
-    activation dtype, vectors f32) and the plain versions' intermediates."""
+    activation dtype, vectors f32) and the plain versions' intermediates.
+    With `jump` a token: channel 0 of x is 0 before it and 30 from it on,
+    its gain 1.5 and its row of Wk 20 times larger, so that k rises by tens
+    there and the online softmax must rescale what it has summed."""
     from ccdm_tpu_torch.ops import attn_block as ab
 
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
+    assert F % heads == 0  # F 128 at every head count: dim_head F / heads
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
-    x = f32(rng.normal(0, 1.0, (b, n, c))).to(dt)
-    g_pre, g_out = f32(1 + 0.5 * rng.normal(size=c)), f32(1 + 0.5 * rng.normal(size=c))
-    wqkv, wout = f32(0.1 * rng.normal(size=(c, 3 * F))).to(dt), f32(0.1 * rng.normal(size=(F, c))).to(dt)
+    xa, gp, wa = rng.normal(0, 1.0, (b, n, c)), 1 + 0.5 * rng.normal(size=c), 0.1 * rng.normal(size=(c, 3 * F))
+    if jump is not None:
+        xa[:, :jump, 0], xa[:, jump:, 0] = 0.0, 30.0
+        gp[0] = 1.5
+        wa[0, F:2 * F] *= 20
+    x = f32(xa).to(dt)
+    g_pre, g_out = f32(gp), f32(1 + 0.5 * rng.normal(size=c))
+    wqkv, wout = f32(wa).to(dt), f32(0.1 * rng.normal(size=(F, c))).to(dt)
     bout = f32(0.1 * rng.normal(size=c))
     dy = f32(rng.normal(size=(b, n, c))).to(dt)
-    a, s, kmax = ab.ctx_large_reference(x, g_pre, wqkv, HEADS)
+    a, s, kmax = ab.ctx_large_reference(x, g_pre, wqkv, heads)
     ctx = ab.finalize_ctx(a, s, dt)
-    do, d_ctx, *_ = ab.bwd_a_reference(x, dy, g_pre, wqkv, ctx, wout, bout, g_out, HEADS)
+    do, d_ctx, *_ = ab.bwd_a_reference(x, dy, g_pre, wqkv, ctx, wout, bout, g_out, heads)
     d_a, d_s = ab.finalize_ctx_backward(d_ctx, a, s)
     return dict(x=x, g_pre=g_pre, wqkv=wqkv, wout=wout, bout=bout, g_out=g_out, dy=dy,
-                a=a, s=s, kmax=kmax, ctx=ctx, do=do, d_a=d_a.contiguous(), d_s=d_s.contiguous())
+                a=a, s=s, kmax=kmax, ctx=ctx, do=do, d_a=d_a.contiguous(), d_s=d_s.contiguous(),
+                heads=heads)
 
 
 def _close(got, want, dtype, what):
@@ -492,6 +536,17 @@ def _close(got, want, dtype, what):
         torch.testing.assert_close(got, want, rtol=1e-1, atol=0.02 * max(scale, 1.0), msg=what)
 
 
+def _ctx_large(lib, x, g_pre, wqkv, bf16, heads=HEADS):
+    """#2 in the emulation, with the workspace its plan sizes: (kmax, s, a)."""
+    b, n, c = x.shape
+    d = F // heads
+    nbytes = _large_plan(lib, 2, b, n, c, bf16, heads, d)[4]
+    kmax, s, a = torch.empty(b, F), torch.empty(b, F), torch.empty(b, heads, d, d)
+    _call(lib, "ccdm_attn_ctx_large", x, g_pre, wqkv, kmax, s, a, torch.empty(-(-nbytes // 4)),
+          b, n, c, heads, d, bf16, nbytes)
+    return kmax, s, a
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,n,c", [(2, 64, 32), (1, 80, 64)])
 def test_emulated_two_pass_forward_matches_plain(emulated_large, b, n, c, dtype):
@@ -499,19 +554,14 @@ def test_emulated_two_pass_forward_matches_plain(emulated_large, b, n, c, dtype)
 
     k = _large_case(b, n, c, dtype)
     bf16 = int(dtype == "bfloat16")
-    nsplit = ab._splits(b, n)
-    m_part, s_part, a_part = (torch.empty(b * nsplit, F), torch.empty(b * nsplit, F),
-                              torch.empty(b * nsplit, F, 32))
-    kmax, s, a = torch.empty(b, F), torch.empty(b, F), torch.empty(b, HEADS, 32, 32)
-    _call(emulated_large, "ccdm_attn_ctx_large", k["x"], k["g_pre"], k["wqkv"], m_part, s_part,
-          a_part, kmax, s, a, b, n, c, HEADS, nsplit, bf16)
+    kmax, s, a = _ctx_large(emulated_large, k["x"], k["g_pre"], k["wqkv"], bf16)
     torch.testing.assert_close(kmax, k["kmax"], rtol=1e-5, atol=1e-5)
     _close(s, k["s"], dtype, "s")
     _close(a, k["a"], dtype, "a")
 
     y = torch.empty_like(k["x"])
     _call(emulated_large, "ccdm_attn_out_large", k["x"], k["g_pre"], k["wqkv"], k["ctx"],
-          k["wout"], k["bout"], k["g_out"], y, b, n, c, HEADS, bf16)
+          k["wout"], k["bout"], k["g_out"], y, b, n, c, HEADS, D, bf16)
     want = ab.out_large_reference(k["x"], k["g_pre"], k["wqkv"], k["ctx"], k["wout"],
                                   k["bout"], k["g_out"], HEADS)
     if dtype == "float32":
@@ -521,35 +571,102 @@ def test_emulated_two_pass_forward_matches_plain(emulated_large, b, n, c, dtype)
         assert bool(((y.float() - want.float()).abs() <= 3e-2 + 3e-2 * scale).all())
 
 
-BWD_ROUTES = ("cores", "tensor")
+@pytest.mark.parametrize("lib,b,n,c,splits,x_offset,jump", [
+    ("", 1, 200, 64, 2, 0, None),       # a ragged last tile of 72 tokens; two splits merged in order
+    ("", 2, 80, 128, 1, 0, None),       # C 128: Wkv, Wq and Wout resident, one ragged tile a row
+    ("", 1, 300, 96, 3, 0, None),       # C 96, three splits; the last tile's 44 tokens end in warp 2
+    ("", 1, 200, 64, 2, 1, None),       # x one element past an aligned base: element loads
+    ("_short", 1, 600, 64, 4, 0, 560),  # k jumps late in the last split, its second tile
+    ("_short", 2, 520, 128, 1, 0, 400),  # ... in the fourth of a split's five tiles, C 128
+])
+def test_emulated_two_pass_tensor_route_matches_plain(request, lib, b, n, c, splits, x_offset,
+                                                      jump):
+    """#2 and #3 in bf16 on their tensor-core route in the emulation
+    (mma.sync, ldmatrix and cp.async with the ISA's fragment layouts), with
+    the plan's splits, at phase 6's bounds: kmax within 1e-5 of the plain
+    version at the route's rounding points (ctx_large_tensor_reference,
+    whose xn is the kernel's) and of ctx_large_reference; a and s within
+    3e-2 of their largest value; y within 3e-2 relative to max(|y|, |y - x|)."""
+    from ccdm_tpu_torch.ops import attn_block as ab
+
+    lib = request.getfixturevalue("emulated_large" + lib)
+    k = _large_case(b, n, c, "bfloat16", seed=n + c, jump=jump)
+    xs = torch.empty(k["x"].numel() + x_offset, dtype=torch.bfloat16)[x_offset:].view(b, n, c)
+    xs.copy_(k["x"])
+    for kernel in (2, 3):
+        assert _large_plan(lib, kernel, b, n, c, 1)[:3] == ("tensor", 128, splits), kernel
+    kmax, s, a = _ctx_large(lib, xs, k["g_pre"], k["wqkv"], 1)
+    _, _, own_kmax = ab.ctx_large_tensor_reference(k["x"], k["g_pre"], k["wqkv"], HEADS)
+    for want in (own_kmax, k["kmax"]):
+        torch.testing.assert_close(kmax, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    for got, want in ((a, k["a"]), (s, k["s"])):
+        assert bool(((got - want).abs() <= 3e-2 * (want.abs() + want.abs().max())).all())
+
+    ys = torch.empty(k["x"].numel() + x_offset, dtype=torch.bfloat16)[x_offset:].view(b, n, c)
+    _call(lib, "ccdm_attn_out_large", xs, k["g_pre"], k["wqkv"], k["ctx"], k["wout"], k["bout"],
+          k["g_out"], ys, b, n, c, HEADS, D, 1)
+    want = ab.out_large_reference(k["x"], k["g_pre"], k["wqkv"], k["ctx"], k["wout"], k["bout"],
+                                  k["g_out"], HEADS).float()
+    scale = torch.maximum(want.abs(), (want - k["x"].float()).abs())
+    assert bool(((ys.float() - want).abs() <= 3e-2 + 3e-2 * scale).all())
 
 
-def _bwd_plan(lib, kernel, b, n, c, bf16, heads=HEADS):
+@pytest.mark.parametrize("batch", [128, 64, 16, 8])
+def test_emulated_two_pass_plan_at_the_unet_shapes(emulated_large, batch):
+    """The C plan of #2 and #3 at the two-pass shapes: bf16 on the tensor
+    cores, 128-token tiles, min(tiles, floor(132 k / B)) blocks a row with k
+    = 2 blocks an SM where their shared memory fits twice (C 64) and 1 (C
+    128); #2's workspace its f32 records (2 a block, 2F + F D floats each),
+    #3's none. f32 on the CUDA cores: #2 with the first design's splits and
+    its m, s and a partials, #3 a block per 32-token tile."""
+    up = lambda v: -(-v // 256) * 256
+    for n, c in TWO_PASS_SHAPES:
+        tiles = -(-n // 128)
+        splits = min(tiles, max(1, (2 if c <= 64 else 1) * 132 // batch))
+        assert _large_plan(emulated_large, 2, batch, n, c, 1) == (
+            "tensor", 128, splits, 0, up(batch * splits * 2 * (2 * F + F * 32) * 4)), (n, c)
+        assert _large_plan(emulated_large, 3, batch, n, c, 1) == ("tensor", 128, splits, 0, 0)
+        cores = min(-(-512 // batch), -(-n // 32))
+        parts = batch * cores
+        assert _large_plan(emulated_large, 2, batch, n, c, 0)[::2] == (
+            "cores", cores, 2 * up(parts * F * 4) + up(parts * F * 32 * 4))
+        assert _large_plan(emulated_large, 3, batch, n, c, 0) == ("cores", 32, n // 32, 0, 0)
+    for n, c, heads in ((4096, 64, 2), (4096, 40, HEADS), (4096, 160, HEADS)):
+        for kernel in (2, 3):
+            assert _large_plan(emulated_large, kernel, batch, n, c, 1, heads)[0] == "cores"
+
+
+LARGE_ROUTES = ("cores", "tensor")
+
+
+def _large_plan(lib, kernel, b, n, c, bf16, heads=HEADS, dim_head=D):
     """(route, tile, splits, wgrad splits, workspace bytes) of the library's
-    plan for one call of #4 (kernel 4) or #5 (kernel 5)."""
+    plan for one call of #2, #3, #4 or #5 (kernel 2 to 5)."""
     out = (ctypes.c_int * 4)()
-    nbytes = lib.ccdm_attn_bwd_plan(kernel, b, n, c, heads, bf16, out)
+    nbytes = lib.ccdm_attn_large_plan(kernel, b, n, c, heads, dim_head, bf16, out)
     assert out[0] >= 0, (kernel, b, n, c, bf16)
-    return BWD_ROUTES[out[0]], out[1], out[2], out[3], nbytes
+    return LARGE_ROUTES[out[0]], out[1], out[2], out[3], nbytes
 
 
 def _fused_backward(lib, k, dtype, x_offset=0):
     """#4 then #5 in the emulation on _large_case's inputs k, x at `x_offset`
     elements past an aligned base; returns their plans and outputs."""
     b, n, c = k["x"].shape
+    heads = k["heads"]
+    d = F // heads
     bf16 = int(dtype == "bfloat16")
     xs = torch.empty(k["x"].numel() + x_offset, dtype=k["x"].dtype)[x_offset:].view(b, n, c)
     xs.copy_(k["x"])
-    plan_a, plan_b = _bwd_plan(lib, 4, b, n, c, bf16), _bwd_plan(lib, 5, b, n, c, bf16)
-    do, d_ctx, d_wout, d_bout, d_gout = (torch.empty(b, n, c), torch.empty(b, HEADS, 32, 32),
+    plan_a, plan_b = (_large_plan(lib, kn, b, n, c, bf16, heads, d) for kn in (4, 5))
+    do, d_ctx, d_wout, d_bout, d_gout = (torch.empty(b, n, c), torch.empty(b, heads, d, d),
                                          torch.empty(F, c), torch.empty(c), torch.empty(c))
     _call(lib, "ccdm_attn_bwd_a", xs, k["dy"], k["g_pre"], k["wqkv"], k["ctx"], k["wout"],
           k["bout"], k["g_out"], do, d_ctx, d_wout, d_bout, d_gout,
-          torch.empty(-(-plan_a[4] // 4)), b, n, c, HEADS, bf16, plan_a[4])
+          torch.empty(-(-plan_a[4] // 4)), b, n, c, heads, d, bf16, plan_a[4])
     dx, d_wqkv, d_gpre = torch.empty_like(k["x"]), torch.empty(c, 3 * F), torch.empty(c)
     _call(lib, "ccdm_attn_bwd_b", xs, k["dy"], k["do"], k["g_pre"], k["wqkv"], k["ctx"],
           k["wout"], k["kmax"], k["d_a"], k["d_s"], dx, d_wqkv, d_gpre,
-          torch.empty(-(-plan_b[4] // 4)), b, n, c, HEADS, bf16, plan_b[4])
+          torch.empty(-(-plan_b[4] // 4)), b, n, c, heads, d, bf16, plan_b[4])
     return plan_a, plan_b, (do, d_ctx, d_wout, d_bout, d_gout), (dx, d_wqkv, d_gpre)
 
 
@@ -558,10 +675,10 @@ def _bwd_reference(k, d_a=None):
     from ccdm_tpu_torch.ops import attn_block as ab
 
     want_a = ab.bwd_a_reference(k["x"], k["dy"], k["g_pre"], k["wqkv"], k["ctx"], k["wout"],
-                                k["bout"], k["g_out"], HEADS)
+                                k["bout"], k["g_out"], k["heads"])
     want_b = ab.bwd_b_reference(k["x"], k["dy"], k["do"], k["g_pre"], k["wqkv"], k["ctx"],
                                 k["wout"], k["kmax"], k["d_a"] if d_a is None else d_a,
-                                k["d_s"], HEADS)
+                                k["d_s"], k["heads"])
     return want_a, want_b
 
 
@@ -618,6 +735,42 @@ def test_emulated_bwd_b_keeps_d_a_in_f32(emulated_large):
         assert near <= 0.25 * far, (name, near, far)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [2, 8])
+def test_emulated_two_pass_other_dim_heads_match_plain(emulated_large, heads, dtype):
+    """#2-#5 at dim_head 64 (2 heads) and 16 (8 heads), F 128: the plan
+    sends every one to the CUDA cores in both types, with two splits and a
+    ragged last tile; each against its plain version (kmax within 1e-5 in
+    f32; the rest at the bounds of test_emulated_two_pass_forward_matches_plain
+    and test_emulated_fused_backward_matches_plain)."""
+    from ccdm_tpu_torch.ops import attn_block as ab
+
+    b, n, c, d = 1, 200, 64, F // heads
+    bf16 = int(dtype == "bfloat16")
+    k = _large_case(b, n, c, dtype, seed=heads, heads=heads)
+    for kernel in (2, 3, 4, 5):
+        assert _large_plan(emulated_large, kernel, b, n, c, bf16, heads, d)[0] == "cores"
+    kmax, s, a = _ctx_large(emulated_large, k["x"], k["g_pre"], k["wqkv"], bf16, heads)
+    if dtype == "float32":
+        torch.testing.assert_close(kmax, k["kmax"], rtol=1e-5, atol=1e-5)
+    else:
+        _close(kmax, k["kmax"], dtype, "kmax")
+    _close(s, k["s"], dtype, "s")
+    _close(a, k["a"], dtype, "a")
+    y = torch.empty_like(k["x"])
+    _call(emulated_large, "ccdm_attn_out_large", k["x"], k["g_pre"], k["wqkv"], k["ctx"],
+          k["wout"], k["bout"], k["g_out"], y, b, n, c, heads, d, bf16)
+    want = ab.out_large_reference(k["x"], k["g_pre"], k["wqkv"], k["ctx"], k["wout"],
+                                  k["bout"], k["g_out"], heads).float()
+    if dtype == "float32":
+        torch.testing.assert_close(y, want, rtol=2e-3, atol=2e-4)
+    else:
+        scale = torch.maximum(want.abs(), (want - k["x"].float()).abs())
+        assert bool(((y.float() - want).abs() <= 3e-2 + 3e-2 * scale).all())
+    _, _, got_a, got_b = _fused_backward(emulated_large, k, dtype)
+    _check_backward(got_a, got_b, k, dtype)
+
+
 # (N, C) of the two-pass blocks (N % 2048 == 0) of the three UNets: the
 # 64x64's N 4096 levels, the 128x128's 128^2 and 64^2 up levels, the 192x192's
 # 192^2 level; and N 2048, phase 6's shorter shape
@@ -645,7 +798,7 @@ def test_emulated_bwd_plan_at_the_unet_shapes(emulated_large, batch):
         m, tiles = batch * n, -(-n // 128)
         splits = min(tiles, max(1, 132 // batch))
         parts = batch * splits
-        got_a, got_b = (_bwd_plan(emulated_large, kn, batch, n, c, 1) for kn in (4, 5))
+        got_a, got_b = (_large_plan(emulated_large, kn, batch, n, c, 1) for kn in (4, 5))
         assert got_a == ("tensor", 128, splits, 0,
                          up(parts * F * 32 * 4) + 2 * up(parts * c * 4) + up(parts * F * c * 4))
         wsplits = min(264 // (-(-c // 64) * 3), -(-m // 32))
@@ -654,11 +807,11 @@ def test_emulated_bwd_plan_at_the_unet_shapes(emulated_large, batch):
                          + up(wsplits * c * 3 * F * 4)), (n, c)
         cores = min(-(-512 // batch), -(-n // 32))
         for kn in (4, 5):
-            route, _, got, _, _ = _bwd_plan(emulated_large, kn, batch, n, c, 0)
+            route, _, got, _, _ = _large_plan(emulated_large, kn, batch, n, c, 0)
             assert (route, got) == ("cores", cores)
     # bf16 at other head counts or C: the CUDA cores
     for n, c, heads in ((4096, 64, 2), (4096, 40, HEADS), (4096, 160, HEADS), (4096, 64, 8)):
-        assert _bwd_plan(emulated_large, 5, batch, n, c, 1, heads)[0] == "cores"
+        assert _large_plan(emulated_large, 5, batch, n, c, 1, heads)[0] == "cores"
 
 
 # --------------------------------------- kernels #10 and #11 (resnet block)
