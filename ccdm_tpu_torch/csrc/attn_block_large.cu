@@ -867,16 +867,6 @@ struct Quad {
 };
 typedef float Acc[4][4];
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
 // Sum over the 8 lanes of a column of quads (the 16 rows of a warp's block).
 __device__ __forceinline__ float column_sum(float v) {
 #pragma unroll
@@ -887,23 +877,13 @@ __device__ __forceinline__ float column_sum(float v) {
 // B fragments of a 16 (k) x 32 (n) block at b, n8 tiles 2 nj and 2 nj + 1
 // in bfr[nj]: stored [k][n] (b_kn, ldmatrix .trans) or [n][k] (b_nk).
 __device__ __forceinline__ void b_kn(uint32_t (&bfr)[2][4], const bf16* b, int ld, int lane) {
-#pragma unroll
-  for (int nj = 0; nj < 2; ++nj)
-    ldmatrix_x4_trans(bfr[nj], b + (lane & 15) * ld + nj * 16 + (lane >> 4) * 8);
+  b_kn16(bfr[0], b, ld, lane);
+  b_kn16(bfr[1], b + 16, ld, lane);
 }
 __device__ __forceinline__ void b_nk(uint32_t (&bfr)[2][4], const bf16* b, int ld, int lane) {
 #pragma unroll
   for (int nj = 0; nj < 2; ++nj)
     ldmatrix_x4(bfr[nj], b + (nj * 16 + (lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8);
-}
-
-// The A fragment of a 16 (m) x 16 (k) block at p: stored [m][k] (a_mk) or
-// [k][m] (a_km, ldmatrix .trans: a product over the tokens of a tile).
-__device__ __forceinline__ void a_mk(uint32_t (&a)[4], const bf16* p, int ld, int lane) {
-  ldmatrix_x4(a, p + (lane & 15) * ld + (lane >> 4) * 8);
-}
-__device__ __forceinline__ void a_km(uint32_t (&a)[4], const bf16* p, int ld, int lane) {
-  ldmatrix_x4_trans(a, p + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8);
 }
 
 // acc += A . B for a 16 x 16 A fragment and a 16 x 32 B block.
@@ -976,27 +956,6 @@ __device__ __forceinline__ void head_softmax(Acc& a, const Quad& q, int valid, f
     for (int ni = 0; ni < 4; ++ni) {
       a[ni][2 * h] *= f;
       a[ni][2 * h + 1] *= f;
-    }
-  }
-}
-
-// Rows [0, rows) x columns [0, cols) of src (row stride lds) to dst [rows][ldd]
-// in 16-byte chunks, zeros past rows_valid; cp.async (vec) or element loads,
-// by threads tid of nthr. cols % 8 == 0. The caller commits and waits.
-__device__ void copy_rows(bf16* dst, int ldd, const bf16* __restrict__ src, int lds, int rows,
-                          int rows_valid, int cols, int vec, int tid, int nthr) {
-  const int per_row = cols / 8;
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < rows * per_row; i += nthr) {
-    const int r = i / per_row, col = (i % per_row) * 8;
-    const bool ok = r < rows_valid;
-    const bf16* s = ok ? src + (size_t)r * lds + col : src;
-    bf16* d = dst + r * ldd + col;
-    if (vec) {
-      cp_async_16(d, s, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = ok ? s[e] : zero;
     }
   }
 }

@@ -37,34 +37,6 @@ constexpr int kEW = kD + 8;     // bf16 per row of a warp's e and v tiles (80 by
 constexpr int kPart = 2 * kF + kF * kD;  // f32 of one partial record: m, s, a
 constexpr int kWarpScratch = 2 * 32 * kEW * 2 + 32 * 4;  // a warp's e, v and rescale factors
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Round to the operand type of the products and back to f32.
-template <typename T>
-__device__ __forceinline__ float as_operand(float v) { return to_f32(from_f32<T>(v)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // acc[t] += a[t] * w for the 8 tokens of a tile row in shared memory.
 __device__ __forceinline__ void fma8(float (&acc)[kTG], const float* a, float w) {
   const float4 lo = *reinterpret_cast<const float4*>(a);

@@ -1,6 +1,7 @@
-// Helpers shared by the CUDA sources of csrc/: bf16 conversions, the
-// alignment test of the 16-byte loads and the raise of a kernel's dynamic
-// shared-memory limit. ops/_build.py hashes this header into the library
+// Helpers shared by the CUDA sources of csrc/: conversions between f32 and
+// the operand type (f32 or bf16), warp and quad reductions, bf16 packing,
+// the alignment test of the 16-byte loads and the raise of a kernel's
+// dynamic shared-memory limit. ops/_build.py hashes this header into the library
 // path of every source, so an edit here rebuilds them all; the g++
 // emulation of tests/test_torch_cuda_emulation.py compiles it as it is.
 
@@ -14,6 +15,45 @@
 #include <atomic>
 
 __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Round to the operand type of a product and back to f32.
+template <typename T>
+__device__ __forceinline__ float as_operand(float v) { return to_f32(from_f32<T>(v)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Over the four lanes of a quad (the lanes that share a row of an mma tile).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
 
 // Two values rounded to bf16, the first in the low half (an mma operand register).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -1,5 +1,6 @@
 // PTX helpers of the tensor-core kernels (csrc/attn_block.cu,
-// csrc/attn_block_large.cu, csrc/resnet_block.cu).
+// csrc/attn_block_large.cu, csrc/resnet_block.cu, csrc/linear_attention.cu),
+// and the fragment loads and row copies built on them.
 //
 // Every PTX instruction of those kernels is here, so that an emulation can
 // supply the same names (CCDM_PTX_EMULATED) and run the kernels on a CPU with
@@ -8,6 +9,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 #ifndef CCDM_PTX_EMULATED
@@ -46,3 +48,41 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 #endif
+
+// The A fragment of mma_16816 for a 16 (m) x 16 (k) bf16 block at p (row
+// stride ld) in shared memory: stored [m][k] (a_mk) or [k][m] (a_km,
+// ldmatrix .trans: a product over the tokens of a tile).
+__device__ __forceinline__ void a_mk(uint32_t (&a)[4], const __nv_bfloat16* p, int ld, int lane) {
+  ldmatrix_x4(a, p + (lane & 15) * ld + (lane >> 4) * 8);
+}
+__device__ __forceinline__ void a_km(uint32_t (&a)[4], const __nv_bfloat16* p, int ld, int lane) {
+  ldmatrix_x4_trans(a, p + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8);
+}
+// The B fragments of a 16 (k) x 16 (n) block stored [k][n] at p: n8 tile 0
+// in b[0], b[1] and n8 tile 1 in b[2], b[3].
+__device__ __forceinline__ void b_kn16(uint32_t (&b)[4], const __nv_bfloat16* p, int ld,
+                                       int lane) {
+  ldmatrix_x4_trans(b, p + (lane & 15) * ld + (lane >> 4) * 8);
+}
+
+// Rows [0, rows) x columns [0, cols) of src (row stride lds) to dst [rows][ldd]
+// in 16-byte chunks, zeros past rows_valid; cp.async (vec) or element loads,
+// by threads tid of nthr. cols % 8 == 0. The caller commits and waits.
+__device__ inline void copy_rows(__nv_bfloat16* dst, int ldd,
+                                 const __nv_bfloat16* __restrict__ src, int lds, int rows,
+                                 int rows_valid, int cols, int vec, int tid, int nthr) {
+  const int per_row = cols / 8;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  for (int i = tid; i < rows * per_row; i += nthr) {
+    const int r = i / per_row, col = (i % per_row) * 8;
+    const bool ok = r < rows_valid;
+    const __nv_bfloat16* s = ok ? src + (size_t)r * lds + col : src;
+    __nv_bfloat16* d = dst + r * ldd + col;
+    if (vec) {
+      cp_async_16(d, s, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = ok ? s[e] : zero;
+    }
+  }
+}

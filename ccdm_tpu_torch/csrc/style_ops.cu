@@ -27,24 +27,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPacks = 4;  // packs a thread keeps in flight
 constexpr float kSeluAlpha = 1.6732632423543772848170429916717f;
 constexpr float kSeluScale = 1.0507009873554804934193349852946f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // The activations of ccdm_tpu/ops/style_ops.py:activation_funcs, in their order.
 template <int ACT>

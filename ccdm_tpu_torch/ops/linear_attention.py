@@ -17,6 +17,11 @@ The kernels are in csrc/linear_attention.cu, each the port of a TPU kernel:
 Each wrapper launches its kernel on a CUDA tensor and runs its plain PyTorch
 version (beside it here, with the kernel's rounding points) on a CPU tensor;
 nothing falls back from one to the other. The kernels take D up to 128.
+`la_plan` (computed in C from the shape alone) gives #6's and #8's route on
+the card: "tensor" (bf16 at D % 16 == 0: whole token rows, the products on
+the tensor cores, sums across blocks merged in a fixed order) or "cores"
+(f32, and bf16 at other D: a head a block, f32 FMAs), with each launch's
+tile and splits and #6's workspace.
 
 `linear_attention` is the entry the `LinearAttention` module calls. Its
 routes are JAX's (`route`), with a CUDA tensor in place of the TPU backend:
@@ -35,8 +40,10 @@ function unless a head lies ~87 below that max and underflows to 0 there).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -114,15 +121,58 @@ def out_twopass_reference(q, ctx):
 # ------------------------------------------------------------ launches
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("linear_attention")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptr, n_int in (("ccdm_la_fulllane", 5, 5), ("ccdm_la_per_head", 4, 5),
-                               ("ccdm_la_ctx_twopass", 7, 6), ("ccdm_la_out_twopass", 3, 5)):
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the library's entry points (the
+    card's library, or the g++ emulation's in the tests)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, args in (("ccdm_la_fulllane", [p] * 5 + [i] * 5 + [ll]),
+                       ("ccdm_la_per_head", [p] * 4 + [i] * 5),
+                       ("ccdm_la_ctx_twopass", [p] * 7 + [i] * 6),
+                       ("ccdm_la_out_twopass", [p] * 3 + [i] * 5)):
         fn = getattr(lib, name)
-        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
+        fn.argtypes = args + [p]
         fn.restype = ctypes.c_int
+    lib.ccdm_la_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    lib.ccdm_la_plan.restype = ll
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return declare(_build.load("linear_attention"))
+
+
+class LaPlan(NamedTuple):
+    """The route of #6 and #8 ("cores" or "tensor"), the tile (tokens) and
+    splits of #6's context launch and of the out pass (#6's last launch and
+    #8), the splits of #6's statistics launch (tensor route; 0 on the CUDA
+    cores), and #6's workspace in bytes."""
+    route: str
+    ctx_tile: int
+    ctx_splits: int
+    out_tile: int
+    out_splits: int
+    stat_splits: int
+    ws_bytes: int
+
+
+LA_ROUTES = ("cores", "tensor")
+
+
+def plan_of(lib: ctypes.CDLL, b: int, n: int, h: int, d: int, bf16: bool) -> LaPlan:
+    """ccdm_la_plan of `lib` for q [b, n, h, d]."""
+    out = (ctypes.c_int * 6)()
+    nbytes = lib.ccdm_la_plan(b, n, h, d, int(bf16), out)
+    if nbytes < 0:
+        raise ValueError(f"no linear-attention kernel takes B={b} N={n} H={h} D={d}")
+    return LaPlan(LA_ROUTES[out[0]], *out[1:6], nbytes)
+
+
+@functools.cache
+def la_plan(b: int, n: int, h: int, d: int, dtype: torch.dtype) -> LaPlan:
+    """The card's plan of #6 and #8 for q [b, n, h, d] of `dtype` (needs the
+    built library)."""
+    return plan_of(_library(), b, n, h, d, dtype == torch.bfloat16)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -148,15 +198,16 @@ def _operands(q: torch.Tensor, *others: torch.Tensor) -> list[torch.Tensor]:
 
 
 def linear_attention_fulllane(q, k, v):
-    """Kernel #6: out [B, N, H, D] in q's dtype."""
+    """Kernel #6: out [B, N, H, D] in q's dtype, on la_plan's route."""
     if not _on_card(q):
         return fulllane_reference(q, k, v)
     q, k, v = _operands(q, k, v)
     b, n, h, d = q.shape
+    nbytes = la_plan(b, n, h, d, q.dtype).ws_bytes
     out = torch.empty_like(q)
-    ctx = torch.empty((b, h, d, d), dtype=q.dtype, device=q.device)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     _build.run(_library(), "ccdm_la_fulllane", "linear_attention_fulllane kernel launch",
-               q.device, q, k, v, ctx, out, b, n, h, d, int(q.dtype == torch.bfloat16))
+               q.device, q, k, v, out, ws, b, n, h, d, int(q.dtype == torch.bfloat16), nbytes)
     linear_attention_fulllane.launches += 1
     return out
 
@@ -200,7 +251,7 @@ def linear_attention_ctx_twopass(k, v, m, chunk: int = TWOPASS_CHUNK):
 
 def linear_attention_out_twopass(q, ctx):
     """Kernel #8: ctx [B, H, D, D], finalised, in q's dtype -> out
-    [B, N, H, D] in q's dtype."""
+    [B, N, H, D] in q's dtype; #6's out pass, on la_plan's route."""
     if not _on_card(q):
         return out_twopass_reference(q, ctx)
     (q,) = _operands(q)

@@ -98,15 +98,20 @@ Phases, each announced on a flushed line before it starts:
      with TF32 off (rtol 2e-3, atol 1e-4) and bf16 (rtol 3e-2, atol 3e-2 of
      the largest |y|), the bounds of tests/test_linear_attention.py; in
      bf16 each kernel's mean distance to its plain version at most a quarter
-     of that to the other's, which rounds at other points; timed in bf16 at
-     B 64, with each wrapper's host time;
+     of that to the other's, which rounds at other points; #6's route
+     (la_plan: tensor cores in bf16, CUDA cores in f32; asserted) with its
+     splits, and #6 timed in bf16 at every shape (#9 at B 64), with the
+     wrapper's host time, TFLOP/s and the share of the bound; #6 the same
+     bits on two calls at B 64, N 4096;
   14. kernels #7 + #8 (its two-pass form) against their plain versions at
      (B 64, N 16384), (B 128, N 4096), (B 16, N 36864), (B 16, N 6144) and
      (B 16, N 4096, chunks of 1024), same bounds (a and s relative to their
      largest value) and the same test of rounding points (a from the
-     unrounded exp(k - m), s from the rounded one, q' of #8 in f32); timed
-     at B 64, N 16384 beside the dispatcher's two-pass route, the plain
-     reference and #9 on the same q, k, v;
+     unrounded exp(k - m), s from the rounded one, q' of #8 in f32); #8's
+     route asserted and timed at every shape (TFLOP/s, share of the bound),
+     the same bits on two calls at B 64, N 16384; #7 timed there beside the
+     dispatcher's two-pass route, the plain reference and #9 on the same
+     q, k, v;
   15. kernel #12 (bias_act) against its plain version: all 9 activations,
      bias or not, clamp none or 1.5, default gain or 0.5, f32 (rtol 1e-5,
      atol 1e-6) and bf16 (8e-3, one unit), at GAN feature maps of batch 64
@@ -115,7 +120,8 @@ Phases, each announced on a flushed line before it starts:
      own time (kernel durations from torch.profiler);
   16. this slice's path (module docstring of la_main_path): the
      PreNormResidual(LinearAttention) module at the UNet's ten attention
-     levels (#6), the module on the two-pass route (#7 + #8),
+     levels (#6: its bf16 calls on the tensor route, its f32 calls on the
+     CUDA cores, asserted), the module on the two-pass route (#7 + #8),
      linear_attention_per_head (#9), bias_act(impl="auto") (#12); exact
      launch counts; in f32 the module within 1e-4 of kernel #1's
      FusedLinearAttentionBlock on the same weights;
@@ -1404,6 +1410,28 @@ def bias_act_bound_parts(rows: int, c: int, bias: bool, gain: bool,
     return nbytes / HBM_BYTES_PER_S * 1e3, rows * c * (2 + bias + gain) / F32_FLOPS * 1e3
 
 
+def la_flops(name: str, b: int, n: int, h: int, d: int) -> float:
+    """The per-head products of one call of kernel `name` (la_bound_parts)."""
+    products = 2 if name in ("linear_attention_fulllane", "linear_attention_per_head") else 1
+    return 2 * products * b * n * h * d * d
+
+
+def la_route(shape, dt) -> dict:
+    """la_plan of #6 and #8 at q `shape` of `dt`, asserted to be the tensor
+    route in bf16 at D % 16 == 0 and the CUDA cores otherwise."""
+    plan = la.la_plan(*shape, dt)
+    want = "tensor" if dt == torch.bfloat16 and shape[3] % 16 == 0 else "cores"
+    if plan.route != want:
+        raise AssertionError(f"#6/#8 at {shape} {dt}: route {plan.route}, expected {want}")
+    return plan._asdict()
+
+
+def with_rates(row: dict, flops: float) -> dict:
+    """timing()'s row with TFLOP/s and the share of the bound."""
+    return {**row, "tflops": flops / (row["ms"] * 1e-3) / 1e12,
+            "share_of_bound": row["bound_ms"] / row["ms"]}
+
+
 def timing(kernel, plain, parts: tuple[float, float], reps: int = 20, library=None) -> dict:
     """The kernel's and its plain version's times (and a library call's),
     with the bound of `parts` (bytes, operations) and the wrapper's host time."""
@@ -1456,15 +1484,17 @@ def check_rounding(got: torch.Tensor, own: torch.Tensor, other: torch.Tensor,
 def la_vs_plain(device) -> dict:
     """Phase 13: #6 and #9 against their plain versions at LA_SHAPES, f32
     with TF32 off and bf16 (la_check), and in bf16 each nearer its own plain
-    version than the other's, which rounds elsewhere (check_rounding); at
-    B 64 each timed in bf16."""
+    version than the other's, which rounds elsewhere (check_rounding); #6's
+    route asserted (la_route) and #6 timed in bf16 at every shape, #9 at
+    B 64; #6 the same bits on two calls at LA_MAIN."""
     rows = {}
     for i, shape in enumerate(LA_SHAPES):
         b, n, h, d = shape
-        row = {"max_err": {}}
+        row = {"max_err": {}, "plan": {}}
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = la_inputs(shape, dt, device, seed=100 + i)
             key, tag = str(dt)[6:], f"B={b} N={n} H={h} D={d} {str(dt)[6:]}"
+            row["plan"][key] = la_route(shape, dt)
             calls = {"linear_attention_fulllane": (
                          lambda: la.linear_attention_fulllane(q, k, v),
                          lambda: la.fulllane_reference(q, k, v)),
@@ -1481,8 +1511,14 @@ def la_vs_plain(device) -> dict:
                 if dt == torch.bfloat16:
                     row.setdefault("rounding", {})[name] = check_rounding(
                         got, want, others[name](q, k, v), f"{name} {tag}")
-                if dt == torch.bfloat16 and b == BATCH:
-                    row[name] = timing(kernel, plain, la_bound_parts(name, *shape))
+                if dt == torch.bfloat16 and (b == BATCH or name == "linear_attention_fulllane"):
+                    row[name] = with_rates(timing(kernel, plain, la_bound_parts(name, *shape)),
+                                           la_flops(name, *shape))
+                if (dt == torch.bfloat16 and shape == LA_MAIN
+                        and name == "linear_attention_fulllane"):
+                    if not torch.equal(kernel(), got):
+                        raise AssertionError(f"#6 {tag}: two calls on the same inputs differ")
+                    row["same_bits_twice"] = True
         rows[f"B{b}_N{n}_H{h}_D{d}"] = row
         print(f"   B={b} N={n:5d} H={h} D={d:3d}: {json.dumps(row)}", flush=True)
     return rows
@@ -1495,14 +1531,16 @@ def twopass_vs_plain(device) -> dict:
     and in bf16 each nearer its plain version than a version rounded
     elsewhere (check_rounding); at B 64, N 16384 each timed in bf16, and
     the dispatcher's two-pass route against the plain reference (and #9) on
-    the same q, k, v."""
+    the same q, k, v; #8's route asserted (la_route) and #8 timed in bf16 at
+    every shape, the same bits on two calls at the first."""
     rows = {}
     for i, (b, n, chunk) in enumerate(TWOPASS_SHAPES):
         shape = (b, n, HEADS, DIM_HEAD)
-        row = {"max_err": {}}
+        row = {"max_err": {}, "plan": {}}
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = la_inputs(shape, dt, device, seed=150 + i)
             key, tag = str(dt)[6:], f"B={b} N={n} chunk={chunk} {str(dt)[6:]}"
+            row["plan"][key] = la_route(shape, dt)
             m = k.amax(1).float().reshape(b, F)
             a, s = la.linear_attention_ctx_twopass(k, v, m, chunk)
             ra, rs = la.ctx_twopass_reference(k, v, m)
@@ -1524,15 +1562,21 @@ def twopass_vs_plain(device) -> dict:
                         "bnhd,bhde->bnhe", la._q_prime(q, torch.float32), ctx.float()).to(dt),
                         f"#8 {tag}")}
                 del e
-            if dt == torch.bfloat16 and i == 0:
-                row["linear_attention_ctx_twopass"] = timing(
-                    lambda: la.linear_attention_ctx_twopass(k, v, m, chunk),
-                    lambda: la.ctx_twopass_reference(k, v, m),
-                    la_bound_parts("linear_attention_ctx_twopass", *shape), reps=10)
-                row["linear_attention_out_twopass"] = timing(
+            if dt == torch.bfloat16:
+                name = "linear_attention_out_twopass"
+                row[name] = with_rates(timing(
                     lambda: la.linear_attention_out_twopass(q, ctx),
                     lambda: la.out_twopass_reference(q, ctx),
-                    la_bound_parts("linear_attention_out_twopass", *shape), reps=10)
+                    la_bound_parts(name, *shape), reps=10), la_flops(name, *shape))
+            if dt == torch.bfloat16 and i == 0:
+                if not torch.equal(la.linear_attention_out_twopass(q, ctx), out):
+                    raise AssertionError(f"#8 {tag}: two calls on the same inputs differ")
+                row["same_bits_twice"] = True
+                name = "linear_attention_ctx_twopass"
+                row[name] = with_rates(timing(
+                    lambda: la.linear_attention_ctx_twopass(k, v, m, chunk),
+                    lambda: la.ctx_twopass_reference(k, v, m),
+                    la_bound_parts(name, *shape), reps=10), la_flops(name, *shape))
                 row["route_ms"] = {
                     "twopass": time_ms(lambda: la.linear_attention_twopass(q, k, v, chunk), 10),
                     "reference": time_ms(lambda: la.linear_attention_reference(q, k, v), 10),
@@ -1666,6 +1710,9 @@ def la_main_path(device) -> dict:
                         device=device).bfloat16(), torch.randn(c, generator=g, device=device))
            for r, c in BIAS_ACT_SHAPES[:3]]
 
+    routes = {f"N{n}_C{c}": {str(dt)[6:]: la_route((BATCH, n, HEADS, DIM_HEAD), dt)["route"]
+                             for dt in (torch.float32, torch.bfloat16)}
+              for n, c in FORWARD_SHAPES}
     _reset_counts()
     outs = [(module(x), module(x.bfloat16())) for (_, module), x in levels]
     with la_switches(twopass=True):
@@ -1682,7 +1729,7 @@ def la_main_path(device) -> dict:
     if counts != expected:
         raise AssertionError(f"this slice's path launched {counts}, expected {expected}")
 
-    result = {"launches": counts, "levels": {}}
+    result = {"launches": counts, "routes_of_6": routes, "levels": {}}
     for i, (((block, module), x), (y32, y16), (n, c)) in enumerate(zip(levels, outs,
                                                                       FORWARD_SHAPES)):
         xb = x.bfloat16()

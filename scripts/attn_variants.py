@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Kernels #1 (the attention block) and #12 (bias_act) on one card: each
-call's time split between the host and the card, and variants of #1.
+"""Kernels #1 (the attention block), #6-#9 (standalone linear attention)
+and #12 (bias_act) on one card: each call's time split between the host and
+the card, and variants of #1.
 
-    python3 scripts/attn_variants.py [--root DIR] [--variants | --forward]
+    python3 scripts/attn_variants.py [--root DIR]
+        [--variants | --forward | --la | --la-turns PARENT | --la-variants]
 
 Times the wrappers of the ccdm_tpu_torch package under DIR (default: this
 checkout; another commit unpacked with `git archive` under build/ times
@@ -19,6 +21,20 @@ from torch.profiler (device_ms), as JSON lines.
 --forward: instead, one B-64 CFG forward of the served RC-49 64x64 model
 (chip_smoke.cfg_forward_turns: the resnet switch off and on in turns, event
 and host time of each), to compare two commits' forwards in one call.
+
+--la: instead, #6-#9 in bf16, each at the shapes phases 13 and 14 of
+chip_smoke.py time: #6 and #9 at LA_SHAPES of B 64, #7 and #8 at
+TWOPASS_SHAPES, on phase 13's and 14's inputs; the event and host time of
+each call, as JSON lines. --la-turns PARENT: --la for PARENT, DIR, DIR,
+PARENT, each its own process (PARENT a commit unpacked with `git archive`
+under build/), so that two designs are compared in one call.
+
+--la-variants: builds csrc/linear_attention.cu with its tunables
+substituted (LA_TUNABLES: the tiles of the statistics and context
+launches' rings, and the statistics blocks an SM) as --variants does, then
+times #6 at the B-64 LA_SHAPES for each in turns (the committed values
+first and last), each held to its plain version at phase
+13's bf16 bound first, with the card's time by kernel at N 4096.
 
 --variants: builds csrc/attn_block.cu with its tunables substituted (the
 split route's blocks per SM it aims at, kSplitOcc; the minimum blocks per
@@ -52,6 +68,11 @@ COMMITTED = {"kSplitOcc": 2, "kSplitMinBlocks": 2, "kFusedMaxN": 128}
 VARIANTS = [COMMITTED, {**COMMITTED, "kSplitOcc": 1}, {**COMMITTED, "kSplitOcc": 4},
             {**COMMITTED, "kSplitMinBlocks": 1}, {**COMMITTED, "kFusedMaxN": 64},
             {**COMMITTED, "kFusedMaxN": 256}]
+LA_TUNABLES = {"kStages": "constexpr int kStages = {};",
+               "kStatBlocks": "constexpr int kStatBlocks = {};"}
+LA_COMMITTED = {"kStages": 3, "kStatBlocks": 3}
+LA_VARIANTS = [LA_COMMITTED, {"kStages": 2, "kStatBlocks": 4}, {"kStages": 2, "kStatBlocks": 2},
+               {"kStages": 3, "kStatBlocks": 2}]
 
 
 def load_smoke(root: Path):
@@ -96,6 +117,45 @@ def host_and_device(cs, root: Path) -> None:
             flush=True)
 
 
+@torch.no_grad()
+def la_times(cs, root: Path) -> None:
+    device, la = torch.device("cuda"), cs.la
+    rows = []
+    for i, shape in enumerate(cs.LA_SHAPES):
+        if shape[0] != cs.BATCH:
+            continue
+        q, k, v = cs.la_inputs(shape, torch.bfloat16, device, seed=100 + i)
+        for name in ("linear_attention_fulllane", "linear_attention_per_head"):
+            call = lambda fn=getattr(la, name): fn(q, k, v)
+            rows.append({"kernel": name, "shape": list(shape), "ms": cs.time_ms(call),
+                         "host_ms": cs.host_ms(call)})
+    for i, (b, n, chunk) in enumerate(cs.TWOPASS_SHAPES):
+        shape = (b, n, cs.HEADS, cs.DIM_HEAD)
+        q, k, v = cs.la_inputs(shape, torch.bfloat16, device, seed=150 + i)
+        m = k.amax(1).float().reshape(b, cs.F)
+        ctx = la.finalize_ctx(*la.ctx_twopass_reference(k, v, m), torch.bfloat16)
+        for name, call in (("linear_attention_ctx_twopass",
+                            lambda: la.linear_attention_ctx_twopass(k, v, m, chunk)),
+                           ("linear_attention_out_twopass",
+                            lambda: la.linear_attention_out_twopass(q, ctx))):
+            rows.append({"kernel": name, "shape": list(shape), "chunk": chunk,
+                         "ms": cs.time_ms(call, reps=10), "host_ms": cs.host_ms(call, reps=10)})
+        del q, k, v, m, ctx
+        torch.cuda.empty_cache()
+    for row in rows:
+        print(json.dumps({"root": str(root), **row}), flush=True)
+
+
+def la_turns(parent: Path, root: Path) -> None:
+    """--la-turns: --la for PARENT, DIR, DIR, PARENT, each its own process."""
+    for r in (parent, root, root, parent):
+        proc = subprocess.run([sys.executable, str(HERE / "scripts" / "attn_variants.py"),
+                               "--root", str(r), "--la"], capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"--la for {r} failed:\n{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        print(proc.stdout, end="", flush=True)
+
+
 def forward(cs, root: Path) -> None:
     service = cs.SamplerService(cs.parse_opts(cs.SERVE_ARGV), max_batch=cs.SERVE_BATCH,
                                 warm=False, device="cuda")
@@ -104,15 +164,16 @@ def forward(cs, root: Path) -> None:
 
 
 def name_of(v: dict) -> str:
-    return "_".join(f"{k}{v[k]}" for k in TUNABLES)
+    return "_".join(f"{k}{x}" for k, x in v.items())
 
 
-def build_variant(cs, v: dict) -> Path:
-    src = (cs._build.CSRC_DIR / "attn_block.cu").read_text()
-    for key, decl in TUNABLES.items():
-        committed = decl.format(COMMITTED[key])
+def build_variant(cs, v: dict, source: str = "attn_block", tunables=TUNABLES,
+                  committed_values=COMMITTED) -> Path:
+    src = (cs._build.CSRC_DIR / f"{source}.cu").read_text()
+    for key, decl in tunables.items():
+        committed = decl.format(committed_values[key])
         if committed not in src:
-            raise RuntimeError(f"csrc/attn_block.cu no longer declares `{committed}`")
+            raise RuntimeError(f"csrc/{source}.cu no longer declares `{committed}`")
         src = src.replace(committed, decl.format(v[key]), 1)
     out = HERE / "build" / "attn_variants"
     out.mkdir(parents=True, exist_ok=True)
@@ -157,16 +218,50 @@ def variants(cs) -> None:
         print(f"{name}: {total:.4f} ms over the ten; " + "; ".join(shapes), flush=True)
 
 
+@torch.no_grad()
+def la_variants(cs) -> None:
+    la = cs.la
+    t0 = time.perf_counter()
+    build = lambda v: build_variant(cs, v, "linear_attention", LA_TUNABLES, LA_COMMITTED)
+    with ThreadPoolExecutor(len(LA_VARIANTS)) as pool:
+        libs = {name_of(v): la.declare(ctypes.CDLL(str(lib)))
+                for v, lib in zip(LA_VARIANTS, pool.map(build, LA_VARIANTS))}
+    print(f"{len(libs)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
+    device = torch.device("cuda")
+    shapes = [s for s in cs.LA_SHAPES if s[0] == cs.BATCH]
+    inputs = [cs.la_inputs(shape, torch.bfloat16, device, seed=100 + i)
+              for i, shape in enumerate(shapes)]
+    for name in [*libs, name_of(LA_COMMITTED)]:
+        la._library = lambda lib=libs[name]: lib
+        la.la_plan.cache_clear()
+        times = []
+        for shape, (q, k, v) in zip(shapes, inputs):
+            call = lambda: la.linear_attention_fulllane(q, k, v)
+            cs.la_check(call(), la.fulllane_reference(q, k, v), f"{name} {shape}")
+            times.append(f"{shape[1]}x{shape[2]}x{shape[3]} {cs.time_ms(call):.4f}")
+        q, k, v = inputs[0]
+        dev = cs.device_ms(lambda: la.linear_attention_fulllane(q, k, v))
+        print(f"{name}: " + "; ".join(times) + " | by kernel at " + str(shapes[0]) + ": "
+              + json.dumps({key.replace("void (anonymous namespace)::", "")[:60]: ms
+                            for key, ms in dev.items()}), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=HERE)
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--variants", action="store_true")
     mode.add_argument("--forward", action="store_true")
+    mode.add_argument("--la", action="store_true")
+    mode.add_argument("--la-turns", type=Path, metavar="PARENT")
+    mode.add_argument("--la-variants", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("attn_variants: no CUDA device", file=sys.stderr)
         return 1
+    if args.la_turns:
+        la_turns(args.la_turns.resolve(), args.root.resolve())
+        return 0
     cs = load_smoke(args.root.resolve())
     print(cs.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -174,6 +269,10 @@ def main() -> int:
         variants(cs)
     elif args.forward:
         forward(cs, args.root)
+    elif args.la:
+        la_times(cs, args.root)
+    elif args.la_variants:
+        la_variants(cs)
     else:
         host_and_device(cs, args.root)
     return 0

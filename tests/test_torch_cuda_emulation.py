@@ -1058,20 +1058,38 @@ def test_emulated_cp_async_zero_fills(ptx_harness, src_bytes):
 
 # ---------------------------------- kernels #6-#9 (standalone linear attention)
 
-LA_FNS = {"ccdm_la_fulllane": (5, 5), "ccdm_la_per_head": (4, 5),
-          "ccdm_la_ctx_twopass": (7, 6), "ccdm_la_out_twopass": (3, 5)}
+def _emulated_la(tmp_path_factory, subs=None):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the emulated kernels")
+    from ccdm_tpu_torch.ops import linear_attention as la
+
+    return la.declare(_compile(tmp_path_factory.mktemp("cuda_emu_la"), "linear_attention", subs))
 
 
 @pytest.fixture(scope="module")
 def emulated_la(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to compile the emulated kernels")
-    lib = _compile(tmp_path_factory.mktemp("cuda_emu_la"), "linear_attention")
-    for name, (n_ptr, n_int) in LA_FNS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    return _emulated_la(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def emulated_la_short(tmp_path_factory):
+    """#6-#9's library planned for a card of one SM: on the tensor route a
+    wave of 2 blocks (1 at D 128), so that at short rows a batch row takes
+    two splits of several tiles each."""
+    return _emulated_la(tmp_path_factory, {"constexpr int kCardSMs = 132;":
+                                           "constexpr int kCardSMs = 1;"})
+
+
+def _fulllane(lib, q, k, v):
+    """#6 in the emulation, with the workspace its plan sizes: (out, plan)."""
+    from ccdm_tpu_torch.ops import linear_attention as la
+
+    b, n, h, d = q.shape
+    plan = la.plan_of(lib, b, n, h, d, q.dtype == torch.bfloat16)
+    out = torch.empty_like(q)
+    _call(lib, "ccdm_la_fulllane", q, k, v, out, torch.empty(plan.ws_bytes, dtype=torch.uint8),
+          b, n, h, d, int(q.dtype == torch.bfloat16), plan.ws_bytes)
+    return out, plan
 
 
 def _la_inputs(b, n, h, d, dtype, seed):
@@ -1115,8 +1133,7 @@ def test_emulated_fulllane_and_per_head_match_plain(emulated_la, b, n, h, d, dty
 
     q, k, v = _la_inputs(b, n, h, d, dtype, seed=n + d)
     bf16 = int(dtype == "bfloat16")
-    out, ctx = torch.empty_like(q), torch.empty(b, h, d, d, dtype=q.dtype)
-    _call(emulated_la, "ccdm_la_fulllane", q, k, v, ctx, out, b, n, h, d, bf16)
+    out, _ = _fulllane(emulated_la, q, k, v)
     assert bool(torch.isfinite(out.float()).all())
     want6, want9 = la.fulllane_reference(q, k, v), la.linear_attention_reference(q, k, v)
     _la_close(out, want6, dtype)
@@ -1162,6 +1179,97 @@ def test_emulated_twopass_matches_plain(emulated_la, b, n, h, d, chunk, dtype):
         _la_rounding(s, rs, e.bfloat16().float().sum(1).reshape(b, f))
         _la_rounding(out, want, torch.einsum("bnhd,bhde->bnhe", la._q_prime(q, torch.float32),
                                              ctx.float()).to(q.dtype))
+
+
+def _offset(t, off):
+    """t copied to `off` elements past an aligned base (off 0: t itself)."""
+    if not off:
+        return t
+    return torch.empty(t.numel() + off, dtype=t.dtype)[off:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("lib,b,n,h,d,splits,x_offset,jump", [
+    ("", 2, 100, 4, 32, (2, 1), 0, False),         # a ragged last tile: 36 of 64 tokens
+    ("", 1, 70, 2, 64, (2, 1), 0, False),
+    ("", 1, 33, 8, 16, (1, 1), 0, False),
+    ("", 1, 20, 1, 128, (1, 1), 0, False),
+    ("", 1, 90, 2, 48, (2, 1), 0, False),          # F 96: 12 chunks a row, 4 threads idle
+    ("", 1, 80, 8, 32, (2, 1), 0, False),          # F 256: two groups of four heads
+    ("_short", 1, 300, 4, 32, (2, 2), 0, False),   # two splits of 2-3 tiles; out steps of 128, 44
+    ("_short", 1, 300, 4, 32, (2, 2), 1, False),   # q, k, v one element off: element loads
+    ("_short", 1, 260, 4, 32, (2, 2), 0, True),    # k jumps by 30 in split 1's last tile
+    ("_short", 1, 150, 1, 128, (1, 1), 0, False),  # D 128: a wave of one block, three tiles
+])
+def test_emulated_la_tensor_route_matches_plain(request, lib, b, n, h, d, splits, x_offset,
+                                                jump):
+    """#6 and #8 in bf16 on the tensor route (whole rows, mma.sync, ldmatrix
+    and cp.async with the ISA's layouts; the statistics and context partials
+    merged in order) against fulllane_reference and out_twopass_reference at
+    la_check's bounds, each nearer its own rounding points than the f32
+    function's; #6 the same bits twice."""
+    from ccdm_tpu_torch.ops import linear_attention as la
+
+    emulated = request.getfixturevalue("emulated_la" + lib)
+    q, k, v = _la_inputs(b, n, h, d, "bfloat16", seed=7 * n + d)
+    if jump:
+        k[:, 3 * n // 4:, 0, 0] += 30
+    q, k, v = (_offset(t, x_offset) for t in (q, k, v))
+    out, plan = _fulllane(emulated, q, k, v)
+    assert (plan.route, plan.ctx_splits, plan.out_splits) == ("tensor", *splits)
+    want = la.fulllane_reference(q, k, v)
+    _la_close(out, want, "bfloat16")
+    _la_rounding(out, want, la.linear_attention_reference(q, k, v))
+    assert torch.equal(_fulllane(emulated, q, k, v)[0], out)
+    ra, rs = la.ctx_twopass_reference(k, v, k.float().amax(1).reshape(b, h * d))
+    ctx = la.finalize_ctx(ra, rs, torch.bfloat16)
+    out8 = torch.empty_like(q)
+    _call(emulated, "ccdm_la_out_twopass", q, ctx, out8, b, n, h, d, 1)
+    want8 = la.out_twopass_reference(q, ctx)
+    _la_close(out8, want8, "bfloat16")
+    _la_rounding(out8, want8, torch.einsum("bnhd,bhde->bnhe", la._q_prime(q, torch.float32),
+                                           ctx.float()).to(q.dtype))
+
+
+@pytest.mark.parametrize("b,n,h,d", [(1, 40, 16, 8), (2, 50, 4, 24)])
+def test_emulated_la_other_widths_take_the_cuda_cores(emulated_la, b, n, h, d):
+    """bf16 at D % 16 != 0 (D 8 at H 16, D 24) takes the CUDA-core route of
+    #6 and #8, at the same bounds and rounding rule."""
+    from ccdm_tpu_torch.ops import linear_attention as la
+
+    q, k, v = _la_inputs(b, n, h, d, "bfloat16", seed=n + h)
+    out, plan = _fulllane(emulated_la, q, k, v)
+    assert plan.route == "cores"
+    want = la.fulllane_reference(q, k, v)
+    _la_close(out, want, "bfloat16")
+    _la_rounding(out, want, la.linear_attention_reference(q, k, v))
+    ctx = la.finalize_ctx(*la.ctx_twopass_reference(k, v, k.float().amax(1).reshape(b, h * d)),
+                          torch.bfloat16)
+    out8 = torch.empty_like(q)
+    _call(emulated_la, "ccdm_la_out_twopass", q, ctx, out8, b, n, h, d, 1)
+    _la_close(out8, la.out_twopass_reference(q, ctx), "bfloat16")
+
+
+@pytest.mark.parametrize("batch", [64, 128])
+def test_emulated_la_plan_at_the_unet_shapes(emulated_la, batch):
+    """The plan at the UNet's ten attention levels (LinearAttention(C, 4,
+    32): H 4, D 32 at every level): bf16 on the tensor route, its splits
+    filling one wave of 132 SMs x 2 blocks (x 3 for the statistics launch)
+    with the batch rows, at least one tile a split; the workspace ctx, two
+    record arrays and, past one split, the partials; f32 on the CUDA cores
+    with ctx alone."""
+    from ccdm_tpu_torch.ops import linear_attention as la
+
+    align = lambda nbytes: -(-nbytes // 256) * 256
+    for n, _ in _unet_attn_shapes(64, (1, 2, 2, 4, 8)):
+        p = la.plan_of(emulated_la, batch, n, HEADS, D, True)
+        splits, stat_splits = min(264 // batch, -(-n // 64)), min(396 // batch, -(-n // 64))
+        parts = batch * splits * F * D * 4 if splits > 1 else 0
+        assert p == la.LaPlan("tensor", 64, splits, 128, min(264 // batch, -(-n // 128)),
+                              stat_splits, align(batch * F * D * 2)
+                              + 2 * align(batch * stat_splits * F * 4) + parts), (n, p)
+        assert batch * p.ctx_splits <= 264 and batch * p.out_splits <= 264
+        assert la.plan_of(emulated_la, batch, n, HEADS, D, False) == la.LaPlan(
+            "cores", 32, 1, 64, -(-n // 64), 0, align(batch * F * D * 4))
 
 
 # ------------------------------------------------------ kernel #12 (bias_act)

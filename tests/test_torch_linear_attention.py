@@ -292,3 +292,39 @@ def test_cuda_twopass_matches_plain(n, chunk, dtype):
         _assert_rounding(s, rs, e.bfloat16().float().sum(1).reshape(2, 128))
         _assert_rounding(out, want, torch.einsum("bnhd,bhde->bnhe", la._q_prime(
             q, torch.float32), ctx.float()).to(q.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h,d,dtype,route", [
+    (3, 1000, 4, 32, "bfloat16", "tensor"), (2, 256, 2, 64, "bfloat16", "tensor"),
+    (2, 300, 8, 16, "bfloat16", "tensor"), (1, 64, 1, 128, "bfloat16", "tensor"),
+    (2, 96, 16, 8, "bfloat16", "cores"), (2, 96, 16, 24, "bfloat16", "cores"),
+    (3, 1000, 4, 32, "float32", "cores")])
+def test_cuda_la_plan_route_and_one_launch_a_call(b, n, h, d, dtype, route):
+    """la_plan's route of #6 and #8 on the card (the tensor cores for bf16 at
+    D % 16 == 0), one launch of each counter a call, and on the tensor route
+    #6 and #8 against their plain versions (la_check's bounds, nearer their
+    own rounding points than the f32 function's), #6 the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    plan = la.la_plan(b, n, h, d, dt)
+    assert plan.route == route and plan.ctx_splits >= 1 and plan.out_splits >= 1
+    q, k, v = _cuda_qkv(3 * n + d, (b, n, h, d), dtype)
+    ctx = la.finalize_ctx(*la.ctx_twopass_reference(k, v, k.float().amax(1).reshape(b, h * d)),
+                          dt)
+    before = la.linear_attention_fulllane.launches, la.linear_attention_out_twopass.launches
+    got6, again = la.linear_attention_fulllane(q, k, v), la.linear_attention_fulllane(q, k, v)
+    got8 = la.linear_attention_out_twopass(q, ctx)
+    torch.cuda.synchronize()
+    assert (la.linear_attention_fulllane.launches,
+            la.linear_attention_out_twopass.launches) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(got6, again)
+    want6, want8 = la.fulllane_reference(q, k, v), la.out_twopass_reference(q, ctx)
+    torch.testing.assert_close(got6.float(), want6.float(), **_tol(want6, dtype))
+    torch.testing.assert_close(got8.float(), want8.float(), **_tol(want8, dtype))
+    if dtype == "bfloat16":
+        _assert_rounding(got6, want6, la.linear_attention_reference(q, k, v))
+        _assert_rounding(got8, want8, torch.einsum("bnhd,bhde->bnhe", la._q_prime(
+            q, torch.float32), ctx.float()).to(q.dtype))
