@@ -8,7 +8,7 @@ and each head:
 The kernels are in csrc/linear_attention.cu, each the port of a TPU kernel:
 - `linear_attention_fulllane`: kernel #6 (`_kernel_fulllane`);
 - `linear_attention_ctx_twopass`: #7 (`_kernel_ctx_twopass`), the context
-  a = exp(k - m)^T v and s = sum exp(k - m) over chunks of N, given the
+  a = exp(k - m)^T v and s = sum exp(k - m) over splits of N, given the
   column max m;
 - `linear_attention_out_twopass`: #8 (`_kernel_out_twopass`), q's softmax
   times a finalised context;
@@ -21,7 +21,10 @@ nothing falls back from one to the other. The kernels take D up to 128.
 the card: "tensor" (bf16 at D % 16 == 0: whole token rows, the products on
 the tensor cores, sums across blocks merged in a fixed order) or "cores"
 (f32, and bf16 at other D: a head a block, f32 FMAs), with each launch's
-tile and splits and #6's workspace.
+tile and splits and #6's workspace. `twopass_plan` gives #7's ("tensor" or
+"cores", at the same shapes) and `per_head_plan` #9's ("rows" in bf16 at
+D % 16 == 0: #6's launches over whole rows with the products as f32 FMAs,
+as #9 computes in f32; else "cores"), each with its splits and workspace.
 
 `linear_attention` is the entry the `LinearAttention` module calls. Its
 routes are JAX's (`route`), with a CUDA tensor in place of the TPU backend:
@@ -41,7 +44,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 import os
 from typing import NamedTuple
 
@@ -126,14 +128,17 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     card's library, or the g++ emulation's in the tests)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, args in (("ccdm_la_fulllane", [p] * 5 + [i] * 5 + [ll]),
-                       ("ccdm_la_per_head", [p] * 4 + [i] * 5),
-                       ("ccdm_la_ctx_twopass", [p] * 7 + [i] * 6),
+                       ("ccdm_la_per_head", [p] * 5 + [i] * 5 + [ll]),
+                       ("ccdm_la_ctx_twopass", [p] * 6 + [i] * 6 + [ll]),
                        ("ccdm_la_out_twopass", [p] * 3 + [i] * 5)):
         fn = getattr(lib, name)
         fn.argtypes = args + [p]
         fn.restype = ctypes.c_int
-    lib.ccdm_la_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
-    lib.ccdm_la_plan.restype = ll
+    for name, ints in (("ccdm_la_plan", 5), ("ccdm_la_twopass_plan", 6),
+                       ("ccdm_la_per_head_plan", 5)):
+        fn = getattr(lib, name)
+        fn.argtypes = [i] * ints + [ctypes.POINTER(i)]
+        fn.restype = ll
     return lib
 
 
@@ -175,6 +180,58 @@ def la_plan(b: int, n: int, h: int, d: int, dtype: torch.dtype) -> LaPlan:
     return plan_of(_library(), b, n, h, d, dtype == torch.bfloat16)
 
 
+class TwopassPlan(NamedTuple):
+    """#7's route ("cores" or "tensor"), its splits of N (chunks of `chunk`
+    tokens on the CUDA cores, one wave of blocks on the tensor route) and
+    its workspace in bytes."""
+    route: str
+    splits: int
+    ws_bytes: int
+
+
+class PerHeadPlan(NamedTuple):
+    """#9's route ("cores" or "rows"), the splits of its statistics,
+    context and out launches (0, 1, 1 on the CUDA cores: a block per
+    (batch, head)) and its workspace in bytes."""
+    route: str
+    stat_splits: int
+    ctx_splits: int
+    out_splits: int
+    ws_bytes: int
+
+
+def twopass_plan_of(lib: ctypes.CDLL, b: int, n: int, h: int, d: int, chunk: int,
+                    bf16: bool) -> TwopassPlan:
+    """ccdm_la_twopass_plan of `lib` for k [b, n, h, d] and `chunk`."""
+    out = (ctypes.c_int * 2)()
+    nbytes = lib.ccdm_la_twopass_plan(b, n, h, d, chunk, int(bf16), out)
+    if nbytes < 0:
+        raise ValueError(f"#7 takes no B={b} N={n} H={h} D={d} chunk={chunk}")
+    return TwopassPlan(LA_ROUTES[out[0]], out[1], nbytes)
+
+
+def per_head_plan_of(lib: ctypes.CDLL, b: int, n: int, h: int, d: int,
+                     bf16: bool) -> PerHeadPlan:
+    """ccdm_la_per_head_plan of `lib` for q [b, n, h, d]."""
+    out = (ctypes.c_int * 4)()
+    nbytes = lib.ccdm_la_per_head_plan(b, n, h, d, int(bf16), out)
+    if nbytes < 0:
+        raise ValueError(f"#9 takes no B={b} N={n} H={h} D={d}")
+    return PerHeadPlan(("cores", "rows")[out[0]], *out[1:4], nbytes)
+
+
+@functools.cache
+def twopass_plan(b: int, n: int, h: int, d: int, chunk: int, dtype: torch.dtype) -> TwopassPlan:
+    """The card's plan of #7 (needs the built library)."""
+    return twopass_plan_of(_library(), b, n, h, d, chunk, dtype == torch.bfloat16)
+
+
+@functools.cache
+def per_head_plan(b: int, n: int, h: int, d: int, dtype: torch.dtype) -> PerHeadPlan:
+    """The card's plan of #9 (needs the built library)."""
+    return per_head_plan_of(_library(), b, n, h, d, dtype == torch.bfloat16)
+
+
 def _on_card(t: torch.Tensor) -> bool:
     """True for the kernel (CUDA), False for the plain version (CPU)."""
     if t.device.type not in ("cpu", "cuda"):
@@ -213,22 +270,28 @@ def linear_attention_fulllane(q, k, v):
 
 
 def linear_attention_per_head(q, k, v):
-    """Kernel #9: out [B, N, H, D] in q's dtype, computed in f32."""
+    """Kernel #9: out [B, N, H, D] in q's dtype, computed in f32, on
+    per_head_plan's route."""
     if not _on_card(q):
         return linear_attention_reference(q, k, v)
     q, k, v = _operands(q, k, v)
     b, n, h, d = q.shape
+    nbytes = per_head_plan(b, n, h, d, q.dtype).ws_bytes
     out = torch.empty_like(q)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     _build.run(_library(), "ccdm_la_per_head", "linear_attention_per_head kernel launch",
-               q.device, q, k, v, out, b, n, h, d, int(q.dtype == torch.bfloat16))
+               q.device, q, k, v, out, ws, b, n, h, d, int(q.dtype == torch.bfloat16), nbytes)
     linear_attention_per_head.launches += 1
     return out
 
 
 def linear_attention_ctx_twopass(k, v, m, chunk: int = TWOPASS_CHUNK):
     """Kernel #7: m [B, H D] f32, the column max of k over N -> (a
-    [B, H, D, D], s [B, H D]), f32. The card sums per chunk of `chunk`
-    tokens (the last may be short), then the chunks in order."""
+    [B, H, D, D], s [B, H D]), f32, on twopass_plan's route. The CUDA cores
+    sum per chunk of `chunk` tokens (the last may be short), then the chunks
+    in order; the tensor route takes its splits of N from the plan whatever
+    the chunk (JAX's chunk is a VMEM block size: it does not change the
+    function)."""
     if not _on_card(k):
         return ctx_twopass_reference(k, v, m)
     k, v = _operands(k, v)
@@ -239,12 +302,13 @@ def linear_attention_ctx_twopass(k, v, m, chunk: int = TWOPASS_CHUNK):
     if tuple(m.shape) != (b, h * d) or m.device != k.device:
         raise ValueError(f"m must be {(b, h * d)} on {k.device}, got {tuple(m.shape)} "
                          f"on {m.device}")
-    nc = math.ceil(n / chunk)
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=k.device)
-    a_part, s_part, a, s = new(b, nc, h, d, d), new(b, nc, h * d), new(b, h, d, d), new(b, h * d)
+    nbytes = twopass_plan(b, n, h, d, chunk, k.dtype).ws_bytes
+    a = torch.empty(b, h, d, d, dtype=torch.float32, device=k.device)
+    s = torch.empty(b, h * d, dtype=torch.float32, device=k.device)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=k.device)
     _build.run(_library(), "ccdm_la_ctx_twopass", "linear_attention_ctx_twopass kernel launch",
-               k.device, k, v, m, a_part, s_part, a, s, b, n, h, d, chunk,
-               int(k.dtype == torch.bfloat16))
+               k.device, k, v, m, a, s, ws, b, n, h, d, chunk, int(k.dtype == torch.bfloat16),
+               nbytes)
     linear_attention_ctx_twopass.launches += 1
     return a, s
 

@@ -99,19 +99,21 @@ Phases, each announced on a flushed line before it starts:
      the largest |y|), the bounds of tests/test_linear_attention.py; in
      bf16 each kernel's mean distance to its plain version at most a quarter
      of that to the other's, which rounds at other points; #6's route
-     (la_plan: tensor cores in bf16, CUDA cores in f32; asserted) with its
-     splits, and #6 timed in bf16 at every shape (#9 at B 64), with the
-     wrapper's host time, TFLOP/s and the share of the bound; #6 the same
-     bits on two calls at B 64, N 4096;
+     (la_plan: tensor cores in bf16, CUDA cores in f32; asserted) and #9's
+     (per_head_plan: whole rows in f32 in bf16, CUDA cores in f32;
+     asserted) with their splits, and #6 timed in bf16 at every shape (#9
+     at B 64), with the wrapper's host time, TFLOP/s and the share of the
+     bound (#9's products at the f32 rate); each the same bits on two
+     calls at B 64, N 4096;
   14. kernels #7 + #8 (its two-pass form) against their plain versions at
      (B 64, N 16384), (B 128, N 4096), (B 16, N 36864), (B 16, N 6144) and
      (B 16, N 4096, chunks of 1024), same bounds (a and s relative to their
      largest value) and the same test of rounding points (a from the
-     unrounded exp(k - m), s from the rounded one, q' of #8 in f32); #8's
-     route asserted and timed at every shape (TFLOP/s, share of the bound),
-     the same bits on two calls at B 64, N 16384; #7 timed there beside the
-     dispatcher's two-pass route, the plain reference and #9 on the same
-     q, k, v;
+     unrounded exp(k - m), s from the rounded one, q' of #8 in f32); #7's
+     route (twopass_plan: tensor cores in bf16) and #8's asserted, each
+     timed at every shape (TFLOP/s, share of the bound) and the same bits
+     on two calls at B 64, N 16384, where the dispatcher's two-pass route,
+     the plain reference and #9 are timed on the same q, k, v;
   15. kernel #12 (bias_act) against its plain version: all 9 activations,
      bias or not, clamp none or 1.5, default gain or 0.5, f32 (rtol 1e-5,
      atol 1e-6) and bf16 (8e-3, one unit), at GAN feature maps of batch 64
@@ -1392,13 +1394,14 @@ def la_bound_parts(name: str, b: int, n: int, h: int, d: int,
     """Least times (ms) of one call of kernel `name`: each input read and each
     output written once over HBM bandwidth (q, k, v, out and ctx in the
     operand type; m, a and s in f32), and its per-head products (the H
-    blocks of D x D, not the TPU kernels' F x F) over the bf16 peak."""
+    blocks of D x D, not the TPU kernels' F x F, la_flops) over the bf16
+    peak, #9's over the f32 peak: it computes in f32."""
     act, f = b * n * h * d * itemsize, h * d
     nbytes = {"linear_attention_fulllane": 4 * act, "linear_attention_per_head": 4 * act,
               "linear_attention_ctx_twopass": 2 * act + 2 * b * f * 4 + b * f * d * 4,
               "linear_attention_out_twopass": 2 * act + b * f * d * itemsize}[name]
-    products = 2 if name in ("linear_attention_fulllane", "linear_attention_per_head") else 1
-    return nbytes / HBM_BYTES_PER_S * 1e3, 2 * products * b * n * f * d / BF16_FLOPS * 1e3
+    rate = F32_FLOPS if name == "linear_attention_per_head" else BF16_FLOPS
+    return nbytes / HBM_BYTES_PER_S * 1e3, la_flops(name, b, n, h, d) / rate * 1e3
 
 
 def bias_act_bound_parts(rows: int, c: int, bias: bool, gain: bool,
@@ -1416,14 +1419,29 @@ def la_flops(name: str, b: int, n: int, h: int, d: int) -> float:
     return 2 * products * b * n * h * d * d
 
 
-def la_route(shape, dt) -> dict:
-    """la_plan of #6 and #8 at q `shape` of `dt`, asserted to be the tensor
-    route in bf16 at D % 16 == 0 and the CUDA cores otherwise."""
-    plan = la.la_plan(*shape, dt)
-    want = "tensor" if dt == torch.bfloat16 and shape[3] % 16 == 0 else "cores"
+def checked_plan(what: str, plan, shape, dt, fast: str) -> dict:
+    """`plan` (of kernels `what` at q `shape` of `dt`) as a dict, its route
+    asserted to be `fast` in bf16 at D % 16 == 0 and the CUDA cores
+    otherwise."""
+    want = fast if dt == torch.bfloat16 and shape[3] % 16 == 0 else "cores"
     if plan.route != want:
-        raise AssertionError(f"#6/#8 at {shape} {dt}: route {plan.route}, expected {want}")
+        raise AssertionError(f"{what} at {shape} {dt}: route {plan.route}, expected {want}")
     return plan._asdict()
+
+
+def la_route(shape, dt) -> dict:
+    """la_plan of #6 and #8: the tensor route in bf16 at D % 16 == 0."""
+    return checked_plan("#6/#8", la.la_plan(*shape, dt), shape, dt, "tensor")
+
+
+def per_head_route(shape, dt) -> dict:
+    """per_head_plan of #9: the whole-row f32 route in bf16 at D % 16 == 0."""
+    return checked_plan("#9", la.per_head_plan(*shape, dt), shape, dt, "rows")
+
+
+def twopass_route(shape, chunk: int, dt) -> dict:
+    """twopass_plan of #7: the tensor route in bf16 at D % 16 == 0."""
+    return checked_plan("#7", la.twopass_plan(*shape, chunk, dt), shape, dt, "tensor")
 
 
 def with_rates(row: dict, flops: float) -> dict:
@@ -1485,16 +1503,18 @@ def la_vs_plain(device) -> dict:
     """Phase 13: #6 and #9 against their plain versions at LA_SHAPES, f32
     with TF32 off and bf16 (la_check), and in bf16 each nearer its own plain
     version than the other's, which rounds elsewhere (check_rounding); #6's
-    route asserted (la_route) and #6 timed in bf16 at every shape, #9 at
-    B 64; #6 the same bits on two calls at LA_MAIN."""
+    and #9's routes asserted (la_route, per_head_route) and #6 timed in
+    bf16 at every shape, #9 at B 64; each the same bits on two calls at
+    LA_MAIN."""
     rows = {}
     for i, shape in enumerate(LA_SHAPES):
         b, n, h, d = shape
-        row = {"max_err": {}, "plan": {}}
+        row = {"max_err": {}, "plan": {}, "plan9": {}}
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = la_inputs(shape, dt, device, seed=100 + i)
             key, tag = str(dt)[6:], f"B={b} N={n} H={h} D={d} {str(dt)[6:]}"
             row["plan"][key] = la_route(shape, dt)
+            row["plan9"][key] = per_head_route(shape, dt)
             calls = {"linear_attention_fulllane": (
                          lambda: la.linear_attention_fulllane(q, k, v),
                          lambda: la.fulllane_reference(q, k, v)),
@@ -1514,11 +1534,10 @@ def la_vs_plain(device) -> dict:
                 if dt == torch.bfloat16 and (b == BATCH or name == "linear_attention_fulllane"):
                     row[name] = with_rates(timing(kernel, plain, la_bound_parts(name, *shape)),
                                            la_flops(name, *shape))
-                if (dt == torch.bfloat16 and shape == LA_MAIN
-                        and name == "linear_attention_fulllane"):
+                if dt == torch.bfloat16 and shape == LA_MAIN:
                     if not torch.equal(kernel(), got):
-                        raise AssertionError(f"#6 {tag}: two calls on the same inputs differ")
-                    row["same_bits_twice"] = True
+                        raise AssertionError(f"{name} {tag}: two calls on the same inputs differ")
+                    row.setdefault("same_bits_twice", {})[name] = True
         rows[f"B{b}_N{n}_H{h}_D{d}"] = row
         print(f"   B={b} N={n:5d} H={h} D={d:3d}: {json.dumps(row)}", flush=True)
     return rows
@@ -1529,18 +1548,19 @@ def twopass_vs_plain(device) -> dict:
     """Phase 14: #7 and #8 against their plain versions at TWOPASS_SHAPES, f32
     (TF32 off) and bf16 (la_check; a and s relative to their largest value),
     and in bf16 each nearer its plain version than a version rounded
-    elsewhere (check_rounding); at B 64, N 16384 each timed in bf16, and
-    the dispatcher's two-pass route against the plain reference (and #9) on
-    the same q, k, v; #8's route asserted (la_route) and #8 timed in bf16 at
-    every shape, the same bits on two calls at the first."""
+    elsewhere (check_rounding); #7's and #8's routes asserted (twopass_route,
+    la_route), each timed in bf16 at every shape and the same bits on two
+    calls at the first, where the dispatcher's two-pass route is timed
+    against the plain reference (and #9) on the same q, k, v."""
     rows = {}
     for i, (b, n, chunk) in enumerate(TWOPASS_SHAPES):
         shape = (b, n, HEADS, DIM_HEAD)
-        row = {"max_err": {}, "plan": {}}
+        row = {"max_err": {}, "plan": {}, "plan7": {}}
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = la_inputs(shape, dt, device, seed=150 + i)
             key, tag = str(dt)[6:], f"B={b} N={n} chunk={chunk} {str(dt)[6:]}"
             row["plan"][key] = la_route(shape, dt)
+            row["plan7"][key] = twopass_route(shape, chunk, dt)
             m = k.amax(1).float().reshape(b, F)
             a, s = la.linear_attention_ctx_twopass(k, v, m, chunk)
             ra, rs = la.ctx_twopass_reference(k, v, m)
@@ -1568,15 +1588,20 @@ def twopass_vs_plain(device) -> dict:
                     lambda: la.linear_attention_out_twopass(q, ctx),
                     lambda: la.out_twopass_reference(q, ctx),
                     la_bound_parts(name, *shape), reps=10), la_flops(name, *shape))
-            if dt == torch.bfloat16 and i == 0:
-                if not torch.equal(la.linear_attention_out_twopass(q, ctx), out):
-                    raise AssertionError(f"#8 {tag}: two calls on the same inputs differ")
-                row["same_bits_twice"] = True
                 name = "linear_attention_ctx_twopass"
                 row[name] = with_rates(timing(
                     lambda: la.linear_attention_ctx_twopass(k, v, m, chunk),
                     lambda: la.ctx_twopass_reference(k, v, m),
                     la_bound_parts(name, *shape), reps=10), la_flops(name, *shape))
+            if dt == torch.bfloat16 and i == 0:
+                if not torch.equal(la.linear_attention_out_twopass(q, ctx), out):
+                    raise AssertionError(f"#8 {tag}: two calls on the same inputs differ")
+                a2, s2 = la.linear_attention_ctx_twopass(k, v, m, chunk)
+                if not (torch.equal(a2, a) and torch.equal(s2, s)):
+                    raise AssertionError(f"#7 {tag}: two calls on the same inputs differ")
+                row["same_bits_twice"] = {"linear_attention_ctx_twopass": True,
+                                          "linear_attention_out_twopass": True}
+                del a2, s2
                 row["route_ms"] = {
                     "twopass": time_ms(lambda: la.linear_attention_twopass(q, k, v, chunk), 10),
                     "reference": time_ms(lambda: la.linear_attention_reference(q, k, v), 10),
@@ -1799,6 +1824,16 @@ def la_grad_parity(device) -> dict:
     return {"loss": loss_k, "loss_plain": loss_p, "worst_grad_rel_diff": worst}
 
 
+PLAN_KEY = {"linear_attention_ctx_twopass": "plan7", "linear_attention_per_head": "plan9"}
+
+
+def route_text(plan: dict) -> str:
+    """A plan of #7 or #9 as its route and splits (#9: statistics/context/out)."""
+    if "splits" in plan:
+        return f"{plan['route']} x{plan['splits']}"
+    return f"{plan['route']} {plan['stat_splits']}/{plan['ctx_splits']}/{plan['out_splits']}"
+
+
 def slice4_kernel_rows(la_rows: dict, tp_rows: dict, ba_rows: dict, path: dict, grads: dict,
                        card: str) -> list:
     """The kernels-line entries of #6-#9 and #12."""
@@ -1820,6 +1855,8 @@ def slice4_kernel_rows(la_rows: dict, tp_rows: dict, ba_rows: dict, path: dict, 
             "ms_is": ("one call at B {}, N {}, H 4, D 32, chunk {}, bf16".format(
                 *TWOPASS_SHAPES[0]) if "twopass" in name
                 else f"one call at B {b}, N {n}, H {h}, D {d}, bf16"),
+            **({"routes": {tag: route_text(r[PLAN_KEY[name]]["bfloat16"])
+                           for tag, r in rows.items()}} if name in PLAN_KEY else {}),
             "by_shape": {tag: {**r.get(name, {}), "max_err": r["max_err"]}
                          for tag, r in rows.items()},
             "card": card})

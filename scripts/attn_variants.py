@@ -31,10 +31,12 @@ under build/), so that two designs are compared in one call.
 
 --la-variants: builds csrc/linear_attention.cu with its tunables
 substituted (LA_TUNABLES: the tiles of the statistics and context
-launches' rings, and the statistics blocks an SM) as --variants does, then
-times #6 at the B-64 LA_SHAPES for each in turns (the committed values
-first and last), each held to its plain version at phase
-13's bf16 bound first, with the card's time by kernel at N 4096.
+launches' rings, the statistics blocks an SM, and the tiles and tokens a
+tile of #9's context ring) as --variants does, then times #6 and #9 at the B-64
+LA_SHAPES and #7 at the first TWOPASS_SHAPES for each in turns (the
+committed values first and last), each held to its plain version at
+phase 13's or 14's bf16 bound first, with the card's time by kernel at N
+4096 (#6, #9) and N 16384 (#7).
 
 --variants: builds csrc/attn_block.cu with its tunables substituted (the
 split route's blocks per SM it aims at, kSplitOcc; the minimum blocks per
@@ -69,10 +71,14 @@ VARIANTS = [COMMITTED, {**COMMITTED, "kSplitOcc": 1}, {**COMMITTED, "kSplitOcc":
             {**COMMITTED, "kSplitMinBlocks": 1}, {**COMMITTED, "kFusedMaxN": 64},
             {**COMMITTED, "kFusedMaxN": 256}]
 LA_TUNABLES = {"kStages": "constexpr int kStages = {};",
-               "kStatBlocks": "constexpr int kStatBlocks = {};"}
-LA_COMMITTED = {"kStages": 3, "kStatBlocks": 3}
-LA_VARIANTS = [LA_COMMITTED, {"kStages": 2, "kStatBlocks": 4}, {"kStages": 2, "kStatBlocks": 2},
-               {"kStages": 3, "kStatBlocks": 2}]
+               "kStatBlocks": "constexpr int kStatBlocks = {};",
+               "kFStages": "constexpr int kFStages = {};",
+               "kFT": "constexpr int kFT = {};"}
+LA_COMMITTED = {"kStages": 3, "kStatBlocks": 3, "kFStages": 3, "kFT": 32}
+LA_VARIANTS = [LA_COMMITTED, {**LA_COMMITTED, "kStages": 2, "kStatBlocks": 4},
+               {**LA_COMMITTED, "kStages": 2, "kStatBlocks": 2},
+               {**LA_COMMITTED, "kStatBlocks": 2}, {**LA_COMMITTED, "kFStages": 4},
+               {**LA_COMMITTED, "kFStages": 2, "kFT": 64}]
 
 
 def load_smoke(root: Path):
@@ -231,19 +237,33 @@ def la_variants(cs) -> None:
     shapes = [s for s in cs.LA_SHAPES if s[0] == cs.BATCH]
     inputs = [cs.la_inputs(shape, torch.bfloat16, device, seed=100 + i)
               for i, shape in enumerate(shapes)]
+    b, n, chunk = cs.TWOPASS_SHAPES[0]
+    _, k7, v7 = cs.la_inputs((b, n, cs.HEADS, cs.DIM_HEAD), torch.bfloat16, device, seed=150)
+    m7 = k7.amax(1).float().reshape(b, cs.F)
+    call7 = lambda: la.linear_attention_ctx_twopass(k7, v7, m7, chunk)
+    by_kernel = lambda dev: json.dumps({key.replace("void (anonymous namespace)::", "")[:60]: ms
+                                        for key, ms in dev.items()})
     for name in [*libs, name_of(LA_COMMITTED)]:
         la._library = lambda lib=libs[name]: lib
-        la.la_plan.cache_clear()
-        times = []
-        for shape, (q, k, v) in zip(shapes, inputs):
-            call = lambda: la.linear_attention_fulllane(q, k, v)
-            cs.la_check(call(), la.fulllane_reference(q, k, v), f"{name} {shape}")
-            times.append(f"{shape[1]}x{shape[2]}x{shape[3]} {cs.time_ms(call):.4f}")
-        q, k, v = inputs[0]
-        dev = cs.device_ms(lambda: la.linear_attention_fulllane(q, k, v))
-        print(f"{name}: " + "; ".join(times) + " | by kernel at " + str(shapes[0]) + ": "
-              + json.dumps({key.replace("void (anonymous namespace)::", "")[:60]: ms
-                            for key, ms in dev.items()}), flush=True)
+        for plan in (la.la_plan, la.per_head_plan, la.twopass_plan):
+            plan.cache_clear()
+        for kernel, fn, plain in (("#6", la.linear_attention_fulllane, la.fulllane_reference),
+                                  ("#9", la.linear_attention_per_head,
+                                   la.linear_attention_reference)):
+            times = []
+            for shape, (q, k, v) in zip(shapes, inputs):
+                cs.la_check(fn(q, k, v), plain(q, k, v), f"{name} {kernel} {shape}")
+                ms = cs.time_ms(lambda: fn(q, k, v))
+                times.append(f"{shape[1]}x{shape[2]}x{shape[3]} {ms:.4f}")
+            q, k, v = inputs[0]
+            print(f"{name} {kernel}: " + "; ".join(times) + " | by kernel at " + str(shapes[0])
+                  + ": " + by_kernel(cs.device_ms(lambda: fn(q, k, v))), flush=True)
+        (a, s), (ra, rs) = call7(), la.ctx_twopass_reference(k7, v7, m7)
+        cs.la_check(a, ra, f"{name} #7 a")
+        cs.la_check(s, rs, f"{name} #7 s")
+        print(f"{name} #7: {n}x{cs.HEADS}x{cs.DIM_HEAD} {cs.time_ms(call7, reps=10):.4f} | by "
+              f"kernel at {(b, n, cs.HEADS, cs.DIM_HEAD)}: " + by_kernel(cs.device_ms(call7)),
+              flush=True)
 
 
 def main() -> int:

@@ -328,3 +328,42 @@ def test_cuda_la_plan_route_and_one_launch_a_call(b, n, h, d, dtype, route):
         _assert_rounding(got6, want6, la.linear_attention_reference(q, k, v))
         _assert_rounding(got8, want8, torch.einsum("bnhd,bhde->bnhe", la._q_prime(
             q, torch.float32), ctx.float()).to(q.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h,d,dtype,route7,route9", [
+    (3, 1000, 4, 32, "bfloat16", "tensor", "rows"), (2, 256, 2, 64, "bfloat16", "tensor", "rows"),
+    (2, 300, 8, 16, "bfloat16", "tensor", "rows"), (1, 64, 1, 128, "bfloat16", "tensor", "rows"),
+    (2, 500, 2, 48, "bfloat16", "tensor", "rows"), (2, 96, 16, 24, "bfloat16", "cores", "cores"),
+    (3, 1000, 4, 32, "float32", "cores", "cores")])
+def test_cuda_twopass_and_per_head_routes(b, n, h, d, dtype, route7, route9):
+    """twopass_plan's route of #7 and per_head_plan's of #9 on the card (the
+    tensor cores and whole rows in f32 for bf16 at D % 16 == 0), one launch
+    of each counter a call, each against its plain version (in bf16 nearer
+    its own rounding points than the other ones) and the same bits twice;
+    #7's m is colmax + 0.5, which it uses as given."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    assert la.twopass_plan(b, n, h, d, 2048, dt).route == route7
+    assert la.per_head_plan(b, n, h, d, dt).route == route9
+    q, k, v = _cuda_qkv(5 * n + d, (b, n, h, d), dtype)
+    m = k.float().amax(1).reshape(b, h * d) + 0.5
+    before = la.linear_attention_ctx_twopass.launches, la.linear_attention_per_head.launches
+    (a, s), (a2, s2) = (la.linear_attention_ctx_twopass(k, v, m) for _ in range(2))
+    got9, again9 = la.linear_attention_per_head(q, k, v), la.linear_attention_per_head(q, k, v)
+    torch.cuda.synchronize()
+    assert (la.linear_attention_ctx_twopass.launches,
+            la.linear_attention_per_head.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(a, a2) and torch.equal(s, s2) and torch.equal(got9, again9)
+    ra, rs = la.ctx_twopass_reference(k, v, m)
+    torch.testing.assert_close(a, ra, rtol=2e-3, atol=1e-4 * float(ra.abs().max()))
+    torch.testing.assert_close(s, rs, rtol=2e-3, atol=1e-4 * float(rs.abs().max()))
+    want9 = la.linear_attention_reference(q, k, v)
+    torch.testing.assert_close(got9.float(), want9.float(), **_tol(want9, dtype))
+    if dtype == "bfloat16":
+        e = torch.exp(k.float() - m.view(b, 1, h, d))
+        _assert_rounding(a, ra, torch.einsum("bnhd,bnhe->bhde", e, v.float()))
+        _assert_rounding(s, rs, e.bfloat16().float().sum(1).reshape(b, h * d))
+        _assert_rounding(got9, want9, la.fulllane_reference(q, k, v))
