@@ -10,12 +10,18 @@ forward, cond rows first, then `apply_cfg`, and CFG++), `ddim_sample`
 JAX samplers are one lax.scan each; here each is a Python loop over the same
 steps. The losses draw t, the CFG keep mask, the noise and the projection
 directions from an explicit torch.Generator, or take them from `draws`
-(keys "t", "keep_mask", "noise", "proj"); the samplers draw their initial
-noise and their per-step noise [S, B, H, W, C] from a generator, or take
-them as `noise` and `step_noise` (so a test can hand in JAX's draws: the
-initial one from split(key)[0], step i's from split(split(key)[1], S)[i]).
-Offset noise, the H(y) covariance and the elastic aux loss come in later
-slices (ROADMAP.md).
+(keys "t", "keep_mask", "noise", "offset", "proj"); the samplers draw their
+initial noise and their per-step noise [S, B, H, W, C] from a generator, or
+take them as `noise` and `step_noise` (so a test can hand in JAX's draws:
+the initial one from split(key)[0], step i's from split(split(key)[1], S)[i]).
+
+With use_Hy the label-conditioned diagonal covariance H(y) =
+exp(-min(fn_y2cov(y), hy_max_log)) (gaussian.py:79-136) scales the noise
+by sqrt(H(y)) and divides the per-pixel loss by H(y) on the rows that keep
+their condition, and scales the samplers' initial noise by sqrt(H(y)) of
+their `labels` (gaussian.py:378-382). `loss` adds the offset noise of
+--offset_noise_strength; `weighted_loss` ignores it, as the JAX package
+does. The elastic aux loss comes in a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ class DiffusionConfig:
     distance: str = "l2"
     vector_type: str = "gaussian"
     num_projections: int = 1
+    # cap on the log-scale h of H(y) = exp(-h); <= 0 keeps h uncapped
     hy_max_log: float = 4.0
 
     @property
@@ -79,26 +86,48 @@ def ddim_time_pairs(timesteps: int, sampling_timesteps: int) -> list[tuple[int, 
     return list(zip(times[:-1], times[1:]))
 
 
-class GaussianDiffusion:
-    """Holds the config, the schedule buffers on `device`, and the denoiser
-    (an nn.Module with the Unet's forward(x, t, labels_emb, keep_mask))."""
+def hy_from_y2cov(h: torch.Tensor, max_log: float = 4.0) -> torch.Tensor:
+    """H(y) = exp(-h) with h capped at `max_log` when it is positive (a
+    deliberate deviation of the JAX package from its reference, which
+    leaves h unbounded: a runaway h multiplies a pixel's loss by exp(h))."""
+    if max_log and max_log > 0:
+        h = torch.clamp(h, max=max_log)
+    return torch.exp(-h)
 
-    def __init__(self, model: nn.Module, config: DiffusionConfig, device="cpu"):
+
+class GaussianDiffusion:
+    """Holds the config, the schedule buffers on `device`, the denoiser (an
+    nn.Module with the Unet's forward(x, t, labels_emb, keep_mask)) and,
+    with use_Hy, fn_y2cov (labels -> [B, C*H*W] in CHW order)."""
+
+    def __init__(self, model: nn.Module, config: DiffusionConfig, device="cpu",
+                 fn_y2cov=None):
+        if config.use_Hy and fn_y2cov is None:
+            raise ValueError("use_Hy=True requires fn_y2cov")
         self.model = model
         self.config = config
         self.device = torch.device(device)
+        self.fn_y2cov = fn_y2cov
         self.schedule = make_schedule(config.timesteps, config.beta_schedule,
                                       config.objective, config.min_snr_loss_weight,
                                       config.min_snr_gamma, device=self.device)
 
+    # ---------------------------------------------------------------- Hy
+
+    def convert_y_to_cov(self, labels: torch.Tensor) -> torch.Tensor:
+        """H(y) [B, H, W, C]: fn_y2cov's flat CHW output, capped, exp(-h),
+        reshaped to [B, C, H, W] and permuted to NHWC."""
+        c = self.config
+        b = labels.shape[0]
+        cov = hy_from_y2cov(self.fn_y2cov(labels.to(self.device)), c.hy_max_log)
+        return cov.reshape(b, c.channels, c.image_size, c.image_size).permute(0, 2, 3, 1)
+
     # ------------------------------------------------------------- loss
 
-    def _per_sample_loss(self, images01, labels_emb, train, gen, draws):
-        """(per-sample SNR-weighted MSE [B], keep_mask [B]) for one batch."""
+    def _per_sample_loss(self, images01, labels, labels_emb, train, gen, draws, offset):
+        """(per-sample SNR-weighted MSE [B], keep_mask [B]) for one batch;
+        `offset` adds the offset noise."""
         c = self.config
-        if c.use_Hy or c.offset_noise_strength > 0:
-            raise NotImplementedError("the H(y) covariance (--use_Hy) and offset noise "
-                                      "come in a later slice (ROADMAP.md)")
         sched, dev = self.schedule, self.device
         b = images01.shape[0]
         x_start = normalize_to_neg_one_to_one(images01.to(dev))
@@ -112,7 +141,18 @@ class GaussianDiffusion:
         if noise is None:
             noise = torch.randn(x_start.shape, generator=gen, device=dev)
         t, keep_mask, noise = t.to(dev), keep_mask.to(dev), noise.to(dev)
-        x_t = q_sample(sched, x_start, t, noise)
+        keep4 = keep_mask[:, None, None, None]
+        if c.use_Hy:
+            hy = self.convert_y_to_cov(labels)
+            noise = torch.where(keep4, noise * torch.sqrt(hy), noise)
+        offset_noise = None
+        if offset and c.offset_noise_strength > 0:
+            offset_noise = draws.get("offset")
+            if offset_noise is None:
+                offset_noise = torch.randn((b, c.channels), generator=gen, device=dev)
+            offset_noise = offset_noise.to(dev)
+        x_t = q_sample(sched, x_start, t, noise, c.offset_noise_strength if offset else 0.0,
+                       offset_noise)
         model_out = self.model(x_t, t, labels_emb, keep_mask, train=train)
         if c.objective == "pred_noise":
             target = noise
@@ -121,6 +161,8 @@ class GaussianDiffusion:
         else:
             target = predict_v(sched, x_start, t, noise)
         sq = (model_out - target) ** 2
+        if c.use_Hy:
+            sq = sq / torch.where(keep4, hy, torch.ones_like(hy))
         return sq.reshape(b, -1).mean(-1) * sched.loss_weight[t], keep_mask
 
     def loss(self, images01: torch.Tensor, labels: torch.Tensor, labels_emb: torch.Tensor,
@@ -131,7 +173,8 @@ class GaussianDiffusion:
         it, the batch is weighted by the intra-batch vicinal weights."""
         c = self.config
         draws = draws or {}
-        per_sample, keep_mask = self._per_sample_loss(images01, labels_emb, train, gen, draws)
+        per_sample, keep_mask = self._per_sample_loss(images01, labels, labels_emb, train, gen,
+                                                      draws, offset=True)
         if vicinal_weights is None or c.vicinity_type == "none":
             return per_sample.mean()
         b = per_sample.shape[0]
@@ -152,9 +195,10 @@ class GaussianDiffusion:
                       labels_emb: torch.Tensor, weights: torch.Tensor, train: bool = True,
                       gen: Optional[torch.Generator] = None, draws: Optional[dict] = None):
         """Vanilla-tree reduction (gaussian.py:258-312): per-sample weights
-        applied directly, dropped-condition rows at weight 1."""
-        per_sample, keep_mask = self._per_sample_loss(images01, labels_emb, train, gen,
-                                                      draws or {})
+        applied directly, dropped-condition rows at weight 1; no offset
+        noise."""
+        per_sample, keep_mask = self._per_sample_loss(images01, labels, labels_emb, train, gen,
+                                                      draws or {}, offset=False)
         w = torch.where(keep_mask, weights.to(self.device), torch.ones_like(per_sample))
         return (w * per_sample).sum() / per_sample.shape[0]
 
@@ -201,6 +245,13 @@ class GaussianDiffusion:
             raise ValueError(f"{what} must have shape {tuple(shape)}, got {tuple(given.shape)}")
         return given.to(self.device, torch.float32)
 
+    def _init_noise(self, shape, noise, generator, labels) -> torch.Tensor:
+        """The sampler's initial noise, times sqrt(H(labels)) with use_Hy."""
+        img = self._draw(shape, noise, generator, "noise")
+        if self.config.use_Hy and labels is not None:
+            img = img * torch.sqrt(self.convert_y_to_cov(labels))
+        return img
+
     def _shape(self, labels_emb: torch.Tensor) -> tuple:
         c = self.config
         return (labels_emb.shape[0], c.image_size, c.image_size, c.channels)
@@ -212,10 +263,12 @@ class GaussianDiffusion:
                     ddim_eta: Optional[float] = None,
                     noise: Optional[torch.Tensor] = None,
                     step_noise: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """DDIM from `noise` (or a draw from `generator`) to images in [0, 1],
-        NHWC f32. With eta > 0 step i adds sigma * step_noise[i] ([S, B, H,
-        W, C], or a draw from `generator`)."""
+                    generator: Optional[torch.Generator] = None,
+                    labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """DDIM from `noise` (or a draw from `generator`; with use_Hy times
+        sqrt(H(labels))) to images in [0, 1], NHWC f32. With eta > 0 step i
+        adds sigma * step_noise[i] ([S, B, H, W, C], or a draw from
+        `generator`)."""
         c = self.config
         b = labels_emb.shape[0]
         shape = self._shape(labels_emb)
@@ -225,7 +278,7 @@ class GaussianDiffusion:
         if step_noise is not None:
             step_noise = self._draw((steps, *shape), step_noise, None, "step_noise")
 
-        img = self._draw(shape, noise, generator, "noise")
+        img = self._init_noise(shape, noise, generator, labels)
         for i, (time, time_next) in enumerate(ddim_time_pairs(c.timesteps, steps)):
             t_cond = torch.full((b,), time, dtype=torch.long, device=self.device)
             pred_noise, x_start = self.model_predictions(
@@ -252,12 +305,14 @@ class GaussianDiffusion:
                       sampling_timesteps: Optional[int] = None,
                       noise: Optional[torch.Tensor] = None,
                       step_noise: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Ancestral DDPM (gaussian.py:450-494): t = S-1, ..., 0 against the
         full schedule buffers (S < T is not a respaced schedule, as in the
         JAX package and its reference), x_0 clipped after model_predictions,
         the posterior mean plus exp(log_var / 2) * step_noise[i], no noise at
-        t = 0. Images in [0, 1], NHWC f32."""
+        t = 0; the initial noise as ddim_sample's. Images in [0, 1], NHWC
+        f32."""
         c = self.config
         b = labels_emb.shape[0]
         shape = self._shape(labels_emb)
@@ -268,7 +323,7 @@ class GaussianDiffusion:
         if step_noise is not None:
             step_noise = self._draw((steps, *shape), step_noise, None, "step_noise")
 
-        img = self._draw(shape, noise, generator, "noise")
+        img = self._init_noise(shape, noise, generator, labels)
         for i, time in enumerate(range(steps - 1, -1, -1)):
             t_cond = torch.full((b,), time, dtype=torch.long, device=self.device)
             _, x_start = self.model_predictions(img, t_cond, labels_emb, cond_scale,

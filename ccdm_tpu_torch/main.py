@@ -7,8 +7,11 @@ model construction it shares with serve.py.
         --niters 30 --save_every 30
 
 Flow: parse flags -> the setting folder <root_path>/output/<data>_<size>/
-<setting_name> and setting_info.txt -> dataset -> label embedding -> the
-denoiser on the card (--device cpu for the CPU) -> GaussianDiffusion ->
+<setting_name> and setting_info.txt -> dataset -> label embeddings
+(fn_y2h, and fn_y2cov with --use_Hy; --y2h_embed_type resnet trains the ILI
+nets on the device into <setting folder>/embed_models/, or loads them from
+there) -> the denoiser on the card (--device cpu for the CPU) ->
+GaussianDiffusion (with H(y) under --use_Hy, capped by --hy_max_log) ->
 Trainer (+ resume from --resume_niter) -> train, with an EMA sample grid
 every --sample_every steps -> a milestone at --niters -> per eval label
 (get_eval_labels, --eval_mode), --nfake_per_label samples from the EMA
@@ -201,7 +204,7 @@ def main(argv=None):
         args.num_projections = 10 if d > 20 else 5 if d > 10 else 3 if d > 5 else 1
 
     resolve_label_embed(args)
-    fn_y2h = build_label_embedding(args)
+    fn_y2h, fn_y2cov = build_label_embedding(args, setting_folder, bundle=bundle, device=device)
     model = build_model(args, bundle.image_size, bundle.channels).to(
         device, memory_format=torch.channels_last)
     n_params = sum(p.numel() for p in model.parameters())
@@ -211,9 +214,9 @@ def main(argv=None):
         timesteps=args.train_timesteps, sampling_timesteps=args.sample_timesteps,
         objective=args.pred_objective, beta_schedule=args.beta_schedule,
         ddim_sampling_eta=args.ddim_eta, cond_drop_prob=args.cond_drop_prob, use_Hy=args.use_Hy,
-        vicinity_type=args.vicinity_type, distance=args.distance,
+        hy_max_log=args.hy_max_log, vicinity_type=args.vicinity_type, distance=args.distance,
         vector_type=args.vector_type, num_projections=args.num_projections)
-    diffusion = GaussianDiffusion(model, dcfg, device=device)
+    diffusion = GaussianDiffusion(model, dcfg, device=device, fn_y2cov=fn_y2cov)
     # the grid's labels: 6 quantiles of the unique labels, 6 of each (main.py:203-205)
     uniq = np.sort(np.unique(bundle.labels_norm.reshape(len(bundle.labels_norm), -1)[:, 0]))
     y_visual = np.repeat(np.quantile(uniq, np.linspace(0.05, 0.95, 6)), 6).astype(np.float32)

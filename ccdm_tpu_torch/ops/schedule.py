@@ -1,9 +1,10 @@
 """Diffusion noise schedules and the closed-form conversions of sampling.
 
-Counterpart of ccdm_tpu/ops/schedule.py:26-185, with q_sample and predict_v
-for the training loss and q_posterior for the ancestral sampler. The betas and every buffer
-are computed on the host in float64 with numpy and stored as float32 tensors,
-so they equal the JAX package's bit for bit.
+Counterpart of ccdm_tpu/ops/schedule.py:26-185, with q_sample (and its
+offset noise) and predict_v for the training loss and q_posterior for the
+ancestral sampler. The betas and every buffer are computed on the host in
+float64 with numpy and stored as float32 tensors, so they equal the JAX
+package's bit for bit.
 """
 
 from __future__ import annotations
@@ -126,10 +127,14 @@ def predict_start_from_v(sched: Schedule, x_t: torch.Tensor, t: torch.Tensor,
             - extract(sched.sqrt_one_minus_alphas_cumprod, t, x_t.ndim) * v)
 
 
-def q_sample(sched: Schedule, x_start: torch.Tensor, t: torch.Tensor,
-             noise: torch.Tensor) -> torch.Tensor:
-    """Forward diffusion x_t = sqrt(ac_t) x_0 + sqrt(1 - ac_t) eps (NHWC).
-    Offset noise (ccdm_tpu/ops/schedule.py:134-150) comes in a later slice."""
+def q_sample(sched: Schedule, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+             offset_noise_strength: float = 0.0,
+             offset_noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Forward diffusion x_t = sqrt(ac_t) x_0 + sqrt(1 - ac_t) eps (NHWC),
+    with the offset noise [B, C] of ccdm_tpu/ops/schedule.py:134-147 added
+    to eps over every pixel when its strength is positive."""
+    if offset_noise_strength > 0.0 and offset_noise is not None:
+        noise = noise + offset_noise_strength * offset_noise[:, None, None, :]
     return (extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
             + extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)
 

@@ -1,8 +1,8 @@
 """CLI flags of the training, sampling and serving paths, with
 ccdm_tpu/opts.py's names, defaults and choices, plus --device. Flags that
-nothing in the port reads yet (most of eval, the ILI embeddings) come with
-their slices; --lambda_aux, --gif_trajectory, --interpolation, --comp_FID
-and --dump_fake_for_NIQE are parsed and raise."""
+nothing in the port reads yet (most of eval) come with their slices;
+--lambda_aux, --gif_trajectory, --interpolation, --comp_FID and
+--dump_fake_for_NIQE are parsed and raise."""
 
 from __future__ import annotations
 
@@ -82,8 +82,23 @@ def parse_opts(argv=None):
     # Label embedding
     parser.add_argument("--y2h_embed_type", type=str, default="sinusoidal",
                         choices=["resnet", "sinusoidal", "gaussian"])
+    parser.add_argument("--y2cov_embed_type", type=str, default="sinusoidal",
+                        choices=["resnet", "sinusoidal", "gaussian"])
     parser.add_argument("--use_Hy", action="store_true", default=False)
+    parser.add_argument("--hy_max_log", type=float, default=4.0,
+                        help="cap on the y2cov log-scale h in Hy=exp(-h); "
+                             "<=0 disables (exact reference semantics)")
+    parser.add_argument("--net_embed", type=str, default="ResNet34_embed")
+    parser.add_argument("--epoch_cnn_embed", type=int, default=200)
+    parser.add_argument("--resumeepoch_cnn_embed", type=int, default=0)
+    parser.add_argument("--epoch_net_y2h", type=int, default=500)
     parser.add_argument("--dim_embed", type=int, default=128)
+    parser.add_argument("--batch_size_embed", type=int, default=256)
+    parser.add_argument("--net_embed_y2cov", type=str, default="ResNet34_embed_y2cov")
+    parser.add_argument("--epoch_cnn_embed_y2cov", type=int, default=10)
+    parser.add_argument("--resumeepoch_cnn_embed_y2cov", type=int, default=0)
+    parser.add_argument("--epoch_net_y2cov", type=int, default=500)
+    parser.add_argument("--batch_size_embed_y2cov", type=int, default=256)
 
     # Auxiliary elastic loss: parsed, raises above 0 (ROADMAP.md)
     parser.add_argument("--lambda_aux", type=float, default=0.0)

@@ -18,7 +18,12 @@ batch. It runs on the card unless --device cpu is given. It serves the
 EMA weights of the port's milestone --serve_milestone N, found under
 <root_path>/output/<data_name>_<image_size>/<setting_name>/results as
 main.py writes it, or with --serve_milestone 0 the weights drawn from
---seed or a state_dict handed in (e.g. from utils/convert.py).
+--seed or a state_dict handed in (e.g. from utils/convert.py). The label
+embeddings are the teacher's: the analytic types as main.py builds them, a
+resnet-ILI model's nets loaded from <setting folder>/embed_models/, where
+main.py trained them. Serving never trains them: without that cache it
+raises FileNotFoundError, with no fallback to another embedding. With
+--use_Hy each request's labels scale the initial noise by sqrt(H(y)).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import base64
 import io
 import json
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -49,7 +55,9 @@ class SamplerService:
 
         self.device = resolve_device(device)
         resolve_label_embed(args)
-        self.fn_y2h = build_label_embedding(args)
+        setting_folder = os.path.dirname(results_folder(args))
+        self.fn_y2h, fn_y2cov = build_label_embedding(args, setting_folder, bundle=None,
+                                                      require_cached=True, device=self.device)
         model = build_model(args, args.image_size, args.num_channels)
         self.loaded_milestone: Optional[int] = None
         if args.serve_milestone > 0:
@@ -67,8 +75,9 @@ class SamplerService:
                                sampling_timesteps=args.sample_timesteps,
                                objective=args.pred_objective,
                                beta_schedule=args.beta_schedule,
-                               ddim_sampling_eta=args.ddim_eta)
-        self.diffusion = GaussianDiffusion(model, dcfg, device=self.device)
+                               ddim_sampling_eta=args.ddim_eta, use_Hy=args.use_Hy,
+                               hy_max_log=args.hy_max_log)
+        self.diffusion = GaussianDiffusion(model, dcfg, device=self.device, fn_y2cov=fn_y2cov)
         self.max_batch = max_batch
         self.max_labels = max_labels
         self.cond_scale = args.sample_cond_scale

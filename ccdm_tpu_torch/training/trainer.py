@@ -14,7 +14,8 @@ micro-batch; keys of `_make_batch`: "target_idx", "target_eps", "gumbel",
 "keep_mask", "noise", "proj").
 
 `sample_given_labels` (trainer.py:444-514) samples a list of labels with
-the diffusion's model in chunks, by DDIM or the ancestral sampler; each
+the diffusion's model in chunks, by DDIM or the ancestral sampler, each
+chunk's labels passed on for H(y) (trainer.py:433, 482, 487); each
 chunk draws from its own generator seeded from (key_base, done), as the JAX
 version uses fold_in(PRNGKey(key_base), done). With `y_visual` set, `train`
 writes a grid sampled from the EMA weights by DDIM every `sample_every`
@@ -275,7 +276,8 @@ class Trainer:
         model = self.state.ema_model
         if self.config.sample_precast_bf16:
             model = precast_sampling_params(copy.deepcopy(model))
-        return GaussianDiffusion(model, self.diffusion.config, device=self.device)
+        return GaussianDiffusion(model, self.diffusion.config, device=self.device,
+                                 fn_y2cov=self.diffusion.fn_y2cov)
 
     def _save_visual_grid(self, fn_y2h: Callable, step: int) -> None:
         """DDIM from the EMA weights for the y_visual labels, drawn from a
@@ -286,7 +288,7 @@ class Trainer:
         imgs = self.ema_diffusion().ddim_sample(
             fn_y2h(y), cond_scale=cfg.cond_scale_visual,
             sampling_timesteps=cfg.sample_timesteps_visual,
-            generator=torch.Generator(device=self.device).manual_seed(step))
+            generator=torch.Generator(device=self.device).manual_seed(step), labels=y)
         save_image_grid(imgs.cpu().numpy(),
                         os.path.join(cfg.results_folder, f"sample_{step}.png"),
                         nrow=6)
@@ -372,15 +374,17 @@ def sample_given_labels(diffusion, given_labels: np.ndarray, fn_y2h: Callable,
         pad = batch_size - len(chunk)
         if pad:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
-        emb = fn_y2h(torch.from_numpy(chunk).to(device))
+        y = torch.from_numpy(chunk).to(device)
+        emb = fn_y2h(y)
         gen = torch.Generator(device=device).manual_seed(chunk_seed(key_base, done))
         if sampler == "ddim":
             imgs = diffusion.ddim_sample(emb, cond_scale=cond_scale,
                                          sampling_timesteps=sample_timesteps,
-                                         ddim_eta=ddim_eta, generator=gen)
+                                         ddim_eta=ddim_eta, generator=gen, labels=y)
         else:
             imgs = diffusion.p_sample_loop(emb, cond_scale=cond_scale,
-                                           sampling_timesteps=sample_timesteps, generator=gen)
+                                           sampling_timesteps=sample_timesteps, generator=gen,
+                                           labels=y)
         imgs = imgs[:len(chunk) - pad]
         if not bool(torch.isfinite(imgs).all()):
             raise FloatingPointError("the sampler produced non-finite values")

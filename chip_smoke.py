@@ -55,7 +55,8 @@ Phases, each announced on a flushed line before it starts:
      kernels and with plain attention on the same batch and draws: every
      gradient leaf within 1e-3 of its largest |g| (the two biases feeding a
      train-mode BatchNorm, whose exact gradient is zero, within 1e-3 of the
-     model's largest |g|), the loss to 1e-5;
+     model's largest |g|), the loss to 1e-5; then the same with use_Hy,
+     H(y) from a ModelY2Cov of random weights (12288 outputs, f32);
   8. the training main path: `python -m ccdm_tpu_torch.main` at full width,
      batch 128, bf16, 30 steps, a milestone at the end (run folder
      build/smoke_run, deleted after), then 2 eval labels x 4 images, 10
@@ -130,18 +131,33 @@ Phases, each announced on a flushed line before it starts:
   17. one f32 loss + backward through the module at B 128, N 4096 (#6
      forward, plain backward) against the all-plain route: every gradient
      within 1e-3 of its largest |g|;
-  18. the share of the timed CFG forwards that the 23 blocks take (the
+  18. the CCDM recipe (the launch scripts' --use_Hy --y2h_embed_type
+     resnet --y2cov_embed_type resnet; recipe_main_path): `python -m
+     ccdm_tpu_torch.main` at phase 8's width, batch and data with
+     --hy_max_log 4.0 and the ILI epochs cut to 2 CNN and 20 MLP epochs
+     for y2h and 1 and 20 for y2cov (the ILI nets train on the card in
+     f32), 20 steps, then the sampling after training: losses finite, the
+     four cache entries written, launches exactly 8 of #1 and 2 each of
+     #2-#5 per step and 10 of #1 per sampling forward, none of the rest;
+     seconds per epoch of each ILI stage, fn_y2cov's time for a micro-batch
+     of 128, warm train images/s beside phase 8's; then SamplerService
+     --serve_milestone 20 with the embeddings loaded from the cache only
+     (its fn_y2cov equal to the trainer's) answers one HTTP request of 32
+     labels at 25 DDIM steps (10 launches of #1 per forward; served
+     images/s), and a service pointed at a setting folder without
+     embed_models/ raises FileNotFoundError;
+  19. the share of the timed CFG forwards that the 23 blocks take (the
      cuDNN composition with the switch off, #10 + #11 with it on, each
      timed alone in phase 9), #10 + #11 against that composition and per
      level, then one JSON line {"kernels": [...]} with errors, times and
      bounds of all 12 kernels (#1 with its route per shape, #12 with the
      card's own time beside F.leaky_relu's);
-  19. the card's name and power limit, then the last line
+  20. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
-main path (phases 5, 8, 11, 12, 16) starts from launch counts set to 0 and
-reads them just after; the paths of phases 5, 8, 11 and 12 launch none of
-#6-#9 and #12. TF32 is off for the whole run (it only touches the f32
+main path (phases 5, 8, 11, 12, 16, 18) starts from launch counts set to 0
+and reads them just after; the paths of phases 5, 8, 11, 12 and 18 launch
+none of #6-#9 and #12. TF32 is off for the whole run (it only touches the f32
 checks and the f32 convolutions). Any failed phase raises and the script
 exits non-zero; a hang becomes a stack dump and a non-zero exit after
 1100 s. It writes nothing outside build/.
@@ -170,8 +186,10 @@ import numpy as np
 import torch
 
 from ccdm_tpu_torch.diffusion.gaussian import DiffusionConfig, GaussianDiffusion
+from ccdm_tpu_torch.embedding import ili
 from ccdm_tpu_torch.embedding.analytic import make_fn_y2h
 from ccdm_tpu_torch.models.layers import FusedLinearAttentionBlock, LinearAttention, PreNormResidual
+from ccdm_tpu_torch.models.resnet_embed import ModelY2Cov
 from ccdm_tpu_torch.models.unet import Unet
 from ccdm_tpu_torch.ops import _build, attn_block, resnet_block
 from ccdm_tpu_torch.ops import linear_attention as la
@@ -891,16 +909,18 @@ def dim_head_vs_plain(device) -> dict:
 BN_FED_BIASES = ("cond_dense_1.bias", "cond_dense_2.bias")
 
 
-def grad_parity(device) -> dict:
+def grad_parity(device, use_hy: bool = False) -> dict:
     """One loss + backward of the full-width f32 UNet (TF32 off), with the
     kernels and with plain attention, on the same batch and draws. Every
     gradient leaf within 1e-3 of its largest |g|; the two biases that feed
     a train-mode BatchNorm have zero gradient in exact arithmetic (rounding
-    noise on both sides) and are held to 1e-3 of the model's largest |g|."""
+    noise on both sides) and are held to 1e-3 of the model's largest |g|.
+    With `use_hy`, H(y) from a frozen ModelY2Cov of random weights."""
     model = Unet(**UNET, dtype=torch.float32, seed=0).to(device, memory_format=torch.channels_last)
+    fn_y2cov = ili.frozen_embedding(ModelY2Cov(3 * 64 * 64, seed=0), device) if use_hy else None
     diffusion = GaussianDiffusion(model, DiffusionConfig(
-        image_size=64, channels=3, timesteps=1000, objective="pred_x0", vicinity_type="hv"),
-        device=device)
+        image_size=64, channels=3, timesteps=1000, objective="pred_x0", vicinity_type="hv",
+        use_Hy=use_hy), device=device, fn_y2cov=fn_y2cov)
     g = torch.Generator().manual_seed(3)
     b = 8
     images01 = torch.rand(b, 64, 64, 3, generator=g).to(device)
@@ -930,8 +950,8 @@ def grad_parity(device) -> dict:
         if not diff <= 1e-3 * scale:
             raise AssertionError(f"grad {name}: max abs diff {diff:.3e} beyond 1e-3 x {scale:.3e}")
         worst = max(worst, diff / max(scale, 1e-30))
-    print(f"   loss {loss_k:.6f} (plain {loss_p:.6f}); worst gradient leaf {worst:.3e} of its "
-          f"largest |g|", flush=True)
+    print(f"   {'use_Hy: ' if use_hy else ''}loss {loss_k:.6f} (plain {loss_p:.6f}); worst "
+          f"gradient leaf {worst:.3e} of its largest |g|", flush=True)
     if abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
         raise AssertionError(f"loss {loss_k} against plain {loss_p}")
     return {"loss": loss_k, "loss_plain": loss_p, "worst_leaf_rel_diff": worst}
@@ -1017,6 +1037,84 @@ def train_checks(card: str):
         print(f"   served 4 labels x 25 DDIM steps from milestone {TRAIN_STEPS}: uint8 "
               f"{images.shape}, std {images.std():.2f}", flush=True)
         return {"train_images_per_s": ips}
+
+    return checks
+
+
+# ------------------------------------------------------ the CCDM recipe
+
+RECIPE_STEPS = 20
+RECIPE_SERVE_STEPS = 25
+# the launch scripts' embedding flags, with the ILI epochs cut from 200 and
+# 500 (y2h) and 10 and 500 (y2cov) to keep the phase near two minutes
+RECIPE_FLAGS = ["--use_Hy", "--y2h_embed_type", "resnet", "--y2cov_embed_type", "resnet",
+                "--hy_max_log", "4.0", "--epoch_cnn_embed", "2", "--epoch_net_y2h", "20",
+                "--epoch_cnn_embed_y2cov", "1", "--epoch_net_y2cov", "20"]
+RECIPE_ARGV = [*TRAIN_ARGV, *RECIPE_FLAGS, "--niters", str(RECIPE_STEPS),
+               "--save_every", str(RECIPE_STEPS)]
+
+
+def recipe_checks(card: str, phase8_ips: float):
+    """Phase 18's own checks: the ILI cache, fn_y2cov's output and time,
+    the warm rate; then one request served from the milestone with the
+    embeddings loaded from the cache only, and the refusal without one."""
+    def checks(trainer, argv, log) -> dict:
+        from ccdm_tpu_torch.main import results_folder
+
+        setting = Path(results_folder(parse_opts(argv))).parent
+        cache = sorted(p.name for p in (setting / "embed_models").iterdir())
+        tags = ["y2h_d128_e2_m20_seed0", f"y2cov_d{3 * 64 * 64}_e1_m20_seed0"]
+        if not all(f"model-{t}" in cache and f"datafp-{t}.txt" in cache for t in tags):
+            raise AssertionError(f"embed_models/ holds {cache}")
+        stages = dict(ili.STAGE_SECONDS)
+        if sorted(stages) != ["y2cov_cnn", "y2cov_mlp", "y2h_cnn", "y2h_mlp"]:
+            raise AssertionError(f"ILI stage times {stages}")
+        fn_y2cov = trainer.diffusion.fn_y2cov
+        labels = torch.linspace(0.0, 1.0, TRAIN_BATCH, device=trainer.device)[:, None]
+        h = fn_y2cov(labels)
+        if h.shape != (TRAIN_BATCH, 3 * 64 * 64) or not bool(torch.isfinite(h).all()) \
+                or float(h.min()) < 0:
+            raise AssertionError(f"fn_y2cov gave {tuple(h.shape)}, min {float(h.min())}")
+        y2cov_ms = time_ms(lambda: fn_y2cov(labels))
+        warm = [r["imgs_per_sec"] for r in log if r["step"] > RECIPE_STEPS // 3]
+        ips = sum(warm) / len(warm)
+        print(f"   ILI seconds per epoch: y2h CNN {stages['y2h_cnn']:.3f}, y2h MLP "
+              f"{stages['y2h_mlp']:.4f}, y2cov CNN {stages['y2cov_cnn']:.3f}, y2cov MLP "
+              f"{stages['y2cov_mlp']:.4f} on {card}", flush=True)
+        print(f"   fn_y2cov for a micro-batch of {TRAIN_BATCH}: {y2cov_ms:.4f} ms; h mean "
+              f"{float(h.mean()):.4f}, max {float(h.max()):.3f} on {card}", flush=True)
+        print(f"   warm train {ips:.2f} images/s with use_Hy (steps {RECIPE_STEPS // 3 + 1}-"
+              f"{RECIPE_STEPS}, batch {TRAIN_BATCH}, bf16) against {phase8_ips:.2f} in phase 8 "
+              f"on {card}", flush=True)
+
+        args = parse_opts([*argv, "--serve_milestone", str(RECIPE_STEPS), "--sample_timesteps",
+                           str(RECIPE_SERVE_STEPS), "--sample_cond_scale", "1.5"])
+        service = SamplerService(args, max_batch=SERVE_BATCH, warm=True, device=args.device)
+        torch.testing.assert_close(service.diffusion.fn_y2cov(labels), h, rtol=0, atol=0)
+        torch.cuda.synchronize()
+        _reset_counts()
+        batches, n_images, req_s = _serve_requests(service, ((SERVE_BATCH, 3),), 64)
+        counts = _counts()
+        expected = {"attn_block": ATTN_BLOCKS * RECIPE_SERVE_STEPS * batches,
+                    **{k: 0 for k in (*LARGE, *RESNET, *NEW_KERNELS)}}
+        served_ips = n_images / req_s
+        print(f"   served {n_images} labels x {RECIPE_SERVE_STEPS} DDIM steps over HTTP from "
+              f"milestone {RECIPE_STEPS}, embeddings from the cache: {served_ips:.2f} images/s "
+              f"on {card}; launches {counts} (expected {expected})", flush=True)
+        if counts != expected:
+            raise AssertionError(f"serving launches {counts}, expected {expected}")
+        empty = setting.parent / "no_embed_models"
+        try:
+            SamplerService(parse_opts(["--root_path", str(empty), *argv[2:]]), warm=False,
+                           device=args.device)
+        except FileNotFoundError as e:
+            print(f"   a service without embed_models/ refused: {e}", flush=True)
+        else:
+            raise AssertionError("a service without embed_models/ did not raise")
+        return {"ili_seconds_per_epoch": stages, "fn_y2cov_ms": y2cov_ms,
+                "train_images_per_s": ips, "phase8_train_images_per_s": phase8_ips,
+                "served_images_per_s": served_ips, "served_images": n_images,
+                "serve_launches": counts, "card": card}
 
     return checks
 
@@ -1885,12 +1983,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/19 device")
+    phase("1/20 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/19 build")
+    phase("2/20 build")
     libraries = ("attn_block", "attn_block_large", "resnet_block", "linear_attention",
                  "style_ops")
     t0 = time.perf_counter()
@@ -1905,25 +2003,26 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/19 attn_block kernel against its plain version")
+    phase("3/20 attn_block kernel against its plain version")
     rows, rows_by_batch = kernel_vs_plain(device)
 
-    phase("4/19 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/20 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/19 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/20 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/19 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
+    phase("6/20 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
           "bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
     other_dim_head = dim_head_vs_plain(device)
 
-    phase("7/19 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/20 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
+    grads_hy = grad_parity(device, use_hy=True)
 
-    phase(f"8/19 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/20 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
     trained = train_main_path(
         device, card, TRAIN_ARGV, TRAIN_STEPS,
@@ -1931,18 +2030,18 @@ def main() -> int:
          **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, train_checks(card))
 
-    phase("9/19 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+    phase("9/20 kernels #10 and #11 (the fused resnet block) against their plain versions, "
           "f32 and bf16")
     resnet_rows = resnet_vs_plain(device)
 
-    phase("10/19 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    phase("10/20 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
     fused_parity = fused_model_parity(device)
 
-    phase(f"11/19 main path with the switch on: SamplerService over HTTP, bf16, batch "
+    phase(f"11/20 main path with the switch on: SamplerService over HTTP, bf16, batch "
           f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
     fused_served = fused_serve_main_path(device, card)
 
-    phase(f"12/19 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+    phase(f"12/20 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
           f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
     fused_trained = train_main_path(
         device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
@@ -1953,24 +2052,32 @@ def main() -> int:
          **{k: 0 for k in NEW_KERNELS}},
         True, fused_train_checks(card))
 
-    phase("13/19 kernels #6 and #9 (standalone linear attention) against their plain versions")
+    phase("13/20 kernels #6 and #9 (standalone linear attention) against their plain versions")
     la_rows = la_vs_plain(device)
 
-    phase("14/19 kernels #7 + #8 (its two-pass form) against their plain versions")
+    phase("14/20 kernels #7 + #8 (its two-pass form) against their plain versions")
     tp_rows = twopass_vs_plain(device)
 
-    phase("15/19 kernel #12 (bias_act) against its plain version")
+    phase("15/20 kernel #12 (bias_act) against its plain version")
     ba_rows = bias_act_vs_plain(device)
 
-    phase("16/19 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
+    phase("16/20 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
           "the two-pass route, linear_attention_per_head, bias_act")
     la_path = la_main_path(device)
 
-    phase("17/19 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
+    phase("17/20 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
           "kernel forward against the plain route")
     la_grads = la_grad_parity(device)
 
-    phase("18/19 kernels")
+    phase(f"18/20 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
+          f"bf16, {RECIPE_STEPS} steps, then serving from its milestone")
+    recipe = train_main_path(
+        device, card, RECIPE_ARGV, RECIPE_STEPS,
+        {"attn_block": 8 * RECIPE_STEPS + ATTN_BLOCKS * EVAL_FORWARDS,
+         **{k: 2 * RECIPE_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
+        False, recipe_checks(card, trained["train_images_per_s"]))
+
+    phase("19/20 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -1995,6 +2102,7 @@ def main() -> int:
                    for n, c in FORWARD_SHAPES],
         "ms_is": f"sum over the 10 launches of one UNet forward, B {BATCH}, bf16",
         "launches_in_training": trained["launches"]["attn_block"],
+        "launches_in_ccdm_recipe": recipe["launches"]["attn_block"],
         "max_err_bf16": max(r["max_err_bf16"] for r in rows.values()
                             if r["max_err_bf16"] is not None),
         "max_err_f32": max(r["max_err_f32"] for r in rows.values()),
@@ -2016,6 +2124,7 @@ def main() -> int:
             "bound_by": timing["bound_by"], "library_ms": None,
             "ms_is": f"one call at B {TRAIN_BATCH}, N {LARGE_SHAPES[0][0]}, "
                      f"C {LARGE_SHAPES[0][1]}, bf16",
+            "launches_in_ccdm_recipe": recipe["launches"][name],
             "routes": {tag: f"{r[name]['route']} x{r[name]['splits']}"
                        for tag, r in large_rows.items() if name in r},
             "by_shape": {tag: r.get(name, {}) for tag, r in large_rows.items()},
@@ -2023,14 +2132,16 @@ def main() -> int:
     kernels[1]["two_pass_vs_single_pass"] = two_vs_one
     kernels[1]["dim_head_64"] = other_dim_head
     kernels[3]["grad_parity"] = grads
+    kernels[3]["grad_parity_use_Hy"] = grads_hy
     kernels[3]["max_err_by_shape"] = {tag: r["max_err"] for tag, r in large_rows.items()}
     kernels[4]["train"] = trained
+    kernels[4]["ccdm_recipe"] = recipe
     kernels += resnet_kernel_rows(resnet_rows, fused_served, fused_trained, fused_parity, card,
                                   served["cfg_forward_ms"])
     kernels += slice4_kernel_rows(la_rows, tp_rows, ba_rows, la_path, la_grads, card)
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("19/19 done")
+    phase("20/20 done")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 """Kernels #2-#5 (the two-pass block's forward and fused backward) on one
 card, and the training step around them.
 
-    python3 scripts/attn_large_variants.py [--root DIR] [--variants | --train | --train-turns PARENT]
+    python3 scripts/attn_large_variants.py [--root DIR]
+        [--variants | --train [--recipe] | --train-turns PARENT | --recipe-turns]
 
 Times the wrappers of the ccdm_tpu_torch package under DIR (default: this
 checkout; another commit unpacked with `git archive` under build/ times
@@ -25,7 +26,12 @@ that commit's wrappers with this checkout's helpers):
   csrc/attn_block_large.cu) and the rest, and the card's idle share of
   the warm step's time (batch / warm images/s);
 - --train-turns PARENT: --train in four processes, PARENT, DIR, DIR,
-  PARENT, to compare two commits' training on one card.
+  PARENT, to compare two commits' training on one card;
+- --train --recipe: the same with the CCDM recipe's flags
+  (chip_smoke.RECIPE_FLAGS: resnet ILI, trained first in the process, and
+  --use_Hy), so the profiled step includes fn_y2cov and H(y);
+- --recipe-turns: --train without, with, with and without --recipe, each
+  its own process, to put the recipe's warm rate beside phase 8's in turns.
 Needs the card.
 """
 
@@ -165,14 +171,16 @@ def variants(cs) -> None:
         print(f"{name}: " + "; ".join(times), flush=True)
 
 
-def train(cs, root: Path) -> None:
-    """--train: phase 8's training path with one profiled warm step."""
+def train(cs, root: Path, recipe: bool = False) -> None:
+    """--train: phase 8's training path (with `recipe`, phase 18's flags)
+    with one profiled warm step."""
     from ccdm_tpu_torch import main as port_main
     from ccdm_tpu_torch.training import trainer as tr
 
     run = HERE / "build" / "attn_large_variants_run"
     shutil.rmtree(run, ignore_errors=True)
     argv = ["--root_path", str(run), "--device", "cuda", *cs.TRAIN_ARGV,
+            *(cs.RECIPE_FLAGS if recipe else []),
             "--niters", str(TRAIN_STEPS), "--save_every", str(TRAIN_STEPS)]
     step_of, profiled = tr.Trainer.train_step, {}
 
@@ -210,7 +218,7 @@ def train(cs, root: Path) -> None:
     warm = sum(windows) / len(windows)
     warm_step_ms = cs.TRAIN_BATCH / warm * 1e3
     print(json.dumps({
-        "root": str(root), "card": cs.card_line(),
+        "root": str(root), "recipe": recipe, "card": cs.card_line(),
         "warm_images_per_s": warm, "windows_images_per_s": windows, "warm_step_ms": warm_step_ms,
         "profiled_step": PROFILE_STEP, "profiled_step_ms": profiled["step_ms"],
         "device_ms": device, "device_idle_share_of_warm_step": 1 - device / warm_step_ms,
@@ -219,18 +227,20 @@ def train(cs, root: Path) -> None:
         "top_kernels": [[k[:120], ms] for k, ms in top]}), flush=True)
 
 
-def train_turns(parent: Path, root: Path) -> None:
-    """--train-turns: --train for PARENT, DIR, DIR, PARENT, each its own process."""
+def train_turns(runs: list) -> None:
+    """--train in turns, each (root, extra flags) of `runs` its own process."""
     rows = []
-    for r in (parent, root, root, parent):
+    for r, extra in runs:
         proc = subprocess.run([sys.executable, str(HERE / "scripts" / "attn_large_variants.py"),
-                               "--root", str(r), "--train"], capture_output=True, text=True)
+                               "--root", str(r), "--train", *extra],
+                              capture_output=True, text=True)
         line = [s for s in proc.stdout.splitlines() if s.startswith("{")]
         if proc.returncode or not line:
-            raise RuntimeError(f"--train for {r} failed:\n{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+            raise RuntimeError(f"--train for {r} {extra} failed:\n{proc.stdout[-4000:]}"
+                               f"{proc.stderr[-4000:]}")
         rows.append(json.loads(line[-1]))
         print(line[-1], flush=True)
-    print(json.dumps({"turns": [[row["root"], row["warm_images_per_s"],
+    print(json.dumps({"turns": [[row["root"], row["recipe"], row["warm_images_per_s"],
                                  row["device_ms_by_group"], row["device_ms"],
                                  row["device_idle_share_of_warm_step"]] for row in rows]}),
           flush=True)
@@ -243,12 +253,19 @@ def main() -> int:
     mode.add_argument("--variants", action="store_true")
     mode.add_argument("--train", action="store_true")
     mode.add_argument("--train-turns", type=Path, metavar="PARENT")
+    mode.add_argument("--recipe-turns", action="store_true")
+    parser.add_argument("--recipe", action="store_true", help="with --train: phase 18's flags")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("attn_large_variants: no CUDA device", file=sys.stderr)
         return 1
     if args.train_turns:
-        train_turns(args.train_turns.resolve(), args.root.resolve())
+        parent, root = args.train_turns.resolve(), args.root.resolve()
+        train_turns([(parent, []), (root, []), (root, []), (parent, [])])
+        return 0
+    if args.recipe_turns:
+        root = args.root.resolve()
+        train_turns([(root, []), (root, ["--recipe"]), (root, ["--recipe"]), (root, [])])
         return 0
     cs = load_smoke(args.root.resolve())
     print(cs.card_line(), flush=True)
@@ -256,7 +273,7 @@ def main() -> int:
     if args.variants:
         variants(cs)
     elif args.train:
-        train(cs, args.root)
+        train(cs, args.root, args.recipe)
     else:
         host_and_device(cs, args.root)
     return 0

@@ -19,6 +19,15 @@ ccdm_tpu.utils.ckpt.load_checkpoint against the train state of the JAX Unet
 of those flags (legacy parameter layouts are migrated there), and converted
 with ccdm_tpu_torch.utils.convert.train_state_from_jax: online and EMA
 weights, BatchNorm statistics, Adam's moments and count, step and ema_step.
+
+The label embeddings come along: every complete entry of the JAX run's
+<setting folder>/embed_models/ (the parent of --jax_results), the trained
+ILI label MLPs model-y2h_*/ and model-y2cov_*/, becomes the port's
+model-<tag>/state.pt under the port's setting folder, with its
+datafp-<tag>.txt (the in-train CNN checkpoints, *_cnn_epoch*, stay
+behind); where the flags use the gaussian embedding (--y2h_embed_type, or
+--y2cov_embed_type with --use_Hy), JAX's projection W is written beside
+them (embedding/analytic.gaussian_projection reads it).
 """
 
 from __future__ import annotations
@@ -62,8 +71,52 @@ def restore_jax_state(jax_results: str, milestone: int, args):
     return types.SimpleNamespace(**load_checkpoint(jax_results, milestone, target))
 
 
+def convert_embed_models(jax_embed_dir: str, port_embed_dir: str, args) -> list[str]:
+    """Carry the JAX run's embed_models/ across; returns what was written."""
+    import glob
+    import shutil
+
+    import jax
+    import numpy as np
+    import torch
+
+    from ccdm_tpu.utils.ckpt import load_checkpoint
+    from ccdm_tpu_torch.embedding.analytic import (
+        GFP_SCALE, Y2COV_SEED, Y2H_SEED, projection_path, save_projection)
+    from ccdm_tpu_torch.models.resnet_embed import ModelY2Cov, ModelY2H
+    from ccdm_tpu_torch.utils.ckpt import save_checkpoint
+    from ccdm_tpu_torch.utils.convert import state_dict_from_jax
+
+    written = []
+    for path in sorted(glob.glob(os.path.join(jax_embed_dir, "model-y2*"))):
+        tag = os.path.basename(path)[len("model-"):]
+        if "_cnn_epoch" in tag:
+            continue
+        stored = load_checkpoint(jax_embed_dir, tag)
+        if "mlp" not in stored:  # an interrupted pretrain's partial entry
+            continue
+        out_dim = np.asarray(stored["mlp"]["params"]["dense_out"]["kernel"]).shape[1]
+        mlp = ModelY2H(out_dim) if tag.startswith("y2h_") else ModelY2Cov(out_dim)
+        save_checkpoint(port_embed_dir, tag, {"mlp": state_dict_from_jax(stored["mlp"], mlp)})
+        marker = os.path.join(jax_embed_dir, f"datafp-{tag}.txt")
+        if os.path.isfile(marker):
+            shutil.copy(marker, os.path.join(port_embed_dir, f"datafp-{tag}.txt"))
+        written.append(tag)
+    cov_dim = args.num_channels * args.image_size ** 2
+    for kind, dim, seed, used in (
+            ("y2h", args.dim_embed, Y2H_SEED, args.y2h_embed_type == "gaussian"),
+            ("y2cov", cov_dim, Y2COV_SEED, args.use_Hy and args.y2cov_embed_type == "gaussian")):
+        if used:  # ccdm_tpu/embedding/analytic.py:60-62, one scalar label dim
+            W = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (1, dim // 2)) * GFP_SCALE)
+            path = projection_path(port_embed_dir, kind, dim, seed)
+            save_projection(path, torch.from_numpy(np.array(W, np.float32)))
+            written.append(os.path.basename(path))
+    return written
+
+
 def convert(jax_results: str, milestone: int, argv: list[str]) -> str:
-    """Write the port's milestone `milestone` from the JAX one; returns its path."""
+    """Write the port's milestone `milestone` from the JAX one, and carry its
+    setting folder's embed_models/ across; returns the milestone's path."""
     from ccdm_tpu_torch.main import build_model, results_folder
     from ccdm_tpu_torch.opts import parse_opts
     from ccdm_tpu_torch.training.trainer import checkpoint_tree
@@ -73,7 +126,13 @@ def convert(jax_results: str, milestone: int, argv: list[str]) -> str:
     args = parse_opts(argv)
     jax_state = restore_jax_state(jax_results, milestone, args)
     state = train_state_from_jax(jax_state, build_model(args, args.image_size, args.num_channels))
-    return save_checkpoint(results_folder(args), milestone, checkpoint_tree(state))
+    path = save_checkpoint(results_folder(args), milestone, checkpoint_tree(state))
+    embed = convert_embed_models(
+        os.path.join(os.path.dirname(os.path.abspath(jax_results)), "embed_models"),
+        os.path.join(os.path.dirname(results_folder(args)), "embed_models"), args)
+    if embed:
+        print(f"embed_models: {', '.join(embed)}")
+    return path
 
 
 def main(argv=None) -> None:

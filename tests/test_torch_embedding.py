@@ -45,16 +45,28 @@ def test_sinusoidal_pos_emb_matches(dim):
 
 
 @pytest.mark.parametrize("embed_type", ["gaussian", "resnet"])
-def test_unported_embedding_types_raise(embed_type):
+def test_unported_embedding_types_raise(embed_type, tmp_path):
+    """Both types are ported for scalar labels; multi-dim labels are not."""
+    args = argparse.Namespace(dim_embed=128, y2h_embed_type=embed_type, label_dim=2,
+                              use_Hy=False, image_size=16, num_channels=3, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fn_y2h(128, embed_type)
+        build_label_embedding(args, str(tmp_path))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_fn_y2h(128, embed_type, label_dim=2)
 
 
-def test_resolve_builds_sinusoidal_and_refuses_hy():
-    args = argparse.Namespace(dim_embed=128, y2h_embed_type="sinusoidal",
-                              label_dim=1, use_Hy=False)
-    emb = build_label_embedding(args)(torch.tensor([0.25, 0.75]))
+def test_resolve_builds_sinusoidal_and_refuses_hy(tmp_path):
+    """The sinusoidal y2h and, with --use_Hy, y2cov; H(y) from a resnet y2cov
+    without the resnet y2h is refused, as ccdm_tpu refuses it."""
+    args = argparse.Namespace(dim_embed=128, y2h_embed_type="sinusoidal", label_dim=1,
+                              use_Hy=False, image_size=16, num_channels=3, device="cpu")
+    fn_y2h, fn_y2cov = build_label_embedding(args, str(tmp_path))
+    emb = fn_y2h(torch.tensor([0.25, 0.75]))
     assert emb.shape == (2, 128) and float(emb.min()) >= 0 and float(emb.max()) <= 1
-    args.use_Hy = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_label_embedding(args)
+    assert fn_y2cov is None
+    args.use_Hy, args.y2cov_embed_type = True, "sinusoidal"
+    _, fn_y2cov = build_label_embedding(args, str(tmp_path))
+    assert fn_y2cov(torch.tensor([0.5])).shape == (1, 3 * 16 * 16)
+    args.y2cov_embed_type = "resnet"
+    with pytest.raises(SystemExit, match="y2h_embed_type resnet"):
+        build_label_embedding(args, str(tmp_path))

@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,13 +53,16 @@ def test_port_and_smoke_script_import_no_jax():
     assert len(report["modules"]) >= 20, report["modules"]
     for name in ("serve", "main", "ops.vicinal", "training.vicinity", "training.hyperparams",
                  "training.trainer", "training.state", "utils.ckpt", "utils.logging",
-                 "data.datasets", "ops.attn_block", "ops.linear_attention", "ops.style_ops"):
+                 "data.datasets", "ops.attn_block", "ops.linear_attention", "ops.style_ops",
+                 "embedding.ili", "embedding.resolve", "embedding.analytic",
+                 "models.resnet_embed"):
         assert f"ccdm_tpu_torch.{name}" in report["new"], name
     assert [m for m in report["new"] if _is_jax(m)] == []
 
 
 def test_no_source_names_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|ccdm_tpu)(\.|\s|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|ccdm_tpu)(\.|\s|$)",
+                         re.M)
     files = [*sorted((ROOT / "ccdm_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
     assert len(files) >= 20
     for path in files:
@@ -77,11 +81,20 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--architecture", "vit"], ["--architecture", "adm"],
-                                   ["--use_Hy"],
-                                   ["--y2h_embed_type", "gaussian"], ["--label_dim", "2"]])
+                                   ["--label_dim", "2"]])
 def test_options_of_later_slices_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.SamplerService(parse_opts(SMALL_ARGV + flags), warm=False, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [["--use_Hy", "--y2cov_embed_type", "sinusoidal"],
+                                   ["--y2h_embed_type", "gaussian"]])
+def test_options_of_this_slice_build_the_service(flags, tmp_path):
+    service = serve.SamplerService(parse_opts(SMALL_ARGV + ["--root_path", str(tmp_path)] + flags),
+                                   max_batch=2, warm=False, device="cpu")
+    images = service.generate(np.array([0.3, 0.6], np.float32))
+    assert images.dtype == np.uint8 and images.shape == (2, 16, 16, 3)
+    assert service.diffusion.config.use_Hy == ("--use_Hy" in flags)
 
 
 def _run_smoke(cwd):
