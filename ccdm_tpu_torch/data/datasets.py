@@ -3,7 +3,7 @@
 A numpy copy of ccdm_tpu/data/datasets.py (the port imports nothing of the
 JAX package). The h5 loaders import h5py when called and raise a clear
 error where it is not installed; the multi-dim-label sets (power_vector,
-synthetic_power) come with multi-dim labels (ROADMAP.md).
+synthetic_power) are in data/power.py.
 
 Reproduces the vanilla per-dataset pipelines exactly (SURVEY.md §2.2 V1/V9):
 
@@ -244,11 +244,18 @@ def load_dataset(name: str, data_path: str = "./datasets", **kwargs) -> DatasetB
         "Cell200": load_cell200,
         "synthetic": make_synthetic,
     }
-    if name in ("power_vector", "synthetic_power"):
-        raise NotImplementedError(f"--data_name {name} (multi-dim labels) comes in a "
-                                  "later slice (ROADMAP.md)")
+    from ccdm_tpu_torch.data.power import load_power_vector, make_synthetic_power
+
+    loaders["synthetic_power"] = make_synthetic_power
+    if name == "power_vector":
+        # kwargs: design_folder, power_path, power_transformer; data_path
+        # supplies the defaults
+        kwargs.setdefault("design_folder", os.path.join(data_path, "designs"))
+        kwargs.setdefault("power_path", os.path.join(data_path, "power.csv"))
+        return load_power_vector(**kwargs)
     if name not in loaders:
-        raise ValueError(f"unknown dataset {name}; choices: {sorted(loaders)}")
-    if name == "synthetic":
-        return make_synthetic(**kwargs)
+        raise ValueError(f"unknown dataset {name}; choices: "
+                         f"{sorted(loaders) + ['power_vector']}")
+    if name in ("synthetic", "synthetic_power"):
+        return loaders[name](**kwargs)
     return loaders[name](data_path, **kwargs)

@@ -6,14 +6,18 @@ the hard/soft, classic/sliced vicinal batch weights used as a gate),
 `weighted_loss` (:258-312, per-sample weights applied directly),
 `model_predictions` (:318-371: the cond and null passes batched as one 2B
 forward, cond rows first, then `apply_cfg`, and CFG++), `ddim_sample`
-(:384-448) and the ancestral `p_sample_loop` and `sample` (:450-503). The
-JAX samplers are one lax.scan each; here each is a Python loop over the same
-steps. The losses draw t, the CFG keep mask, the noise and the projection
-directions from an explicit torch.Generator, or take them from `draws`
-(keys "t", "keep_mask", "noise", "offset", "proj"); the samplers draw their
+(:384-448, with `save_intermediate` the [S, B, H, W, C] trajectory), the
+ancestral `p_sample_loop` and `sample` (:450-503) and the latent blend
+`interpolate` (:505-547). The JAX samplers are one lax.scan each; here each
+is a Python loop over the same steps. The losses draw t, the CFG keep mask,
+the noise and the projection directions from an explicit torch.Generator,
+or take them from `draws` (keys "t", "keep_mask", "noise", "offset",
+"proj"); the samplers draw their
 initial noise and their per-step noise [S, B, H, W, C] from a generator, or
 take them as `noise` and `step_noise` (so a test can hand in JAX's draws:
-the initial one from split(key)[0], step i's from split(split(key)[1], S)[i]).
+the initial one from split(key)[0], step i's from split(split(key)[1], S)[i];
+`interpolate` takes `noise1`, `noise2` and `step_noise`, JAX's from
+split(key, 3) and split(that[2], t)).
 
 With use_Hy the label-conditioned diagonal covariance H(y) =
 exp(-min(fn_y2cov(y), hy_max_log)) (gaussian.py:79-136) scales the noise
@@ -21,7 +25,9 @@ by sqrt(H(y)) and divides the per-pixel loss by H(y) on the rows that keep
 their condition, and scales the samplers' initial noise by sqrt(H(y)) of
 their `labels` (gaussian.py:378-382). `loss` adds the offset noise of
 --offset_noise_strength; `weighted_loss` ignores it, as the JAX package
-does. The elastic aux loss comes in a later slice (ROADMAP.md).
+does. With `aux_info` both return (loss, the elastic aux term), the term
+(`_elastic_aux`, gaussian.py:235-256) added into the loss with pred_noise
+and 0 with the other objectives, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -124,9 +130,10 @@ class GaussianDiffusion:
 
     # ------------------------------------------------------------- loss
 
-    def _per_sample_loss(self, images01, labels, labels_emb, train, gen, draws, offset):
-        """(per-sample SNR-weighted MSE [B], keep_mask [B]) for one batch;
-        `offset` adds the offset noise."""
+    def _per_sample_loss(self, images01, labels, labels_emb, train, gen, draws, offset,
+                         aux_info=None):
+        """(per-sample SNR-weighted MSE [B], keep_mask [B], the elastic aux
+        term or 0) for one batch; `offset` adds the offset noise."""
         c = self.config
         sched, dev = self.schedule, self.device
         b = images01.shape[0]
@@ -163,20 +170,44 @@ class GaussianDiffusion:
         sq = (model_out - target) ** 2
         if c.use_Hy:
             sq = sq / torch.where(keep4, hy, torch.ones_like(hy))
-        return sq.reshape(b, -1).mean(-1) * sched.loss_weight[t], keep_mask
+        aux = 0.0
+        if aux_info is not None and c.objective == "pred_noise":
+            aux = self._elastic_aux(x_start, t, model_out, keep_mask, labels, aux_info)
+        return sq.reshape(b, -1).mean(-1) * sched.loss_weight[t], keep_mask, aux
+
+    def _elastic_aux(self, x_start, t, model_out, keep_mask, labels, aux_info) -> torch.Tensor:
+        """The elastic aux loss (gaussian.py:235-256): x_t rebuilt from the
+        predicted noise, the frozen aux net's label prediction, |y_pred - y|
+        of label dim 0 on the kept rows beyond the vicinity radius, summed
+        and divided by their count (at least 1), times lambda_aux; 0 before
+        step aux_start_step. aux_info: {apply(x_t_hat, t) -> [B, 1],
+        lambda_aux, vicinity_radius, aux_start_step?, current_step?}."""
+        x_t_hat = q_sample(self.schedule, x_start, t, model_out.float())
+        y_pred = aux_info["apply"](x_t_hat, t).reshape(-1)
+        labels_gt = labels.float().to(self.device).reshape(x_start.shape[0], -1)
+        err = (y_pred - labels_gt[:, 0]).abs()
+        aux_w = keep_mask.float() * (err > aux_info["vicinity_radius"]).float()
+        term = aux_info["lambda_aux"] * (aux_w * err).sum() / torch.clamp(aux_w.sum(), min=1.0)
+        step = aux_info.get("current_step")
+        if step is not None and step < aux_info.get("aux_start_step", 0):
+            term = torch.zeros_like(term)
+        return term
 
     def loss(self, images01: torch.Tensor, labels: torch.Tensor, labels_emb: torch.Tensor,
              vicinal_weights: Optional[torch.Tensor] = None, kappa=0.01, train: bool = True,
-             gen: Optional[torch.Generator] = None, draws: Optional[dict] = None):
+             gen: Optional[torch.Generator] = None, draws: Optional[dict] = None,
+             aux_info: Optional[dict] = None):
         """Vicinal diffusion loss (gaussian.py:139-224). images01 NHWC in
         [0, 1]; vicinal_weights acts as a gate, as in the JAX package: with
-        it, the batch is weighted by the intra-batch vicinal weights."""
+        it, the batch is weighted by the intra-batch vicinal weights. With
+        `aux_info`, returns (loss, its elastic aux term)."""
         c = self.config
         draws = draws or {}
-        per_sample, keep_mask = self._per_sample_loss(images01, labels, labels_emb, train, gen,
-                                                      draws, offset=True)
+        per_sample, keep_mask, aux = self._per_sample_loss(
+            images01, labels, labels_emb, train, gen, draws, offset=True, aux_info=aux_info)
+        with_aux = (lambda v: (v + aux, aux)) if aux_info is not None else (lambda v: v)
         if vicinal_weights is None or c.vicinity_type == "none":
-            return per_sample.mean()
+            return with_aux(per_sample.mean())
         b = per_sample.shape[0]
         labels2d = labels.float().to(self.device)
         labels2d = labels2d.reshape(b, -1) if labels2d.ndim < 2 else labels2d
@@ -189,18 +220,21 @@ class GaussianDiffusion:
             w = sliced_batch_weights(labels2d, vecs.to(self.device), kappa, is_hard, ~keep_mask)
         else:
             w = classic_batch_weights(labels2d, kappa, is_hard, c.distance, ~keep_mask)
-        return (w * per_sample).sum() / b
+        return with_aux((w * per_sample).sum() / b)
 
     def weighted_loss(self, images01: torch.Tensor, labels: torch.Tensor,
                       labels_emb: torch.Tensor, weights: torch.Tensor, train: bool = True,
-                      gen: Optional[torch.Generator] = None, draws: Optional[dict] = None):
+                      gen: Optional[torch.Generator] = None, draws: Optional[dict] = None,
+                      aux_info: Optional[dict] = None):
         """Vanilla-tree reduction (gaussian.py:258-312): per-sample weights
         applied directly, dropped-condition rows at weight 1; no offset
-        noise."""
-        per_sample, keep_mask = self._per_sample_loss(images01, labels, labels_emb, train, gen,
-                                                      draws or {}, offset=False)
+        noise. With `aux_info`, returns (loss, its elastic aux term)."""
+        per_sample, keep_mask, aux = self._per_sample_loss(
+            images01, labels, labels_emb, train, gen, draws or {}, offset=False,
+            aux_info=aux_info)
         w = torch.where(keep_mask, weights.to(self.device), torch.ones_like(per_sample))
-        return (w * per_sample).sum() / per_sample.shape[0]
+        loss = (w * per_sample).sum() / per_sample.shape[0]
+        return loss if aux_info is None else (loss + aux, aux)
 
     def model_predictions(self, x: torch.Tensor, t: torch.Tensor, labels_emb: torch.Tensor,
                           cond_scale: float = 6.0, rescaled_phi: float = 0.7,
@@ -264,11 +298,13 @@ class GaussianDiffusion:
                     noise: Optional[torch.Tensor] = None,
                     step_noise: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None,
-                    labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    labels: Optional[torch.Tensor] = None,
+                    save_intermediate: bool = False) -> torch.Tensor:
         """DDIM from `noise` (or a draw from `generator`; with use_Hy times
-        sqrt(H(labels))) to images in [0, 1], NHWC f32. With eta > 0 step i
-        adds sigma * step_noise[i] ([S, B, H, W, C], or a draw from
-        `generator`)."""
+        sqrt(H(labels))) to images in [0, 1], NHWC f32, or with
+        `save_intermediate` the state after each step, [S, B, H, W, C] in
+        [0, 1]. With eta > 0 step i adds sigma * step_noise[i] ([S, B, H,
+        W, C], or a draw from `generator`)."""
         c = self.config
         b = labels_emb.shape[0]
         shape = self._shape(labels_emb)
@@ -279,24 +315,29 @@ class GaussianDiffusion:
             step_noise = self._draw((steps, *shape), step_noise, None, "step_noise")
 
         img = self._init_noise(shape, noise, generator, labels)
+        frames = []
         for i, (time, time_next) in enumerate(ddim_time_pairs(c.timesteps, steps)):
             t_cond = torch.full((b,), time, dtype=torch.long, device=self.device)
             pred_noise, x_start = self.model_predictions(
                 img, t_cond, labels_emb, cond_scale, rescaled_phi, clip_x_start=clip_denoised)
             if time_next < 0:
                 img = x_start
-                continue
-            alpha, alpha_next = ac[time], ac[time_next]
-            if eta == 0.0:
+            elif eta == 0.0:
+                alpha_next = ac[time_next]
                 coef = torch.sqrt(torch.clamp(1 - alpha_next, min=0.0))
                 img = x_start * torch.sqrt(alpha_next) + coef * pred_noise
             else:
+                alpha, alpha_next = ac[time], ac[time_next]
                 sigma = eta * torch.sqrt(torch.clamp(
                     (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha), min=0.0))
                 coef = torch.sqrt(torch.clamp(1 - alpha_next - sigma ** 2, min=0.0))
                 z = step_noise[i] if step_noise is not None else torch.randn(
                     shape, generator=generator, device=self.device)
                 img = x_start * torch.sqrt(alpha_next) + coef * pred_noise + sigma * z
+            if save_intermediate:
+                frames.append(img)
+        if save_intermediate:
+            return unnormalize_to_zero_to_one(torch.stack(frames))
         return unnormalize_to_zero_to_one(img)
 
     @torch.no_grad()
@@ -344,3 +385,40 @@ class GaussianDiffusion:
         """The reference's `sample()` (gaussian.py:496-503): always the
         ancestral loop."""
         return self.p_sample_loop(labels_emb, cond_scale, rescaled_phi, **kwargs)
+
+    @torch.no_grad()
+    def interpolate(self, x1: torch.Tensor, x2: torch.Tensor, labels_emb: torch.Tensor,
+                    t: Optional[int] = None, lam: float = 0.5, cond_scale: float = 1.0,
+                    noise1: Optional[torch.Tensor] = None,
+                    noise2: Optional[torch.Tensor] = None,
+                    step_noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Latent blending (gaussian.py:505-547): x1 and x2 ([-1, 1] NHWC)
+        diffused to step t (T - 1 if None) by `noise1` and `noise2`,
+        (1 - lam) xt1 + lam xt2, then the ancestral chain t - 1, ..., 0
+        (x_0 clipped before q_posterior, step i's noise step_noise[i] of
+        [t, B, H, W, C], none at step 0); the noise drawn from `generator`
+        where not given. Returns [-1, 1]."""
+        c = self.config
+        b = x1.shape[0]
+        t = c.timesteps - 1 if t is None else int(t)
+        shape = tuple(x1.shape)
+        if step_noise is not None:
+            step_noise = self._draw((t, *shape), step_noise, None, "step_noise")
+        tb = torch.full((b,), t, dtype=torch.long, device=self.device)
+        xt1 = q_sample(self.schedule, x1.to(self.device).float(), tb,
+                       self._draw(shape, noise1, generator, "noise1"))
+        xt2 = q_sample(self.schedule, x2.to(self.device).float(), tb,
+                       self._draw(shape, noise2, generator, "noise2"))
+        img = (1.0 - lam) * xt1 + lam * xt2
+        for i, time in enumerate(range(t - 1, -1, -1)):
+            t_cond = torch.full((b,), time, dtype=torch.long, device=self.device)
+            _, x_start = self.model_predictions(img, t_cond, labels_emb, cond_scale, 0.0)
+            mean, _, log_var = q_posterior(self.schedule, x_start.clamp(-1.0, 1.0), img, t_cond)
+            if time == 0:
+                img = mean
+                continue
+            z = step_noise[i] if step_noise is not None else torch.randn(
+                shape, generator=generator, device=self.device)
+            img = mean + torch.exp(0.5 * log_var) * z
+        return img

@@ -21,13 +21,23 @@ Counterpart of ccdm_tpu/embedding/ili.py:
    data they were fit on. fn_y2h and fn_y2cov are the frozen MLPs in f32
    on the run's device, under torch.no_grad().
 
+Multi-dim labels [N, D] (ccdm_tpu/embedding/ili.py:487, 527-537,
+547-566): the regressor's h2y head has D outputs; the label MLP trains on
+the unique label rows flattened to [U * D] scalars, with label noise 0.05
+(0.2 for scalar labels) and no feature phase; fn_y2h embeds each of the D
+dims and combines them by --dim_combination (embedding/combine.py, its
+weights drawn from seed + 7 or read from embed_models/), while labels [B]
+or [B, 1] take the MLP directly. The resnet fn_y2cov takes scalar labels
+only: JAX's flattens [B, D] labels to [B * D] (ili.py:635), and its H(y)
+reshape then fails, so the port raises a ValueError there.
+
 Random draws come from a torch.Generator seeded from (seed, step), so a
 resumed run draws what the uninterrupted one would; every step function
 also takes its batch indices and label noise as arguments (the tests hand
 in JAX's draws). Unlike ccdm_tpu, `mean_feature` and
 `per_label_mean_features` run the trained net itself, so they work at
 --net_embed ResNet18_embed, where the JAX functions rebuild a ResNet34 and
-raise (ROADMAP.md, port choices). Multi-dim labels come in a later slice.
+raise (ROADMAP.md, port choices).
 """
 
 from __future__ import annotations
@@ -43,31 +53,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ccdm_tpu_torch.embedding.analytic import COMBINER_SEED_OFFSET
+from ccdm_tpu_torch.embedding.combine import combine, combiner_weights
 from ccdm_tpu_torch.models.resnet_embed import ModelY2Cov, ModelY2H, ResNetEmbed
 from ccdm_tpu_torch.ops.image import normalize_images
-from ccdm_tpu_torch.training.trainer import chunk_seed
+from ccdm_tpu_torch.training.optim import lr_schedule, set_lr, step_generator, sync
 from ccdm_tpu_torch.utils.ckpt import checkpoint_exists, load_checkpoint, save_checkpoint
 
 # seconds per epoch of each stage of the last LabelEmbed that trained
 # ("y2h_cnn", "y2h_mlp", "y2cov_cnn", "y2cov_mlp")
 STAGE_SECONDS: dict = {}
-
-
-def _lr_schedule(lr_base: float, decay_epochs, steps_per_epoch: int,
-                 factor: float = 0.1) -> Callable[[int], float]:
-    """optax.piecewise_constant_schedule(lr_base, {int(e * steps_per_epoch):
-    factor}) in its f32 arithmetic: the lr of the update that follows
-    `count` updates."""
-    boundaries = {int(e * steps_per_epoch): factor for e in decay_epochs}
-
-    def schedule(count: int) -> float:
-        v = np.float32(lr_base)
-        for threshold, scale in boundaries.items():
-            if count >= threshold:
-                v = np.float32(np.float32(scale) * v)
-        return float(v)
-
-    return schedule
 
 
 # stage-1 CNN depths selectable with --net_embed
@@ -86,20 +81,6 @@ def _embed_blocks(net_embed: str):
     return NET_EMBED_BLOCKS[base]
 
 
-def _step_generator(seed: int, step: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(chunk_seed(seed, step))
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
-    for group in opt.param_groups:
-        group["lr"] = lr
-
-
 def resnet_embed_step(net: ResNetEmbed, opt: torch.optim.Optimizer, images: torch.Tensor,
                       labels: torch.Tensor, batch_size: int, lr: float,
                       gen: Optional[torch.Generator] = None,
@@ -111,7 +92,7 @@ def resnet_embed_step(net: ResNetEmbed, opt: torch.optim.Optimizer, images: torc
                             device=images.device)
     idx = idx.to(images.device)
     x = normalize_images(images[idx], to_neg_one_to_one=True)
-    _set_lr(opt, lr)
+    set_lr(opt, lr)
     opt.zero_grad(set_to_none=True)
     y_hat, _ = net(x, train=True)
     loss = ((y_hat - labels[idx]) ** 2).mean()
@@ -156,7 +137,7 @@ def train_resnet_embed(
         net = ResNetEmbed(dim_embed, labels2d.shape[1], num_blocks,
                           in_channels=images_u8.shape[-1], seed=seed)
     net = net.to(device)
-    sched = _lr_schedule(lr_base, lr_decay_epochs, steps_per_epoch)
+    sched = lr_schedule(lr_base, lr_decay_epochs, steps_per_epoch)
     opt = torch.optim.SGD(net.parameters(), lr=sched(0), momentum=0.9,
                           weight_decay=weight_decay)
     images_dev = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
@@ -181,7 +162,7 @@ def train_resnet_embed(
         for s in range(steps_per_epoch):
             step = epoch * steps_per_epoch + s
             given = draws[step] if draws else {}
-            gen = None if "idx" in given else _step_generator(seed, step, device)
+            gen = None if "idx" in given else step_generator(seed, step, device)
             loss = resnet_embed_step(net, opt, images_dev, labels_dev, batch_size,
                                      sched(step), gen, given.get("idx"))
         if log_every and (epoch + 1) % log_every == 0:
@@ -191,7 +172,7 @@ def train_resnet_embed(
                             {"epoch": epoch + 1,
                              "net": {k: v.detach().cpu() for k, v in net.state_dict().items()},
                              "opt": opt.state_dict()})
-    _sync(device)
+    sync(device)
     net.seconds_per_epoch = (time.perf_counter() - t0) / max(epochs - start_epoch, 1)
     return net
 
@@ -280,7 +261,7 @@ def label_mlp_inv_step(mlp: nn.Module, opt: torch.optim.Optimizer, labels: torch
     """One step of the inversion phase through the leaky_relu(0.01)
     surrogate of the frozen h2y head."""
     y = _noised_labels(labels, batch_size, noise_sigma, gen, idx, noise)
-    _set_lr(opt, lr)
+    set_lr(opt, lr)
     opt.zero_grad(set_to_none=True)
     y_rec = F.leaky_relu(F.linear(mlp(y), h2y_weight, h2y_bias), 0.01)[:, 0]
     loss = ((y_rec - y) ** 2).mean()
@@ -319,7 +300,7 @@ def train_label_mlp(
     if feat_mean is not None:
         with torch.no_grad():
             mlp.dense_out.bias.copy_(torch.as_tensor(feat_mean, dtype=torch.float32))
-    sched = _lr_schedule(lr_base, lr_decay_epochs, steps_per_epoch)
+    sched = lr_schedule(lr_base, lr_decay_epochs, steps_per_epoch)
     opt = torch.optim.SGD(mlp.parameters(), lr=sched(0), momentum=0.9,
                           weight_decay=weight_decay)
     opt_feat = torch.optim.Adam(mlp.parameters(), lr=1e-3)
@@ -338,7 +319,7 @@ def train_label_mlp(
         for s in range(steps_per_epoch):
             step = epoch * steps_per_epoch + s
             given = draws[step] if draws else {}
-            gen = None if "idx" in given else _step_generator(seed, step, device)
+            gen = None if "idx" in given else step_generator(seed, step, device)
             if do_feat:
                 loss = label_mlp_feat_step(mlp, opt_feat, labels_dev, grid, targets,
                                            batch_size, noise_sigma, gen, given.get("idx"),
@@ -351,7 +332,7 @@ def train_label_mlp(
         if log_every and (epoch + 1) % log_every == 0:
             print(f"\r [label_mlp] epoch {epoch + 1}/{epochs} "
                   f"{'feat' if do_feat else 'inv'}_loss {float(loss):.6f}")
-    _sync(device)
+    sync(device)
     mlp.seconds_per_epoch = (time.perf_counter() - t0) / max(epochs, 1)
 
     with torch.no_grad():
@@ -435,16 +416,28 @@ def _cached_mlp(embed_dir: str, prefix: str, tag: str, what: str):
         partial.add(cached)
 
 
-def frozen_embedding(mlp: nn.Module, device) -> Callable[[torch.Tensor], torch.Tensor]:
-    """labels [B] or [B, 1] -> the frozen `mlp`'s output, f32 on `device`."""
+def frozen_embedding(mlp: nn.Module, device, combiner: Optional[nn.Module] = None,
+                     multi_dim: bool = True) -> Callable[[torch.Tensor], torch.Tensor]:
+    """labels [B] or [B, 1] -> the frozen `mlp`'s output, f32 on `device`;
+    labels [B, D] -> `mlp` on each dim, combined by `combiner` (the mean if
+    None), or with `multi_dim` False a ValueError."""
     mlp = mlp.to(device).float().eval().requires_grad_(False)
+    if combiner is not None:
+        combiner = combiner.to(device)
 
     def fn(y) -> torch.Tensor:
         y = torch.as_tensor(y, dtype=torch.float32, device=device)
-        if y.ndim > 1 and y.shape[-1] != 1:
-            raise NotImplementedError("multi-dim labels come in a later slice (ROADMAP.md)")
         with torch.no_grad():
-            return mlp(y.reshape(-1))
+            if y.ndim <= 1 or y.shape[-1] == 1:
+                return mlp(y.reshape(-1))
+            if not multi_dim:
+                raise ValueError(
+                    f"the resnet y2cov embedding takes scalar labels, not [B, {y.shape[-1]}]: "
+                    "ccdm_tpu flattens multi-dim labels to [B*D] there "
+                    "(ccdm_tpu/embedding/ili.py:635) and its H(y) reshape to [B, C, H, W] "
+                    "fails, so multi-dim --use_Hy with --y2cov_embed_type resnet has no "
+                    "reference result")
+            return combine(torch.stack([mlp(y[:, d]) for d in range(y.shape[1])]), combiner)
 
     return fn
 
@@ -468,6 +461,7 @@ class LabelEmbed:
         epochs_mlp_y2cov: int = 500,
         batch_size: int = 256,
         seed: int = 0,
+        dim_combination: str = "mean",
         require_cached: bool = False,
         label_dim: Optional[int] = None,
         net_embed: str = "ResNet34_embed",
@@ -483,12 +477,13 @@ class LabelEmbed:
         if dataset is not None:
             labels = np.asarray(dataset.labels_norm, np.float32)
             label_dim = 1 if labels.ndim == 1 else labels.shape[1]
-            uniq = np.unique(labels.reshape(len(labels), -1), axis=0)[:, 0]
+            uniq = np.unique(labels.reshape(len(labels), -1), axis=0)
+            # the MLP's training labels: scalars, or every dim of every unique row
+            uniq1 = uniq[:, 0] if label_dim == 1 else uniq.reshape(-1)
             data_fp = dataset_fingerprint(dataset.images, labels)
         else:
             label_dim, uniq, data_fp = label_dim or 1, None, None
-        if label_dim != 1:
-            raise NotImplementedError("multi-dim labels come in a later slice (ROADMAP.md)")
+        noise_sigma = 0.2 if label_dim == 1 else 0.05
         if not load_only:
             os.makedirs(embed_dir, exist_ok=True)
         STAGE_SECONDS.clear()
@@ -500,9 +495,10 @@ class LabelEmbed:
                 seed=seed_cnn, num_blocks=_embed_blocks(net_name), ckpt_dir=embed_dir,
                 ckpt_tag=f"{tag}_cnn", resume_epoch=resume, device=device)
             mlp = train_label_mlp(
-                uniq, resnet.h2y, mlp, epochs=epochs_mlp_, noise_sigma=0.2, seed=seed_cnn + 1,
-                feat_mean=mean_feature(resnet, dataset.images),
-                feat_targets=per_label_mean_features(resnet, dataset.images, labels, uniq))
+                uniq1, resnet.h2y, mlp, epochs=epochs_mlp_, noise_sigma=noise_sigma,
+                seed=seed_cnn + 1, feat_mean=mean_feature(resnet, dataset.images),
+                feat_targets=(per_label_mean_features(resnet, dataset.images, labels, uniq1)
+                              if label_dim == 1 else None))
             STAGE_SECONDS[f"{kind}_cnn"] = resnet.seconds_per_epoch
             STAGE_SECONDS[f"{kind}_mlp"] = mlp.seconds_per_epoch
             save_checkpoint(embed_dir, tag, {"mlp": {k: v.detach().cpu()
@@ -527,9 +523,12 @@ class LabelEmbed:
         else:
             resnet, mlp = train("y2h", dim_embed, tag, mlp, net_embed, epochs_cnn, epochs_mlp,
                                 batch_size, seed, resume_epoch_cnn)
-        self.fn_y2h = frozen_embedding(mlp, device)
+        combiner = (combiner_weights(embed_dir, "y2h", dim_combination, dim_embed, label_dim,
+                                     seed + COMBINER_SEED_OFFSET, write=not load_only)
+                    if label_dim > 1 else None)
+        self.fn_y2h = frozen_embedding(mlp, device, combiner)
         if resnet is not None:  # y -> h -> y_hat roundtrip, only right after training
-            probe = torch.tensor(np.quantile(uniq, [0.1, 0.5, 0.9]), dtype=torch.float32)
+            probe = torch.tensor(np.quantile(uniq[:, 0], [0.1, 0.5, 0.9]), dtype=torch.float32)
             with torch.no_grad():
                 y_rec = resnet.h2y_head(self.fn_y2h(probe))[:, 0].cpu()
             print(" ILI sanity y->h->y_hat:",
@@ -542,12 +541,13 @@ class LabelEmbed:
         assert cov_dim is not None
         if y2cov_type != "resnet":
             from ccdm_tpu_torch.embedding.analytic import (
-                Y2COV_SEED, gaussian_projection, make_fn_y2cov)
+                Y2COV_SEED, gaussian_projection, make_fn_y2cov, selected_dims)
 
             W = (gaussian_projection(embed_dir, "y2cov", cov_dim, Y2COV_SEED,
-                                     write=not load_only)
+                                     write=not load_only,
+                                     num_dims=len(selected_dims(label_dim)))
                  if y2cov_type == "gaussian" else None)
-            self.fn_y2cov = make_fn_y2cov(cov_dim, y2cov_type, W=W)
+            self.fn_y2cov = make_fn_y2cov(cov_dim, y2cov_type, label_dim, W=W)
             return
         cov_mark = ("" if net_embed_y2cov == "ResNet34_embed_y2cov"
                     else f"_{net_embed_y2cov.split('_')[0]}")
@@ -566,7 +566,7 @@ class LabelEmbed:
             _, cov_mlp = train("y2cov", cov_dim, tag_cov, cov_mlp, net_embed_y2cov,
                                epochs_cnn_y2cov, epochs_mlp_y2cov, batch_size_y2cov or batch_size,
                                seed + 2, resume_epoch_cnn_y2cov)
-        self.fn_y2cov = frozen_embedding(cov_mlp, device)
+        self.fn_y2cov = frozen_embedding(cov_mlp, device, multi_dim=False)
         # a cov embedding constant in y makes H(y) label-independent; a heavy
         # tail of h is what DiffusionConfig.hy_max_log caps
         probe_cov = self.fn_y2cov(torch.tensor([0.1, 0.9])).cpu()

@@ -7,8 +7,11 @@ Counterpart of ccdm_tpu/embedding/resolve.py:27-91:
   <setting_folder>/embed_models/: trained or loaded when a dataset bundle
   is given, load-only (FileNotFoundError on a miss) when not or with
   `require_cached`. Serving passes the teacher's setting folder.
-fn_y2cov is None unless --use_Hy. Multi-dim labels come in a later slice
-(ROADMAP.md).
+fn_y2cov is None unless --use_Hy. With --label_dim > 1 (or a bundle of
+multi-dim labels) the analytic types embed each selected dim and combine
+them by --dim_combination, its weights read from, or drawn into,
+embed_models/ (embedding/combine.py); the ILI y2h does the same over every
+label dim.
 """
 
 from __future__ import annotations
@@ -17,12 +20,15 @@ import os
 from typing import Callable, Optional, Tuple
 
 from ccdm_tpu_torch.embedding.analytic import (
+    COMBINER_SEED_OFFSET,
     Y2COV_SEED,
     Y2H_SEED,
     gaussian_projection,
     make_fn_y2cov,
     make_fn_y2h,
+    selected_dims,
 )
+from ccdm_tpu_torch.embedding.combine import combiner_weights
 from ccdm_tpu_torch.utils.device import resolve_device
 
 
@@ -30,17 +36,16 @@ def build_label_embedding(args, setting_folder: str, bundle=None, require_cached
                           device=None) -> Tuple[Callable, Optional[Callable]]:
     """(fn_y2h, fn_y2cov or None) from --y2h_embed_type, --y2cov_embed_type,
     --use_Hy, --dim_embed and the ILI flags (the JAX defaults where `args`
-    lacks them); the ILI nets run on `device` (default: --device)."""
+    lacks them); the ILI nets and the combiners run on `device` (default:
+    --device)."""
     label_dim = bundle.label_dim if bundle is not None else getattr(args, "label_dim", 1)
-    if label_dim != 1:
-        raise NotImplementedError("multi-dim labels (embedding/combine.py) come in a "
-                                  "later slice (ROADMAP.md)")
     channels = bundle.channels if bundle is not None else args.num_channels
     image_size = bundle.image_size if bundle is not None else args.image_size
     cov_dim = channels * image_size ** 2
     use_Hy = bool(getattr(args, "use_Hy", False))
     y2h_type = args.y2h_embed_type
     y2cov_type = getattr(args, "y2cov_embed_type", "sinusoidal")
+    dim_comb = getattr(args, "dim_combination", "mean")
     embed_dir = os.path.join(setting_folder, "embed_models")
     load_only = require_cached or bundle is None
 
@@ -67,20 +72,32 @@ def build_label_embedding(args, setting_folder: str, bundle=None, require_cached
             resume_epoch_cnn=getattr(args, "resumeepoch_cnn_embed", 0),
             resume_epoch_cnn_y2cov=getattr(args, "resumeepoch_cnn_embed_y2cov", 0),
             seed=getattr(args, "seed", 111),
+            dim_combination=dim_comb,
             require_cached=require_cached,
             label_dim=label_dim,
             device=resolve_device(device or getattr(args, "device", None)),
         )
         return le.fn_y2h, le.fn_y2cov
 
-    projection = lambda kind, dim, seed: gaussian_projection(embed_dir, kind, dim, seed,
-                                                              write=not load_only)
+    num_dims = len(selected_dims(label_dim))
+    # a combiner runs where the labels are: --device (default: the card)
+    comb_device = (resolve_device(device or getattr(args, "device", None))
+                   if label_dim > 1 and dim_comb != "mean" else None)
+
+    def data(kind: str, embed_type: str, dim: int, seed: int) -> dict:
+        """The W and the combiner of the `kind` embedding."""
+        W = (gaussian_projection(embed_dir, kind, dim, seed, write=not load_only,
+                                 num_dims=num_dims) if embed_type == "gaussian" else None)
+        combiner = (combiner_weights(embed_dir, kind, dim_comb, dim, num_dims,
+                                     seed + COMBINER_SEED_OFFSET, write=not load_only,
+                                     device=comb_device)
+                    if label_dim > 1 else None)
+        return dict(W=W, dim_combination=dim_comb, combiner=combiner)
+
     fn_y2h = make_fn_y2h(args.dim_embed, y2h_type, label_dim,
-                         W=projection("y2h", args.dim_embed, Y2H_SEED)
-                         if y2h_type == "gaussian" else None)
+                         **data("y2h", y2h_type, args.dim_embed, Y2H_SEED))
     fn_y2cov = None
     if use_Hy:
         fn_y2cov = make_fn_y2cov(cov_dim, y2cov_type, label_dim,
-                                 W=projection("y2cov", cov_dim, Y2COV_SEED)
-                                 if y2cov_type == "gaussian" else None)
+                                 **data("y2cov", y2cov_type, cov_dim, Y2COV_SEED))
     return fn_y2h, fn_y2cov

@@ -1,4 +1,4 @@
-"""The training and sampling entry point (ccdm_tpu/main.py:87-370), and the
+"""The training and sampling entry point (ccdm_tpu/main.py:87-393), and the
 model construction it shares with serve.py.
 
     python -m ccdm_tpu_torch.main --data_name synthetic --image_size 64 \
@@ -7,21 +7,28 @@ model construction it shares with serve.py.
         --niters 30 --save_every 30
 
 Flow: parse flags -> the setting folder <root_path>/output/<data>_<size>/
-<setting_name> and setting_info.txt -> dataset -> label embeddings
-(fn_y2h, and fn_y2cov with --use_Hy; --y2h_embed_type resnet trains the ILI
-nets on the device into <setting folder>/embed_models/, or loads them from
-there) -> the denoiser on the card (--device cpu for the CPU) ->
-GaussianDiffusion (with H(y) under --use_Hy, capped by --hy_max_log) ->
-Trainer (+ resume from --resume_niter) -> train, with an EMA sample grid
-every --sample_every steps -> a milestone at --niters -> per eval label
-(get_eval_labels, --eval_mode), --nfake_per_label samples from the EMA
-weights by --sampler (ddim with --ddim_eta, or ddpm) into the folder
+<setting_name> and setting_info.txt -> dataset (multi-dim labels from
+power_vector and synthetic_power) -> label embeddings (fn_y2h, and fn_y2cov
+with --use_Hy; --y2h_embed_type resnet trains the ILI nets on the device
+into <setting folder>/embed_models/, or loads them from there; multi-dim
+labels combined by --dim_combination) -> the denoiser on the card (--device
+cpu for the CPU) -> GaussianDiffusion (with H(y) under --use_Hy, capped by
+--hy_max_log) -> with --lambda_aux > 0 the aux regressor --net_aux, trained
+into or loaded from <setting folder>/aux_models/ -> Trainer (+ resume from
+--resume_niter) -> train, with an EMA sample grid every --sample_every
+steps -> a milestone at --niters -> with --gif_trajectory
+results/trajectory_niters<N>.gif, with --interpolation
+results/interpolation_niters<N>.png -> per eval label (get_eval_labels,
+--eval_mode), --nfake_per_label samples from the EMA weights by --sampler
+(ddim with --ddim_eta, or ddpm) into the folder
 results/fake_data_niters<N>_nfake<M>_<sampler>_sampstep<S>: a 36-image grid
 sample_<label>.png and, with --dump_fake_data, <label>.h5 holding
-fake_images_i (uint8, gzip 6), fake_labels_i and sample_time_i. A rerun
-skips a label whose h5 exists and reads its sample_time_i. Multi-dim
-labels, --lambda_aux, --gif_trajectory, --interpolation, --comp_FID and
---dump_fake_for_NIQE come in later slices (ROADMAP.md).
+fake_images_i (uint8, gzip 6), fake_labels_i and sample_time_i (for
+multi-dim labels sample_<i:05d>.png and label_<i:05d>.h5, i the row's
+index). A rerun skips a label whose h5 exists and reads its
+sample_time_i. --comp_FID on a multi-dim run prints that the scalar-label
+protocol is skipped; on scalar labels it and --dump_fake_for_NIQE come
+with eval (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -81,6 +88,22 @@ def dataset_kwargs(args) -> dict:
     elif args.data_name == "Cell200":
         kw.update(min_label=args.min_label, max_label=args.max_label, stepsize=args.stepsize,
                   num_imgs_per_label=args.num_imgs_per_label)
+    elif args.data_name == "power_vector":
+        kw = {}
+        if args.design_folder != "None":
+            kw["design_folder"] = args.design_folder
+        if args.power_data_path != "None":
+            kw["power_path"] = args.power_data_path
+        if args.use_power_transformer:
+            from ccdm_tpu_torch.data.power import PowerTransformer
+
+            path = kw.get("power_path", os.path.join(args.data_path, "power.csv"))
+            kw["power_transformer"] = PowerTransformer().fit(
+                np.loadtxt(path, delimiter=",", skiprows=1))
+    elif args.data_name == "synthetic_power":
+        kw.update(label_dim=args.label_dim, seed=args.seed)
+        if args.synthetic_n > 0:
+            kw["n"] = args.synthetic_n
     elif args.data_name == "synthetic":
         kw.update(channels=args.num_channels)
         if args.synthetic_n > 0:
@@ -89,11 +112,17 @@ def dataset_kwargs(args) -> dict:
 
 
 def get_eval_labels(bundle, args) -> np.ndarray:
-    """The eval label grid of --eval_mode (ccdm_tpu/main.py:23-51, scalar
-    labels): 1 the unique train labels; 2 the unique labels of the full raw
-    set; 3 the raw-set labels not in the train subset (all of them if none);
-    4 --FID_num_centers points (every raw label if <= 0) evenly over the
-    raw set's range."""
+    """The eval label grid of --eval_mode (ccdm_tpu/main.py:23-51): 1 the
+    unique train labels; 2 the unique labels of the full raw set; 3 the
+    raw-set labels not in the train subset (all of them if none); 4
+    --FID_num_centers points (every raw label if <= 0) evenly over the raw
+    set's range. Multi-dim labels: the unique rows [N, D] of the raw set
+    (of the train labels at --eval_mode 1, or without a raw set)."""
+    if getattr(bundle, "label_dim", 1) > 1:
+        rows = bundle.eval_labels_raw if bundle.eval_labels_raw is not None else bundle.labels_raw
+        if args.eval_mode == 1:
+            rows = bundle.labels_raw
+        return np.unique(np.asarray(rows, np.float64), axis=0)
     train_unique = np.sort(np.unique(bundle.labels_raw))
     if args.eval_mode == 1:
         return train_unique
@@ -134,7 +163,7 @@ def read_sample_time(path: str) -> float:
 
 def sample_eval_labels(trainer, bundle, args, fn_y2h) -> None:
     """The per-eval-label sampling of ccdm_tpu/main.py:309-360 from the EMA
-    weights."""
+    weights; a multi-dim label row gets index-keyed files."""
     from ccdm_tpu_torch.training.trainer import sample_given_labels
     from ccdm_tpu_torch.utils.viz import save_image_grid
 
@@ -145,13 +174,15 @@ def sample_eval_labels(trainer, bundle, args, fn_y2h) -> None:
     dump_folder = fake_data_folder(args, num_eval)
     os.makedirs(dump_folder, exist_ok=True)
     diffusion = trainer.ema_diffusion()
+    multi_dim = eval_labels.ndim > 1
     total_time = 0.0
     for i, curr_label in enumerate(eval_labels):
-        fp = os.path.join(dump_folder, f"{curr_label}.h5")
+        fp = os.path.join(dump_folder, f"label_{i:05d}.h5" if multi_dim else f"{curr_label}.h5")
         if os.path.isfile(fp):
             sample_time_i = read_sample_time(fp)
         else:
-            fake_labels_i = curr_label * np.ones(args.nfake_per_label)
+            fake_labels_i = (np.tile(curr_label, (args.nfake_per_label, 1)) if multi_dim
+                             else curr_label * np.ones(args.nfake_per_label))
             start = timeit.default_timer()
             fake_images_i, _ = sample_given_labels(
                 diffusion, bundle.fn_normalize(fake_labels_i), fn_y2h,
@@ -161,12 +192,61 @@ def sample_eval_labels(trainer, bundle, args, fn_y2h) -> None:
             sample_time_i = timeit.default_timer() - start
             if args.dump_fake_data:
                 write_fake_h5(fp, fake_images_i, fake_labels_i, sample_time_i)
+            grid_name = f"sample_{i:05d}.png" if multi_dim else f"sample_{curr_label}.png"
             save_image_grid(fake_images_i[:36].astype(np.float32) / 255.0,
-                            os.path.join(dump_folder, f"sample_{curr_label}.png"), nrow=6)
+                            os.path.join(dump_folder, grid_name), nrow=6)
         total_time += sample_time_i
         print(f"\r [{i + 1}/{num_eval}] label {curr_label}: {sample_time_i:.2f}s "
               f"(total {total_time:.2f}s)", flush=True)
     print(f"Sampling finished; Time elapses: {total_time}s", flush=True)
+
+
+def save_trajectory_gif(trainer, args, fn_y2h, y_visual: np.ndarray) -> str:
+    """The DDIM trajectory (min(--sample_timesteps, 50) steps) of the visual
+    label grid from the EMA weights, one GIF frame a step
+    (ccdm_tpu/main.py:267-281)."""
+    from ccdm_tpu_torch.utils.viz import save_gif
+
+    device = trainer.device
+    y = torch.from_numpy(y_visual.reshape(len(y_visual), -1)).to(device)
+    frames = trainer.ema_diffusion().ddim_sample(
+        fn_y2h(y), cond_scale=args.sample_cond_scale,
+        sampling_timesteps=min(args.sample_timesteps, 50), save_intermediate=True,
+        generator=torch.Generator(device=device).manual_seed(args.seed), labels=y)
+    path = os.path.join(results_folder(args), f"trajectory_niters{args.niters}.gif")
+    save_gif(frames.cpu().numpy(), path, nrow=6)
+    print(f" trajectory GIF -> {path}", flush=True)
+    return path
+
+
+def save_interpolation(trainer, bundle, args, fn_y2h) -> str:
+    """The training images at the 1/4 and 3/4 quantiles of label dim 0,
+    blended at 8 values of lambda in [0, 1] at step min(T // 4, 250) and
+    denoised at the median label, from the EMA weights, as one grid row
+    (ccdm_tpu/main.py:283-305). Every lambda draws the same noise."""
+    from ccdm_tpu_torch.ops.image import to_uint8
+    from ccdm_tpu_torch.utils.viz import save_image_grid
+
+    device = trainer.device
+    labels0 = bundle.labels_norm.reshape(len(bundle.labels_norm), -1)[:, 0]
+    order = np.argsort(labels0)
+    i0, i1 = order[len(order) // 4], order[3 * len(order) // 4]
+    x_pair = torch.from_numpy(bundle.images[[i0, i1]].astype(np.float32) / 255.0 * 2.0 - 1.0)
+    y_mid = np.median(labels0)
+    emb = fn_y2h(torch.full((1, max(bundle.label_dim, 1)), float(y_mid), device=device))
+    diffusion = trainer.ema_diffusion()
+    lams = np.linspace(0.0, 1.0, 8)
+    rows = []
+    for lam in lams:
+        img = diffusion.interpolate(
+            x_pair[:1].to(device), x_pair[1:].to(device), emb,
+            t=min(args.train_timesteps // 4, 250), lam=float(lam),
+            generator=torch.Generator(device=device).manual_seed(args.seed))
+        rows.append(to_uint8((img + 1.0) / 2.0)[0].cpu().numpy())
+    path = os.path.join(results_folder(args), f"interpolation_niters{args.niters}.png")
+    save_image_grid(np.stack(rows).astype(np.float32) / 255.0, path, nrow=len(lams))
+    print(f" interpolation grid -> {path}", flush=True)
+    return path
 
 
 def main(argv=None):
@@ -179,12 +259,8 @@ def main(argv=None):
     from ccdm_tpu_torch.utils.device import resolve_device
 
     args = parse_opts(argv)
-    for flag, on in (("--lambda_aux", args.lambda_aux > 0),
-                     ("--gif_trajectory", args.gif_trajectory),
-                     ("--interpolation", args.interpolation), ("--comp_FID", args.comp_FID),
-                     ("--dump_fake_for_NIQE", args.dump_fake_for_NIQE)):
-        if on:
-            raise NotImplementedError(f"{flag} comes in a later slice (ROADMAP.md)")
+    if args.dump_fake_for_NIQE:
+        raise NotImplementedError("--dump_fake_for_NIQE comes with eval (ROADMAP.md)")
     device = resolve_device(args.device)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -199,9 +275,13 @@ def main(argv=None):
     bundle = load_dataset(args.data_name, args.data_path, **dataset_kwargs(args))
     print(f"\n {args.data_name}: {len(bundle.images)} train images, "
           f"{bundle.image_size}^2 x{bundle.channels}, label_dim={bundle.label_dim}", flush=True)
+    if args.comp_FID and bundle.label_dim == 1:
+        raise NotImplementedError("--comp_FID on scalar labels comes with eval (ROADMAP.md)")
     if args.vicinity_type in ("shv", "ssv") and args.num_projections <= 0:
         d = bundle.label_dim
         args.num_projections = 10 if d > 20 else 5 if d > 10 else 3 if d > 5 else 1
+        print(f"\r Auto-set num_projections={args.num_projections} for label_dim={d}",
+              flush=True)
 
     resolve_label_embed(args)
     fn_y2h, fn_y2cov = build_label_embedding(args, setting_folder, bundle=bundle, device=device)
@@ -233,7 +313,16 @@ def main(argv=None):
         y_visual=y_visual, cond_scale_visual=args.sample_cond_scale,
         sample_timesteps_visual=min(args.sample_timesteps, 250),
         sample_precast_bf16=args.samp_precast_bf16, log_every=args.log_every, seed=args.seed)
-    trainer = Trainer(diffusion, bundle.images, bundle.labels_norm, tcfg)
+    aux_info = None
+    if args.lambda_aux > 0:  # the elastic aux loss: train or load the regressor
+        from ccdm_tpu_torch.training.train_aux import get_aux_net
+
+        aux_apply = get_aux_net(bundle, setting_folder, name=args.net_aux,
+                                epochs=args.epoch_aux, batch_size=args.batch_size_aux,
+                                seed=args.seed, device=device)
+        aux_info = {"apply": aux_apply, "lambda_aux": args.lambda_aux,
+                    "aux_start_step": args.aux_start_step}
+    trainer = Trainer(diffusion, bundle.images, bundle.labels_norm, tcfg, aux_info=aux_info)
     print(f" sigma_delta={trainer.sigma_delta}, kappa={trainer.kappa}", flush=True)
 
     if args.resume_niter > 0 and checkpoint_exists(results, args.resume_niter):
@@ -241,7 +330,14 @@ def main(argv=None):
         print(f" resumed from milestone {args.resume_niter}", flush=True)
     trainer.train(fn_y2h)
     trainer.save(args.niters)
+    if args.gif_trajectory:
+        save_trajectory_gif(trainer, args, fn_y2h, y_visual)
+    if args.interpolation:
+        save_interpolation(trainer, bundle, args, fn_y2h)
     sample_eval_labels(trainer, bundle, args, fn_y2h)
+    if args.comp_FID:  # scalar labels raised above
+        print(" comp_FID skipped: the SFID/LS sliding-window protocol is scalar-label; "
+              "multi-dim runs produce sample dumps only.", flush=True)
     return trainer
 
 

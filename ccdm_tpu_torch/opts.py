@@ -1,8 +1,8 @@
 """CLI flags of the training, sampling and serving paths, with
 ccdm_tpu/opts.py's names, defaults and choices, plus --device. Flags that
 nothing in the port reads yet (most of eval) come with their slices;
---lambda_aux, --gif_trajectory, --interpolation, --comp_FID and
---dump_fake_for_NIQE are parsed and raise."""
+--comp_FID (on scalar labels) and --dump_fake_for_NIQE are parsed and
+raise."""
 
 from __future__ import annotations
 
@@ -21,6 +21,14 @@ def parse_opts(argv=None):
                         choices=["UTKFace", "RC-49", "Cell200", "SteeringAngle",
                                  "synthetic", "power_vector", "synthetic_power"])
     parser.add_argument("--data_path", type=str, default="./datasets")
+    # power_vector: tiff design images + a CSV of power vectors (multi-dim labels)
+    parser.add_argument("--design_folder", type=str, default="None",
+                        help="power_vector: tiff design-image folder "
+                             "(default <data_path>/designs)")
+    parser.add_argument("--power_data_path", type=str, default="None",
+                        help="power_vector: power-vector CSV (default <data_path>/power.csv)")
+    parser.add_argument("--use_power_transformer", action="store_true", default=False,
+                        help="normalize power labels with the quantile PowerTransformer")
     parser.add_argument("--seed", type=int, default=111)
     parser.add_argument("--setting_name", type=str, default="Setup1")
     parser.add_argument("--architecture", type=str, default="unet",
@@ -39,9 +47,12 @@ def parse_opts(argv=None):
                         choices=["rule_of_thumb", "percentile"])
     parser.add_argument("--adaptive_slicing", action="store_true", default=False)
     parser.add_argument("--synthetic_n", type=int, default=0,
-                        help="sample count of the synthetic set; 0 keeps its default")
+                        help="sample count of the synthetic and synthetic_power sets; "
+                             "0 keeps each one's default")
     parser.add_argument("--percentile", type=float, default=5.0)
     parser.add_argument("--num_projections", type=int, default=1)
+    parser.add_argument("--dim_combination", type=str, default="mean",
+                        choices=["mean", "weighted", "attention", "cross", "cross_attention"])
 
     # Dataset and model
     parser.add_argument("--min_label", type=float, default=0.0)
@@ -100,8 +111,14 @@ def parse_opts(argv=None):
     parser.add_argument("--epoch_net_y2cov", type=int, default=500)
     parser.add_argument("--batch_size_embed_y2cov", type=int, default=256)
 
-    # Auxiliary elastic loss: parsed, raises above 0 (ROADMAP.md)
-    parser.add_argument("--lambda_aux", type=float, default=0.0)
+    # Auxiliary elastic loss
+    parser.add_argument("--lambda_aux", type=float, default=0.0,
+                        help=">0 enables the elastic aux label loss (pred_noise only)")
+    parser.add_argument("--net_aux", type=str, default="ResNet34",
+                        choices=["VGG11", "VGG13", "VGG16", "VGG19", "ResNet18", "ResNet34"])
+    parser.add_argument("--epoch_aux", type=int, default=200)
+    parser.add_argument("--batch_size_aux", type=int, default=256)
+    parser.add_argument("--aux_start_step", type=int, default=0)
 
     # Vicinal loss
     parser.add_argument("--kernel_sigma", type=float, default=-1.0)
@@ -123,11 +140,14 @@ def parse_opts(argv=None):
                              "sampling (training/state.precast_sampling_params)")
 
     parser.add_argument("--gif_trajectory", action="store_true", default=False,
-                        help="parsed, raises (ROADMAP.md)")
+                        help="write results/trajectory_niters<N>.gif, the DDIM "
+                             "trajectory of the visual label grid")
     parser.add_argument("--interpolation", action="store_true", default=False,
-                        help="parsed, raises (ROADMAP.md)")
+                        help="write results/interpolation_niters<N>.png, two "
+                             "training images blended in latent space")
 
-    # Evaluation: the eval label grid; FID and NIQE are parsed and raise
+    # Evaluation: the eval label grid; FID (on scalar labels) and NIQE are
+    # parsed and raise
     parser.add_argument("--comp_FID", action="store_true", default=False)
     parser.add_argument("--eval_mode", type=int, default=2, choices=[1, 2, 3, 4])
     parser.add_argument("--FID_num_centers", type=int, default=-1)

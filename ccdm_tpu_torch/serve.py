@@ -24,6 +24,9 @@ resnet-ILI model's nets loaded from <setting folder>/embed_models/, where
 main.py trained them. Serving never trains them: without that cache it
 raises FileNotFoundError, with no fallback to another embedding. With
 --use_Hy each request's labels scale the initial noise by sqrt(H(y)).
+With --label_dim > 1 the embeddings are the multi-dim ones main.py built
+(--dim_combination, its weights read from embed_models/); requests stay
+1-D and take dim 0's embedding, as the JAX service's do.
 """
 
 from __future__ import annotations

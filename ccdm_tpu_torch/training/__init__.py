@@ -1,1 +1,3 @@
-"""Sampling helpers of the trainer; training itself comes in a later slice."""
+"""The trainer, its vicinity batches, hyperparameters and state, the aux
+regressor's training, and the optimizer plumbing it shares with the ILI
+embedding's."""

@@ -13,6 +13,11 @@ micro-batch; keys of `_make_batch`: "target_idx", "target_eps", "gumbel",
 "vecs", "tie", "idx", "hflip", "vflip", "rot90"; keys of the loss: "t",
 "keep_mask", "noise", "proj").
 
+With `aux_info` ({apply, lambda_aux, aux_start_step}, from main.py's
+--lambda_aux) every loss adds the elastic aux term (trainer.py:111,
+258-264): vicinity_radius defaults to kappa's first entry and current_step
+is the step's own; the logged steps carry the term's mean as "aux".
+
 `sample_given_labels` (trainer.py:444-514) samples a list of labels with
 the diffusion's model in chunks, by DDIM or the ancestral sampler, each
 chunk's labels passed on for H(y) (trainer.py:433, 482, 487); each
@@ -96,7 +101,7 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, diffusion, train_images: np.ndarray, train_labels: np.ndarray,
-                 config: TrainerConfig):
+                 config: TrainerConfig, aux_info: Optional[dict] = None):
         """diffusion: a GaussianDiffusion whose model is on its device;
         train_images [N, H, W, C] uint8; train_labels [N] or [N, D] in [0, 1]."""
         cfg = config
@@ -125,6 +130,10 @@ class Trainer:
         self.ema_cfg = EmaConfig(beta=cfg.ema_decay, update_after_step=cfg.ema_update_after_step,
                                  update_every=cfg.ema_update_every)
         self.state: TrainState = create_train_state(diffusion.model)
+        # the trainer's own copy; current_step is set at every step
+        self.aux_info = None if aux_info is None else {
+            "vicinity_radius": float(np.atleast_1d(np.asarray(self.kappa))[0]), **aux_info}
+        self.last_aux = None  # the last step's mean aux term (a tensor, or 0.0 off pred_noise)
 
     # ------------------------------------------------------------ batching
 
@@ -186,17 +195,21 @@ class Trainer:
 
     # ---------------------------------------------------------- train step
 
-    def _micro_loss(self, fn_y2h: Callable, gen, draws) -> torch.Tensor:
+    def _micro_loss(self, fn_y2h: Callable, gen, draws):
+        """The loss of one micro-batch, or (loss, aux term) with aux_info."""
         cfg = self.config
+        aux_info = self.aux_info
         images01, _, loss_labels, labels_emb, weights, kappa = self._make_batch(
             fn_y2h, gen, draws)
         if cfg.vicinal_mode == "target":
             return self.diffusion.weighted_loss(images01, loss_labels, labels_emb, weights,
-                                                train=True, gen=gen, draws=draws)
+                                                train=True, gen=gen, draws=draws,
+                                                aux_info=aux_info)
         use_batch_weights = cfg.vicinity_type != "none"
         return self.diffusion.loss(images01, loss_labels, labels_emb,
                                    vicinal_weights=weights if use_batch_weights else None,
-                                   kappa=kappa, train=True, gen=gen, draws=draws)
+                                   kappa=kappa, train=True, gen=gen, draws=draws,
+                                   aux_info=aux_info)
 
     def compute_grads(self, fn_y2h: Callable, gen: Optional[torch.Generator] = None,
                       draws: Optional[Sequence[dict]] = None):
@@ -209,10 +222,17 @@ class Trainer:
         for p in params:
             p.grad = None
         total = torch.zeros((), device=self.device)
+        aux_total = 0.0
+        if self.aux_info is not None:
+            self.aux_info["current_step"] = self.state.step
         for i in range(acc):
             loss = self._micro_loss(fn_y2h, gen, draws[i] if draws else None)
+            if self.aux_info is not None:
+                loss, aux = loss
+                aux_total = aux_total + (aux.detach() if torch.is_tensor(aux) else aux)
             loss.backward()
             total = total + loss.detach()
+        self.last_aux = aux_total / acc if self.aux_info is not None else None
         grads = [p.grad / acc if p.grad is not None else torch.zeros_like(p) for p in params]
         for p in params:
             p.grad = None
@@ -255,8 +275,11 @@ class Trainer:
                 per_step = (time.perf_counter() - window_t0) / max(step - window_start, 1)
                 eff_batch = cfg.train_batch_size * cfg.gradient_accumulate_every
                 logger.log_text(step, loss_val)
-                logger.log_scalars({"step": step, "loss": loss_val, "step_time_s": per_step,
-                                    "imgs_per_sec": eff_batch / per_step if per_step > 0 else 0.0})
+                scalars = {"step": step, "loss": loss_val, "step_time_s": per_step,
+                           "imgs_per_sec": eff_batch / per_step if per_step > 0 else 0.0}
+                if self.last_aux is not None:
+                    scalars["aux"] = float(self.last_aux)
+                logger.log_scalars(scalars)
                 if progress:
                     print(f"step {step}/{cfg.train_num_steps} loss {loss_val:.4f} "
                           f"({per_step * 1e3:.0f} ms)", flush=True)

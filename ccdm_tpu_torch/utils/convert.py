@@ -3,9 +3,11 @@
 `state_dict_from_jax` turns the flax variables of a ccdm_tpu module
 ({"params": ..., "batch_stats": ...}, nested dicts of numpy arrays) into a
 state_dict of the port's module of the same name tree (the Unet, a layer
-such as LinearAttention or PreNormResidual(LinearAttention), or an ILI net
+such as LinearAttention or PreNormResidual(LinearAttention), an ILI net
 of models/resnet_embed.py: ResNetEmbed's params and batch_stats, the label
-MLPs' params, their GroupNorm scales becoming weights);
+MLPs' params, their GroupNorm scales becoming weights; a combiner of
+embedding/combine.py, its LayerNorm scale becoming a weight; an aux
+regressor of models/aux_net.py, params and batch_stats);
 `unet_state_dict_from_jax` does it for a Unet:
 - conv kernels HWIO -> OIHW (init_conv, the down/up convs, final_conv, the
   resnet blocks' conv1_kernel/conv2_kernel -> conv1_weight/conv2_weight);

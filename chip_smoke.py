@@ -20,8 +20,8 @@ Phases, each announced on a flushed line before it starts:
      N <= 128, else split with its splits), the wrapper's host time,
      TFLOP/s and the share of the bound; then the same per attention level
      of one B-64 forward of the 64x64 UNet; then bf16 at every shape again
-     at the other batches the main paths give #1 (128, 72, 8), the same
-     checks (the f32 one at C <= 256) and route assertion, untimed;
+     at the other batches the main paths give #1 (128, 72, 8, 1, 4), the
+     same checks (the f32 one at C <= 256) and route assertion, untimed;
   4. the full-width UNet in f32 (TF32 off) with the kernel and with the
      plain attention: one forward (max abs diff <= 1e-3) and a 5-step CFG
      DDIM run from the same noise ([0,1] images, max abs diff <= 1e-3);
@@ -146,18 +146,47 @@ Phases, each announced on a flushed line before it starts:
      labels at 25 DDIM steps (10 launches of #1 per forward; served
      images/s), and a service pointed at a setting folder without
      embed_models/ raises FileNotFoundError;
-  19. the share of the timed CFG forwards that the 23 blocks take (the
+  19. the rest of main.py's training entry (multidim_checks, aux_checks):
+     (a) `python -m ccdm_tpu_torch.main --data_name synthetic_power
+     --label_dim 8 --synthetic_n 64` (64x64, 1 channel) at phase 8's width,
+     batch and dtype with --vicinity_type shv (3 projections, auto-set),
+     the resnet ILI y2h at phase 18's cut epochs over 8 dims combined by
+     --dim_combination cross_attention, 20 steps, then all 64 label rows x
+     2 images, 10 DDIM steps: losses finite, labels of width 8 at the
+     sliced vicinal weights every step, launches exactly 8 of #1 and 2 each
+     of #2-#5 per step and 10 of #1 per sampling forward, none of the rest,
+     64 index-keyed grids sample_000xx.png that decode (grayscale) to
+     images that are not constant, the combiner's weights written under
+     embed_models/, fn_y2h loaded on the card equal to the CPU's on the 64
+     rows (rtol = atol = 1e-4); warm train images/s beside phase 8's; (a')
+     the same with the sinusoidal y2h (it depends on y untrained, where (a)'s
+     cut ILI MLP is constant in y) on 8 rows, 5 steps: exact launches, the
+     combiner's file, fn_y2h on the card equal to the CPU's and different
+     for every two rows, and the 8 grids, sampled from the same seeded
+     noise, different for every two rows, so the labels reach the UNet's
+     conditioning; (b) phase 8's run
+     with --pred_objective pred_noise --lambda_aux 0.1 --net_aux ResNet18
+     --epoch_aux 1 --gif_trajectory --interpolation, 10 steps: the aux
+     cache written, the aux term in the train log finite and not zero on
+     some step, the GIF a GIF89a of 10 frames (100 ms, looping), the
+     interpolation PNG 8 panels that are not constant, exactly 10 launches
+     of #1 per forward of the GIF pass (10 forwards) and of the
+     interpolation pass (8 x 250 unguided forwards of B 1), and the whole run's
+     counts as phase 8's plus those; seconds per aux epoch, seconds of
+     each pass; every (B, N, C) at which #1 launched in (a), (a') and (b)
+     among those phase 3 checked;
+  20. the share of the timed CFG forwards that the 23 blocks take (the
      cuDNN composition with the switch off, #10 + #11 with it on, each
      timed alone in phase 9), #10 + #11 against that composition and per
      level, then one JSON line {"kernels": [...]} with errors, times and
      bounds of all 12 kernels (#1 with its route per shape, #12 with the
      card's own time beside F.leaky_relu's);
-  20. the card's name and power limit, then the last line
+  21. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
-main path (phases 5, 8, 11, 12, 16, 18) starts from launch counts set to 0
-and reads them just after; the paths of phases 5, 8, 11, 12 and 18 launch
-none of #6-#9 and #12. TF32 is off for the whole run (it only touches the f32
+main path (phases 5, 8, 11, 12, 16, 18, 19) starts from launch counts set
+to 0 and reads them just after; the paths of phases 5, 8, 11, 12, 18 and 19
+launch none of #6-#9 and #12. TF32 is off for the whole run (it only touches the f32
 checks and the f32 convolutions). Any failed phase raises and the script
 exits non-zero; a hang becomes a stack dump and a non-zero exit after
 1100 s. It writes nothing outside build/.
@@ -187,7 +216,7 @@ import torch
 
 from ccdm_tpu_torch.diffusion.gaussian import DiffusionConfig, GaussianDiffusion
 from ccdm_tpu_torch.embedding import ili
-from ccdm_tpu_torch.embedding.analytic import make_fn_y2h
+from ccdm_tpu_torch.embedding.analytic import COMBINER_SEED_OFFSET, Y2H_SEED, make_fn_y2h
 from ccdm_tpu_torch.models.layers import FusedLinearAttentionBlock, LinearAttention, PreNormResidual
 from ccdm_tpu_torch.models.resnet_embed import ModelY2Cov
 from ccdm_tpu_torch.models.unet import Unet
@@ -412,9 +441,9 @@ def kernel_vs_plain(device) -> tuple[dict, dict]:
         del xb, wb
         torch.cuda.empty_cache()
     print_attn_levels(rows)
-    # the other batches of the main paths (RESNET_BATCHES): bf16 only, untimed
+    # the other batches of the main paths (ATTN_BATCHES): bf16 only, untimed
     by_batch = {}
-    for batch in RESNET_BATCHES[1:]:
+    for batch in ATTN_BATCHES[1:]:
         errs = {}
         for i, (n, c) in enumerate(CHECK_SHAPES):
             route, splits = attn_route_of(batch, n, c)
@@ -1119,6 +1148,292 @@ def recipe_checks(card: str, phase8_ips: float):
     return checks
 
 
+# ------------------------------ the rest of main.py's training entry
+
+MULTIDIM_STEPS = 20
+MULTIDIM_ROWS = 64  # synthetic_power rows, all unique: the eval labels at --eval_mode 1
+MULTIDIM_DIMS = 8
+# phase 8's width, batch and dtype on Sliced-CCDM's synthetic multi-dim set
+# (64x64, 1 channel): the sliced hard vicinity (3 projections, auto-set for
+# 8 dims), label dims combined by cross attention; then every label row x 2
+# images, 10 DDIM steps
+MULTIDIM_COMMON = ["--data_name", "synthetic_power", "--label_dim", str(MULTIDIM_DIMS),
+                   "--image_size", "64", "--num_channels", "1", "--model_channels", "64",
+                   "--channel_mult", "1_2_2_4_8", "--train_amp", "--pred_objective", "pred_x0",
+                   "--vicinity_type", "shv", "--num_projections", "0",
+                   "--train_batch_size", str(TRAIN_BATCH), "--train_lr", "1e-4",
+                   "--log_every", "5", "--seed", "0", "--dim_combination", "cross_attention",
+                   "--eval_mode", "1", "--nfake_per_label", "2", "--sample_timesteps", "10"]
+# (a): the resnet ILI y2h with phase 18's cut epochs over 8 dims
+MULTIDIM_ARGV = [*MULTIDIM_COMMON, "--synthetic_n", str(MULTIDIM_ROWS),
+                 "--niters", str(MULTIDIM_STEPS), "--save_every", str(MULTIDIM_STEPS),
+                 "--y2h_embed_type", "resnet", "--epoch_cnn_embed", "2", "--epoch_net_y2h", "20"]
+MULTIDIM_FORWARDS = MULTIDIM_ROWS * 10  # UNet forwards of its sampling
+# (a'): the sinusoidal y2h, which depends on y with no training (at (a)'s
+# cut the ILI MLP is constant in y), on 8 rows for 5 steps
+ANALYTIC_STEPS = 5
+ANALYTIC_ROWS = 8
+ANALYTIC_ARGV = [*MULTIDIM_COMMON, "--synthetic_n", str(ANALYTIC_ROWS),
+                 "--niters", str(ANALYTIC_STEPS), "--save_every", str(ANALYTIC_STEPS),
+                 "--y2h_embed_type", "sinusoidal"]
+ANALYTIC_FORWARDS = ANALYTIC_ROWS * 10
+EMBED_TOL = 1e-4  # fn_y2h on the card against the CPU, f32 with TF32 off: rtol = atol
+AUX_STEPS = 10
+GIF_STEPS = 10           # min(--sample_timesteps, 50) DDIM steps of the trajectory
+INTERP_LAMBDAS = 8
+INTERP_T = 250           # min(T // 4, 250) at T 1000
+# phase 8's run with the elastic aux loss (pred_noise) and both artifacts
+AUX_ARGV = [*TRAIN_ARGV, "--pred_objective", "pred_noise", "--lambda_aux", "0.1",
+            "--net_aux", "ResNet18", "--epoch_aux", "1", "--gif_trajectory", "--interpolation",
+            "--niters", str(AUX_STEPS), "--save_every", str(AUX_STEPS), "--log_every", "1"]
+AUX_FORWARDS = GIF_STEPS + INTERP_LAMBDAS * INTERP_T + EVAL_FORWARDS
+
+
+@contextlib.contextmanager
+def sliced_widths():
+    """The label widths that reach the sliced vicinal weights, recorded."""
+    from ccdm_tpu_torch.diffusion import gaussian
+
+    widths, sliced = [], gaussian.sliced_batch_weights
+
+    def spy(labels2d, *args, **kwargs):
+        widths.append(int(labels2d.shape[1]))
+        return sliced(labels2d, *args, **kwargs)
+
+    gaussian.sliced_batch_weights = spy
+    try:
+        yield widths
+    finally:
+        gaussian.sliced_batch_weights = sliced
+
+
+@contextlib.contextmanager
+def attn_shapes():
+    """The (B, N, C) of every launch of #1, recorded."""
+    shapes, launch = set(), attn_block._launch
+
+    def spy(x2d, *args, **kwargs):
+        shapes.add(tuple(x2d.shape))
+        return launch(x2d, *args, **kwargs)
+
+    attn_block._launch = spy
+    try:
+        yield shapes
+    finally:
+        attn_block._launch = launch
+
+
+def checked_in_phase_3(shapes: set) -> list:
+    """The (B, N, C) launched, each asserted to be among those phase 3 held
+    #1 to its plain version at (ATTN_BATCHES x CHECK_SHAPES)."""
+    checked = {(b, n, c) for b in ATTN_BATCHES for n, c in CHECK_SHAPES}
+    if not shapes <= checked:
+        raise AssertionError(f"#1 launched at (B, N, C) {sorted(shapes - checked)}, which phase 3 "
+                             f"did not check against its plain version")
+    return sorted(shapes)
+
+
+@torch.no_grad()
+def embedding_on_card(argv: list, rows: torch.Tensor, what: str) -> dict:
+    """fn_y2h of a finished run, loaded from its embed_models/ on the card
+    and on the CPU, on the run's label rows: the two at EMBED_TOL, and the
+    least distance between the embeddings of two rows."""
+    from ccdm_tpu_torch import main as port_main
+    from ccdm_tpu_torch.embedding.resolve import build_label_embedding
+
+    args = parse_opts(argv)
+    setting = str(Path(port_main.results_folder(args)).parent)
+    on = {dev: build_label_embedding(args, setting, bundle=None, require_cached=True,
+                                     device=dev)[0] for dev in (args.device, "cpu")}
+    got, want = on[args.device](rows), on["cpu"](rows.cpu())
+    err = check_close(got.cpu(), want, EMBED_TOL, EMBED_TOL, f"{what} fn_y2h on the card")
+    least = float(torch.cdist(got.float(), got.float()).fill_diagonal_(float("inf")).min())
+    print(f"   {what}: fn_y2h on the card against the CPU on the {len(rows)} label rows, "
+          f"max abs err {err:.3e} (rtol = atol = {EMBED_TOL}); least distance between two "
+          f"rows' embeddings {least:.3e}", flush=True)
+    return {"max_abs_err": err, "least_row_distance": least}
+
+
+@contextlib.contextmanager
+def artifact_passes(record: dict):
+    """main.py's GIF and interpolation passes, each timed (host clock to a
+    synchronize) with the launches of #1 it made."""
+    from ccdm_tpu_torch import main as port_main
+
+    saved = {name: getattr(port_main, name)
+             for name in ("save_trajectory_gif", "save_interpolation")}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = attn_block.fused_attn_block.launches, time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record[name] = {"seconds": time.perf_counter() - t0,
+                            "attn_block": attn_block.fused_attn_block.launches - before}
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(port_main, name, timed(name, fn))
+    try:
+        yield record
+    finally:
+        for name, fn in saved.items():
+            setattr(port_main, name, fn)
+
+
+def gif_info(path: Path) -> dict:
+    """Frame count, delays (ms) and loop count of a GIF89a, read block by
+    block (the card's machine has no PIL)."""
+    data = path.read_bytes()
+    if data[:6] != b"GIF89a":
+        raise AssertionError(f"{path.name} is not a GIF89a file")
+    flags = data[10]
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    frames, delays, loop = 0, [], None
+
+    def skip_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            label = data[pos + 1]
+            if label == 0xF9:
+                delays.append(10 * struct.unpack("<H", data[pos + 4:pos + 6])[0])
+            if label == 0xFF and data[pos + 3:pos + 14] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", data[pos + 16:pos + 18])[0]
+            pos = skip_blocks(pos + 2)
+        elif data[pos] == 0x2C:
+            frames += 1
+            local = data[pos + 9]
+            pos += 10 + (3 << ((local & 7) + 1) if local & 0x80 else 0)
+            pos = skip_blocks(pos + 1)  # the LZW minimum code size, then the data
+        else:
+            raise AssertionError(f"{path.name}: unknown block 0x{data[pos]:02x} at {pos}")
+    return {"frames": frames, "delays_ms": sorted(set(delays)), "loop": loop}
+
+
+def multidim_checks(card: str, phase8_ips: float, widths: list):
+    """Phase 19 (a)'s own checks: the sliced path took labels of width 8,
+    the index-keyed grids decode to images that are not constant, the
+    combiner's weights were written; the warm rate."""
+    from ccdm_tpu_torch import main as port_main
+
+    def checks(trainer, argv, log) -> dict:
+        args = parse_opts(argv)
+        setting = Path(port_main.results_folder(args)).parent
+        if sorted(set(widths)) != [MULTIDIM_DIMS] or len(widths) != MULTIDIM_STEPS:
+            raise AssertionError(f"label widths at the sliced weights: {widths}")
+        grids = sorted(Path(port_main.fake_data_folder(args, MULTIDIM_ROWS)).glob("sample_*.png"))
+        names = [p.name for p in grids]
+        if names != [f"sample_{i:05d}.png" for i in range(MULTIDIM_ROWS)]:
+            raise AssertionError(f"grids {names}")
+        stds = [float(read_png(p).std()) for p in grids]
+        shapes = {read_png(p).shape for p in grids}
+        if not all(v > 0 for v in stds) or shapes != {(66, 391, 1)}:
+            raise AssertionError(f"grid shapes {shapes}, pixel std {stds}")
+        combiner = setting / "embed_models" / "combiner-y2h_cross_attention_d128_n8_seed7.pt"
+        if not combiner.is_file():
+            raise AssertionError(f"no {combiner.name} in {sorted(combiner.parent.iterdir())}")
+        warm = [r["imgs_per_sec"] for r in log if r["step"] > MULTIDIM_STEPS // 3]
+        ips = sum(warm) / len(warm)
+        stages = dict(ili.STAGE_SECONDS)
+        embedding = embedding_on_card(argv, trainer.unique_labels, "(a) resnet ILI")
+        print(f"   sliced weights got labels of width {MULTIDIM_DIMS} at all {len(widths)} "
+              f"steps; {len(grids)} index-keyed grids (pixel std {min(stds):.2f} to "
+              f"{max(stds):.2f}); {combiner.name} written", flush=True)
+        print(f"   ILI seconds per epoch: y2h CNN {stages['y2h_cnn']:.3f}, y2h MLP "
+              f"{stages['y2h_mlp']:.4f}; warm train {ips:.2f} images/s (steps "
+              f"{MULTIDIM_STEPS // 3 + 1}-{MULTIDIM_STEPS}, batch {TRAIN_BATCH}, bf16, 1 "
+              f"channel) against {phase8_ips:.2f} in phase 8 on {card}", flush=True)
+        return {"label_widths": sorted(set(widths)), "grids": len(grids), "grid_std": stds,
+                "ili_seconds_per_epoch": stages, "embedding": embedding,
+                "train_images_per_s": ips, "phase8_train_images_per_s": phase8_ips,
+                "card": card}
+
+    return checks
+
+
+def analytic_checks(widths: list):
+    """Phase 19 (a')'s own checks: labels of width 8 at the sliced weights;
+    fn_y2h on the card equal to the CPU's and different for every two label
+    rows; the grids of every two rows different, though every row starts
+    from the same seeded noise, so the labels reached the UNet's
+    conditioning."""
+    from ccdm_tpu_torch import main as port_main
+
+    def checks(trainer, argv, log) -> dict:
+        args = parse_opts(argv)
+        if sorted(set(widths)) != [MULTIDIM_DIMS] or len(widths) != ANALYTIC_STEPS:
+            raise AssertionError(f"label widths at the sliced weights: {widths}")
+        setting = Path(port_main.results_folder(args)).parent
+        combiner = setting / "embed_models" / (f"combiner-y2h_cross_attention_d128_n8_seed"
+                                                f"{Y2H_SEED + COMBINER_SEED_OFFSET}.pt")
+        if not combiner.is_file():
+            raise AssertionError(f"no {combiner.name} in {sorted(combiner.parent.iterdir())}")
+        embedding = embedding_on_card(argv, trainer.unique_labels, "(a') sinusoidal")
+        if not embedding["least_row_distance"] > 1e-3:
+            raise AssertionError(f"two label rows share an embedding: {embedding}")
+        grids = sorted(Path(port_main.fake_data_folder(args, ANALYTIC_ROWS)).glob("sample_*.png"))
+        pixels = [read_png(p) for p in grids]
+        distinct = len({p.tobytes() for p in pixels})
+        if len(grids) != ANALYTIC_ROWS or distinct != ANALYTIC_ROWS:
+            raise AssertionError(f"{len(grids)} grids, {distinct} distinct")
+        print(f"   {ANALYTIC_ROWS} index-keyed grids, every two different (pixel std "
+              f"{min(float(p.std()) for p in pixels):.2f} to "
+              f"{max(float(p.std()) for p in pixels):.2f})", flush=True)
+        return {"embedding": embedding, "distinct_grids": distinct}
+
+    return checks
+
+
+def aux_checks(card: str, passes: dict):
+    """Phase 19 (b)'s own checks: the aux cache, the aux term in the log,
+    the GIF's frames, the interpolation's panels, and 10 launches of #1 per
+    forward of both passes."""
+    from ccdm_tpu_torch import main as port_main
+
+    def checks(trainer, argv, log) -> dict:
+        args = parse_opts(argv)
+        results = Path(port_main.results_folder(args))
+        cache = results.parent / "aux_models" / "model-aux_ResNet18_e1_seed0" / "state.pt"
+        aux = [r.get("aux") for r in log]
+        if not cache.is_file() or not all(v is not None and np.isfinite(v) for v in aux) \
+                or not any(v > 0 for v in aux):
+            raise AssertionError(f"aux cache {cache.is_file()}, aux terms {aux}")
+        gif = gif_info(results / f"trajectory_niters{AUX_STEPS}.gif")
+        if gif != {"frames": GIF_STEPS, "delays_ms": [100], "loop": 0}:
+            raise AssertionError(f"trajectory GIF {gif}")
+        png = read_png(results / f"interpolation_niters{AUX_STEPS}.png")
+        panels = [png[1:65, 1 + 65 * i:65 * (i + 1)] for i in range(INTERP_LAMBDAS)]
+        stds = [float(p.std()) for p in panels]
+        if png.shape != (66, 65 * INTERP_LAMBDAS + 1, 3) or not all(v > 0 for v in stds):
+            raise AssertionError(f"interpolation grid {png.shape}, panel std {stds}")
+        want = {"save_trajectory_gif": ATTN_BLOCKS * GIF_STEPS,
+                "save_interpolation": ATTN_BLOCKS * INTERP_LAMBDAS * INTERP_T}
+        got = {name: passes[name]["attn_block"] for name in want}
+        if got != want:
+            raise AssertionError(f"launches of #1 in the GIF and interpolation passes {got}, "
+                                 f"expected {want}")
+        aux_s = trainer.aux_info["apply"].seconds_per_epoch
+        interp_s = passes["save_interpolation"]["seconds"]
+        gif_s = passes["save_trajectory_gif"]["seconds"]
+        print(f"   aux terms {[round(v, 5) for v in aux]}; ResNet18 aux net {aux_s:.3f} s per "
+              f"epoch on {card}", flush=True)
+        print(f"   trajectory GIF: {gif['frames']} frames, {gif_s:.2f} s; interpolation: "
+              f"{INTERP_LAMBDAS} panels (pixel std {min(stds):.2f} to {max(stds):.2f}), "
+              f"{INTERP_LAMBDAS * INTERP_T} forwards of B 1 in {interp_s:.2f} s on {card}; "
+              f"launches of #1 {got}", flush=True)
+        return {"aux": aux, "aux_seconds_per_epoch": aux_s, "gif": gif, "gif_seconds": gif_s,
+                "interpolation_seconds": interp_s, "interpolation_panel_std": stds,
+                "pass_launches": got, "card": card}
+
+    return checks
+
+
 # ------------------------------------------- the fused resnet block slice
 
 # (H = W, Cin, Cout) of the 23 resnet blocks of one RC-49 64x64 UNet forward
@@ -1134,6 +1449,10 @@ RESNET_REPLACES = {"resnet_half_a": "ccdm_tpu/ops/resnet_block.py:106",
 # labels; a training step; the EMA grid's CFG forward of 36 labels; the
 # eval sampling's and the ddpm request's CFG forward of 4 labels
 RESNET_BATCHES = (BATCH, TRAIN_BATCH, 2 * 36, 2 * 4)
+# and #1's alone: phase 19's interpolation, an unguided forward of one
+# image (cond_scale 1, as in the JAX package), and its multi-dim eval
+# sampling, a CFG forward of one label row x --nfake_per_label 2
+ATTN_BATCHES = (*RESNET_BATCHES, 1, 2 * 2)
 FUSED_STEPS = 25   # DDIM steps of the switch-on serving phase
 DDPM_STEPS = 10
 FUSED_TRAIN_STEPS = 5
@@ -1361,15 +1680,17 @@ def fused_serve_main_path(device, card: str) -> dict:
 
 
 def read_png(path: Path) -> np.ndarray:
-    """The pixels of an 8-bit RGB PNG with one IDAT chunk and no filters, as
-    utils/viz.py writes it (the card's machine has no PIL)."""
+    """The pixels [H, W, C] of an 8-bit grayscale or RGB PNG with one IDAT
+    chunk and no filters, as utils/viz.py writes it (the card's machine has
+    no PIL)."""
     data = path.read_bytes()
     w, h, depth, color = struct.unpack(">IIBB", data[16:26])
-    if data[12:16] != b"IHDR" or depth != 8 or color != 2 or data[37:41] != b"IDAT":
-        raise AssertionError(f"{path.name} is not the RGB PNG the port writes")
+    if data[12:16] != b"IHDR" or depth != 8 or color not in (0, 2) or data[37:41] != b"IDAT":
+        raise AssertionError(f"{path.name} is not the grayscale or RGB PNG the port writes")
+    c = 3 if color == 2 else 1
     size = struct.unpack(">I", data[33:37])[0]
-    rows = np.frombuffer(zlib.decompress(data[41:41 + size]), np.uint8).reshape(h, 1 + 3 * w)
-    return rows[:, 1:].reshape(h, w, 3)
+    rows = np.frombuffer(zlib.decompress(data[41:41 + size]), np.uint8).reshape(h, 1 + c * w)
+    return rows[:, 1:].reshape(h, w, c)
 
 
 def fused_train_checks(card: str):
@@ -1983,12 +2304,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/20 device")
+    phase("1/21 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/20 build")
+    phase("2/21 build")
     libraries = ("attn_block", "attn_block_large", "resnet_block", "linear_attention",
                  "style_ops")
     t0 = time.perf_counter()
@@ -2003,26 +2324,26 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/20 attn_block kernel against its plain version")
+    phase("3/21 attn_block kernel against its plain version")
     rows, rows_by_batch = kernel_vs_plain(device)
 
-    phase("4/20 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/21 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/20 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/21 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/20 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
+    phase("6/21 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
           "bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
     other_dim_head = dim_head_vs_plain(device)
 
-    phase("7/20 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/21 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
     grads_hy = grad_parity(device, use_hy=True)
 
-    phase(f"8/20 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/21 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
     trained = train_main_path(
         device, card, TRAIN_ARGV, TRAIN_STEPS,
@@ -2030,18 +2351,18 @@ def main() -> int:
          **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, train_checks(card))
 
-    phase("9/20 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+    phase("9/21 kernels #10 and #11 (the fused resnet block) against their plain versions, "
           "f32 and bf16")
     resnet_rows = resnet_vs_plain(device)
 
-    phase("10/20 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    phase("10/21 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
     fused_parity = fused_model_parity(device)
 
-    phase(f"11/20 main path with the switch on: SamplerService over HTTP, bf16, batch "
+    phase(f"11/21 main path with the switch on: SamplerService over HTTP, bf16, batch "
           f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
     fused_served = fused_serve_main_path(device, card)
 
-    phase(f"12/20 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+    phase(f"12/21 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
           f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
     fused_trained = train_main_path(
         device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
@@ -2052,24 +2373,24 @@ def main() -> int:
          **{k: 0 for k in NEW_KERNELS}},
         True, fused_train_checks(card))
 
-    phase("13/20 kernels #6 and #9 (standalone linear attention) against their plain versions")
+    phase("13/21 kernels #6 and #9 (standalone linear attention) against their plain versions")
     la_rows = la_vs_plain(device)
 
-    phase("14/20 kernels #7 + #8 (its two-pass form) against their plain versions")
+    phase("14/21 kernels #7 + #8 (its two-pass form) against their plain versions")
     tp_rows = twopass_vs_plain(device)
 
-    phase("15/20 kernel #12 (bias_act) against its plain version")
+    phase("15/21 kernel #12 (bias_act) against its plain version")
     ba_rows = bias_act_vs_plain(device)
 
-    phase("16/20 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
+    phase("16/21 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
           "the two-pass route, linear_attention_per_head, bias_act")
     la_path = la_main_path(device)
 
-    phase("17/20 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
+    phase("17/21 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
           "kernel forward against the plain route")
     la_grads = la_grad_parity(device)
 
-    phase(f"18/20 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
+    phase(f"18/21 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
           f"bf16, {RECIPE_STEPS} steps, then serving from its milestone")
     recipe = train_main_path(
         device, card, RECIPE_ARGV, RECIPE_STEPS,
@@ -2077,7 +2398,37 @@ def main() -> int:
          **{k: 2 * RECIPE_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, recipe_checks(card, trained["train_images_per_s"]))
 
-    phase("19/20 kernels")
+    phase(f"19/21 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
+          f"{MULTIDIM_DIMS} dims, shv, resnet ILI, cross_attention), batch {TRAIN_BATCH}, bf16, "
+          f"{MULTIDIM_STEPS} steps; (a') the same with the sinusoidal y2h, {ANALYTIC_STEPS} "
+          f"steps; (b) the elastic aux loss, the trajectory GIF and the interpolation, "
+          f"{AUX_STEPS} steps")
+    others = {k: 0 for k in (*RESNET, *NEW_KERNELS)}
+    with attn_shapes() as shapes:
+        with sliced_widths() as widths:
+            multidim = train_main_path(
+                device, card, MULTIDIM_ARGV, MULTIDIM_STEPS,
+                {"attn_block": 8 * MULTIDIM_STEPS + ATTN_BLOCKS * MULTIDIM_FORWARDS,
+                 **{k: 2 * MULTIDIM_STEPS for k in LARGE}, **others},
+                False, multidim_checks(card, trained["train_images_per_s"], widths))
+        with sliced_widths() as widths:
+            analytic = train_main_path(
+                device, card, ANALYTIC_ARGV, ANALYTIC_STEPS,
+                {"attn_block": 8 * ANALYTIC_STEPS + ATTN_BLOCKS * ANALYTIC_FORWARDS,
+                 **{k: 2 * ANALYTIC_STEPS for k in LARGE}, **others},
+                False, analytic_checks(widths))
+        with artifact_passes({}) as passes:
+            aux_run = train_main_path(
+                device, card, AUX_ARGV, AUX_STEPS,
+                {"attn_block": 8 * AUX_STEPS + ATTN_BLOCKS * AUX_FORWARDS,
+                 **{k: 2 * AUX_STEPS for k in LARGE}, **others},
+                False, aux_checks(card, passes))
+    multidim["analytic_y2h"] = analytic
+    multidim["attn_shapes"] = checked_in_phase_3(shapes)
+    print(f"   #1 launched at (B, N, C) {multidim['attn_shapes']} in this phase, each checked "
+          f"against its plain version in phase 3", flush=True)
+
+    phase("20/21 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -2103,6 +2454,9 @@ def main() -> int:
         "ms_is": f"sum over the 10 launches of one UNet forward, B {BATCH}, bf16",
         "launches_in_training": trained["launches"]["attn_block"],
         "launches_in_ccdm_recipe": recipe["launches"]["attn_block"],
+        "launches_in_multidim": multidim["launches"]["attn_block"],
+        "launches_in_multidim_sinusoidal": analytic["launches"]["attn_block"],
+        "launches_in_aux_gif_interpolation": aux_run["launches"]["attn_block"],
         "max_err_bf16": max(r["max_err_bf16"] for r in rows.values()
                             if r["max_err_bf16"] is not None),
         "max_err_f32": max(r["max_err_f32"] for r in rows.values()),
@@ -2125,6 +2479,9 @@ def main() -> int:
             "ms_is": f"one call at B {TRAIN_BATCH}, N {LARGE_SHAPES[0][0]}, "
                      f"C {LARGE_SHAPES[0][1]}, bf16",
             "launches_in_ccdm_recipe": recipe["launches"][name],
+            "launches_in_multidim": multidim["launches"][name],
+            "launches_in_multidim_sinusoidal": analytic["launches"][name],
+            "launches_in_aux_gif_interpolation": aux_run["launches"][name],
             "routes": {tag: f"{r[name]['route']} x{r[name]['splits']}"
                        for tag, r in large_rows.items() if name in r},
             "by_shape": {tag: r.get(name, {}) for tag, r in large_rows.items()},
@@ -2136,12 +2493,14 @@ def main() -> int:
     kernels[3]["max_err_by_shape"] = {tag: r["max_err"] for tag, r in large_rows.items()}
     kernels[4]["train"] = trained
     kernels[4]["ccdm_recipe"] = recipe
+    kernels[4]["multidim"] = multidim
+    kernels[4]["aux_gif_interpolation"] = aux_run
     kernels += resnet_kernel_rows(resnet_rows, fused_served, fused_trained, fused_parity, card,
                                   served["cfg_forward_ms"])
     kernels += slice4_kernel_rows(la_rows, tp_rows, ba_rows, la_path, la_grads, card)
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("20/20 done")
+    phase("21/21 done")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,14 @@ model-<tag>/state.pt under the port's setting folder, with its
 datafp-<tag>.txt (the in-train CNN checkpoints, *_cnn_epoch*, stay
 behind); where the flags use the gaussian embedding (--y2h_embed_type, or
 --y2cov_embed_type with --use_Hy), JAX's projection W is written beside
-them (embedding/analytic.gaussian_projection reads it).
+them (embedding/analytic.gaussian_projection reads it), one row per
+selected label dim of --label_dim; where --label_dim > 1 and
+--dim_combination is not mean, JAX's initial combiner weights (its
+PRNGKey(seed + 7) draw, never trained) are written beside them too
+(embedding/combine.combiner_weights reads them). The aux regressors of
+--lambda_aux come along as well: every entry model-aux_*/ of the JAX run's
+<setting folder>/aux_models/ becomes the port's, params and BatchNorm
+statistics.
 """
 
 from __future__ import annotations
@@ -80,9 +87,14 @@ def convert_embed_models(jax_embed_dir: str, port_embed_dir: str, args) -> list[
     import numpy as np
     import torch
 
+    import jax.numpy as jnp
+
+    from ccdm_tpu.embedding.combine import make_combiner as jax_make_combiner
     from ccdm_tpu.utils.ckpt import load_checkpoint
     from ccdm_tpu_torch.embedding.analytic import (
-        GFP_SCALE, Y2COV_SEED, Y2H_SEED, projection_path, save_projection)
+        COMBINER_SEED_OFFSET, GFP_SCALE, Y2COV_SEED, Y2H_SEED, projection_path,
+        save_projection, selected_dims)
+    from ccdm_tpu_torch.embedding.combine import combiner_path, make_combiner, save_combiner
     from ccdm_tpu_torch.models.resnet_embed import ModelY2Cov, ModelY2H
     from ccdm_tpu_torch.utils.ckpt import save_checkpoint
     from ccdm_tpu_torch.utils.convert import state_dict_from_jax
@@ -103,20 +115,65 @@ def convert_embed_models(jax_embed_dir: str, port_embed_dir: str, args) -> list[
             shutil.copy(marker, os.path.join(port_embed_dir, f"datafp-{tag}.txt"))
         written.append(tag)
     cov_dim = args.num_channels * args.image_size ** 2
+    label_dim = getattr(args, "label_dim", 1)
+    dim_combination = getattr(args, "dim_combination", "mean")
+    num_dims = len(selected_dims(label_dim))
     for kind, dim, seed, used in (
             ("y2h", args.dim_embed, Y2H_SEED, args.y2h_embed_type == "gaussian"),
             ("y2cov", cov_dim, Y2COV_SEED, args.use_Hy and args.y2cov_embed_type == "gaussian")):
-        if used:  # ccdm_tpu/embedding/analytic.py:60-62, one scalar label dim
-            W = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (1, dim // 2)) * GFP_SCALE)
-            path = projection_path(port_embed_dir, kind, dim, seed)
+        if used:  # ccdm_tpu/embedding/analytic.py:60-62
+            W = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (num_dims, dim // 2))
+                           * GFP_SCALE)
+            path = projection_path(port_embed_dir, kind, dim, seed, num_dims)
             save_projection(path, torch.from_numpy(np.array(W, np.float32)))
             written.append(os.path.basename(path))
+    if label_dim > 1 and dim_combination != "mean":
+        # (kind, embed_dim, dims combined, seed) of each combiner the flags
+        # build: ccdm_tpu/embedding/analytic.py:65-71, ili.py:549-555
+        combiners = []
+        if args.y2h_embed_type == "resnet":
+            combiners.append(("y2h", args.dim_embed, label_dim, args.seed))
+        else:
+            combiners.append(("y2h", args.dim_embed, num_dims, Y2H_SEED))
+            if args.use_Hy and args.y2cov_embed_type != "resnet":
+                combiners.append(("y2cov", cov_dim, num_dims, Y2COV_SEED))
+        for kind, dim, dims, seed in combiners:
+            seed += COMBINER_SEED_OFFSET
+            variables = jax_make_combiner(dim_combination, dim, dims).init(
+                jax.random.PRNGKey(seed), jnp.zeros((dims, 1, dim)))
+            module = make_combiner(dim_combination, dim, dims)
+            module.load_state_dict(state_dict_from_jax(jax.device_get(variables), module))
+            path = combiner_path(port_embed_dir, kind, dim_combination, dim, dims, seed)
+            save_combiner(path, module)
+            written.append(os.path.basename(path))
+    return written
+
+
+def convert_aux_models(jax_aux_dir: str, port_aux_dir: str, args) -> list[str]:
+    """Carry the JAX run's aux_models/ (the --lambda_aux regressors) across;
+    returns the tags written."""
+    import glob
+
+    from ccdm_tpu.utils.ckpt import load_checkpoint
+    from ccdm_tpu_torch.models.aux_net import make_aux_net
+    from ccdm_tpu_torch.utils.ckpt import save_checkpoint
+    from ccdm_tpu_torch.utils.convert import state_dict_from_jax
+
+    written = []
+    for path in sorted(glob.glob(os.path.join(jax_aux_dir, "model-aux_*"))):
+        tag = os.path.basename(path)[len("model-"):]
+        name = tag.split("_")[1]  # aux_<name>_e<epochs>_seed<seed>
+        net = make_aux_net(name, in_channels=args.num_channels, image_size=args.image_size)
+        variables = load_checkpoint(jax_aux_dir, tag)
+        save_checkpoint(port_aux_dir, tag, {"net": state_dict_from_jax(variables, net)})
+        written.append(tag)
     return written
 
 
 def convert(jax_results: str, milestone: int, argv: list[str]) -> str:
     """Write the port's milestone `milestone` from the JAX one, and carry its
-    setting folder's embed_models/ across; returns the milestone's path."""
+    setting folder's embed_models/ and aux_models/ across; returns the
+    milestone's path."""
     from ccdm_tpu_torch.main import build_model, results_folder
     from ccdm_tpu_torch.opts import parse_opts
     from ccdm_tpu_torch.training.trainer import checkpoint_tree
@@ -127,11 +184,16 @@ def convert(jax_results: str, milestone: int, argv: list[str]) -> str:
     jax_state = restore_jax_state(jax_results, milestone, args)
     state = train_state_from_jax(jax_state, build_model(args, args.image_size, args.num_channels))
     path = save_checkpoint(results_folder(args), milestone, checkpoint_tree(state))
-    embed = convert_embed_models(
-        os.path.join(os.path.dirname(os.path.abspath(jax_results)), "embed_models"),
-        os.path.join(os.path.dirname(results_folder(args)), "embed_models"), args)
+    jax_setting = os.path.dirname(os.path.abspath(jax_results))
+    port_setting = os.path.dirname(results_folder(args))
+    embed = convert_embed_models(os.path.join(jax_setting, "embed_models"),
+                                 os.path.join(port_setting, "embed_models"), args)
     if embed:
         print(f"embed_models: {', '.join(embed)}")
+    aux = convert_aux_models(os.path.join(jax_setting, "aux_models"),
+                             os.path.join(port_setting, "aux_models"), args)
+    if aux:
+        print(f"aux_models: {', '.join(aux)}")
     return path
 
 

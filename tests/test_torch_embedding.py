@@ -46,12 +46,21 @@ def test_sinusoidal_pos_emb_matches(dim):
 
 @pytest.mark.parametrize("embed_type", ["gaussian", "resnet"])
 def test_unported_embedding_types_raise(embed_type, tmp_path):
-    """Both types are ported for scalar labels; multi-dim labels are not."""
+    """Both types take multi-dim labels now. Load-only, the gaussian one
+    draws its W [2, 64] without writing it, and the resnet one raises
+    FileNotFoundError without a trained cache; make_fn_y2h refuses the
+    gaussian type without W and the resnet type, which is not analytic."""
     args = argparse.Namespace(dim_embed=128, y2h_embed_type=embed_type, label_dim=2,
                               use_Hy=False, image_size=16, num_channels=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_label_embedding(args, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if embed_type == "gaussian":
+        fn_y2h, _ = build_label_embedding(args, str(tmp_path))
+        emb = fn_y2h(torch.tensor([[0.25, 0.5], [0.75, 1.0]]))
+        assert emb.shape == (2, 128) and float(emb.min()) >= 0 and float(emb.max()) <= 1
+        assert not (tmp_path / "embed_models").exists()
+    else:
+        with pytest.raises(FileNotFoundError, match="y2h"):
+            build_label_embedding(args, str(tmp_path))
+    with pytest.raises(ValueError, match="W" if embed_type == "gaussian" else "analytic"):
         make_fn_y2h(128, embed_type, label_dim=2)
 
 

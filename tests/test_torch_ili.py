@@ -35,6 +35,7 @@ from ccdm_tpu.utils.ckpt import save_checkpoint as jax_save_checkpoint
 from ccdm_tpu_torch.embedding import ili
 from ccdm_tpu_torch.embedding.resolve import build_label_embedding
 from ccdm_tpu_torch.models.resnet_embed import ModelY2Cov, ModelY2H, ResNetEmbed
+from ccdm_tpu_torch.training import optim
 from ccdm_tpu_torch.utils.ckpt import save_checkpoint
 from ccdm_tpu_torch.utils.convert import state_dict_from_jax
 
@@ -171,7 +172,7 @@ def test_label_mlps_match_jax(kind):
 def test_lr_schedule_matches_optax():
     for lr, epochs, spe in ((0.01, (80, 140), 3), (0.01, (150, 250, 350), 1), (0.1, (2, 2.5), 4)):
         want = jili._lr_schedule(lr, epochs, spe)
-        got = ili._lr_schedule(lr, epochs, spe)
+        got = optim.lr_schedule(lr, epochs, spe)
         counts = range(0, int(max(epochs) * spe) + 3)
         assert [got(c) for c in counts] == [float(np.float32(want(c))) for c in counts]
 

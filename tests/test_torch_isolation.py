@@ -55,7 +55,8 @@ def test_port_and_smoke_script_import_no_jax():
                  "training.trainer", "training.state", "utils.ckpt", "utils.logging",
                  "data.datasets", "ops.attn_block", "ops.linear_attention", "ops.style_ops",
                  "embedding.ili", "embedding.resolve", "embedding.analytic",
-                 "models.resnet_embed"):
+                 "models.resnet_embed", "data.power", "embedding.combine", "models.aux_net",
+                 "training.train_aux", "training.optim"):
         assert f"ccdm_tpu_torch.{name}" in report["new"], name
     assert [m for m in report["new"] if _is_jax(m)] == []
 
@@ -82,9 +83,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--architecture", "vit"], ["--architecture", "adm"],
                                    ["--label_dim", "2"]])
-def test_options_of_later_slices_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.SamplerService(parse_opts(SMALL_ARGV + flags), warm=False, device="cpu")
+def test_options_of_later_slices_raise(flags, tmp_path):
+    """The ADM and ViT denoisers still raise; --label_dim 2 builds the
+    multi-dim embedding and serves 1-D labels through dim 0's."""
+    argv = SMALL_ARGV + ["--root_path", str(tmp_path)] + flags
+    if flags[0] == "--architecture":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve.SamplerService(parse_opts(argv), warm=False, device="cpu")
+        return
+    service = serve.SamplerService(parse_opts(argv), max_batch=2, warm=False, device="cpu")
+    assert service.fn_y2h(torch.tensor([[0.3, 0.6]])).shape == (1, 128)
+    images = service.generate(np.array([0.3, 0.6], np.float32))
+    assert images.dtype == np.uint8 and images.shape == (2, 16, 16, 3)
 
 
 @pytest.mark.parametrize("flags", [["--use_Hy", "--y2cov_embed_type", "sinusoidal"],
