@@ -1,9 +1,13 @@
 """Dataset layer: h5 loaders for the four benchmark datasets + synthetic.
 
 A numpy copy of ccdm_tpu/data/datasets.py (the port imports nothing of the
-JAX package). The h5 loaders import h5py when called and raise a clear
-error where it is not installed; the multi-dim-label sets (power_vector,
-synthetic_power) are in data/power.py.
+JAX package). Each h5 loader is two steps: `read_<name>` opens the file
+(it imports h5py when called and raises a clear error where it is not
+installed) and returns the raw arrays; `<name>_from_arrays` does all that
+follows the read (label filter, normalisation, per-label cap or subset,
+the raw eval set), so a run without h5py builds the same bundle from
+arrays. The multi-dim-label sets (power_vector, synthetic_power) are in
+data/power.py.
 
 Reproduces the vanilla per-dataset pipelines exactly (SURVEY.md §2.2 V1/V9):
 
@@ -92,17 +96,17 @@ def _cap_per_label(images, labels, cap, seed=2023):
     return images[sel], labels[sel]
 
 
-def load_rc49(data_path: str, image_size: int = 64, min_label: float = 0.0,
-              max_label: float = 90.0, max_num_img_per_label: int = 25,
-              data_split: str = "train") -> DatasetBundle:
-    h5py = _h5py()
+def read_rc49(data_path: str, image_size: int = 64):
+    """RC-49's h5: (images [N, C, H, W] or NHWC, labels, indx_train)."""
+    with _h5py().File(os.path.join(data_path, f"RC-49_{image_size}x{image_size}.h5"), "r") as hf:
+        return hf["images"][:], hf["labels"][:].astype(float), hf["indx_train"][:]
 
-    fp = os.path.join(data_path, f"RC-49_{image_size}x{image_size}.h5")
-    with h5py.File(fp, "r") as hf:
-        labels_all = hf["labels"][:].astype(float)
-        images_all = hf["images"][:]
-        indx_train = hf["indx_train"][:]
 
+def rc49_from_arrays(images_all: np.ndarray, labels_all: np.ndarray, indx_train: np.ndarray,
+                     min_label: float = 0.0, max_label: float = 90.0,
+                     max_num_img_per_label: int = 25, data_split: str = "train") -> DatasetBundle:
+    """The RC-49 bundle of the raw arrays load_rc49 reads."""
+    labels_all = np.asarray(labels_all, float)
     if data_split == "train":
         images, labels = images_all[indx_train], labels_all[indx_train]
     else:
@@ -122,16 +126,23 @@ def load_rc49(data_path: str, image_size: int = 64, min_label: float = 0.0,
     )
 
 
-def load_utkface(data_path: str, image_size: int = 64, min_label: float = 1,
-                 max_label: float = 60, max_num_img_per_label: int = 10**30,
-                 num_img_per_label_after_replica: int = 0, seed: int = 2023) -> DatasetBundle:
-    h5py = _h5py()
+def load_rc49(data_path: str, image_size: int = 64, **kwargs) -> DatasetBundle:
+    return rc49_from_arrays(*read_rc49(data_path, image_size), **kwargs)
 
-    fp = os.path.join(data_path, f"UTKFace_{image_size}x{image_size}.h5")
-    with h5py.File(fp, "r") as hf:
-        labels = hf["labels"][:].astype(float)
-        images = hf["images"][:]
 
+def read_utkface(data_path: str, image_size: int = 64):
+    """UTKFace's h5: (images, labels)."""
+    with _h5py().File(os.path.join(data_path, f"UTKFace_{image_size}x{image_size}.h5"),
+                      "r") as hf:
+        return hf["images"][:], hf["labels"][:].astype(float)
+
+
+def utkface_from_arrays(images: np.ndarray, labels: np.ndarray, min_label: float = 1,
+                        max_label: float = 60, max_num_img_per_label: int = 10**30,
+                        num_img_per_label_after_replica: int = 0,
+                        seed: int = 2023) -> DatasetBundle:
+    """The UTKFace bundle of the raw arrays load_utkface reads."""
+    labels = np.asarray(labels, float)
     sel = np.isin(labels, np.arange(min_label, max_label + 1))
     images, labels = images[sel], labels[sel]
     raw_images, raw_labels = images.copy(), labels.copy()
@@ -160,15 +171,23 @@ def load_utkface(data_path: str, image_size: int = 64, min_label: float = 1,
     )
 
 
-def load_steeringangle(data_path: str, image_size: int = 64, min_label: float = -80.0,
-                       max_label: float = 80.0, max_num_img_per_label: int = 10**30) -> DatasetBundle:
-    h5py = _h5py()
+def load_utkface(data_path: str, image_size: int = 64, **kwargs) -> DatasetBundle:
+    return utkface_from_arrays(*read_utkface(data_path, image_size), **kwargs)
 
+
+def read_steeringangle(data_path: str, image_size: int = 64):
+    """SteeringAngle's h5: (images, signed labels in degrees)."""
     fp = os.path.join(data_path, f"SteeringAngle_{image_size}x{image_size}.h5")
-    with h5py.File(fp, "r") as hf:
-        labels = hf["labels"][:].astype(float)
-        images = hf["images"][:]
+    with _h5py().File(fp, "r") as hf:
+        return hf["images"][:], hf["labels"][:].astype(float)
 
+
+def steeringangle_from_arrays(images: np.ndarray, labels: np.ndarray,
+                              min_label: float = -80.0, max_label: float = 80.0,
+                              max_num_img_per_label: int = 10**30) -> DatasetBundle:
+    """The SteeringAngle bundle of the raw arrays load_steeringangle reads
+    (or of rendered ones: a run without h5py builds it from arrays)."""
+    labels = np.asarray(labels, float)
     keep = np.where((labels > min_label) & (labels < max_label))[0]
     images, labels = images[keep], labels[keep]
     raw_images, raw_labels = images.copy(), labels.copy()
@@ -190,16 +209,22 @@ def load_steeringangle(data_path: str, image_size: int = 64, min_label: float = 
     )
 
 
-def load_cell200(data_path: str, image_size: int = 64, min_label: float = 1,
-                 max_label: float = 200, stepsize: int = 2,
-                 num_imgs_per_label: int = 10) -> DatasetBundle:
-    h5py = _h5py()
+def load_steeringangle(data_path: str, image_size: int = 64, **kwargs) -> DatasetBundle:
+    return steeringangle_from_arrays(*read_steeringangle(data_path, image_size), **kwargs)
 
-    fp = os.path.join(data_path, f"Cell200_{image_size}x{image_size}.h5")
-    with h5py.File(fp, "r") as hf:
-        labels = hf["CellCounts"][:].astype(float)
-        images = hf["IMGs_grey"][:]
 
+def read_cell200(data_path: str, image_size: int = 64):
+    """Cell-200's h5: (grayscale images, cell counts)."""
+    with _h5py().File(os.path.join(data_path, f"Cell200_{image_size}x{image_size}.h5"),
+                      "r") as hf:
+        return hf["IMGs_grey"][:], hf["CellCounts"][:].astype(float)
+
+
+def cell200_from_arrays(images: np.ndarray, labels: np.ndarray, min_label: float = 1,
+                        max_label: float = 200, stepsize: int = 2,
+                        num_imgs_per_label: int = 10) -> DatasetBundle:
+    """The Cell-200 bundle of the raw arrays load_cell200 reads."""
+    labels = np.asarray(labels, float)
     sel = np.isin(labels, np.arange(min_label, max_label + 1))
     images, labels = images[sel], labels[sel]
     raw_images, raw_labels = images.copy(), labels.copy()
@@ -219,6 +244,10 @@ def load_cell200(data_path: str, image_size: int = 64, min_label: float = 1,
         "Cell200", _to_nhwc(images), labels, fn_norm(labels), fn_norm, fn_denorm,
         eval_images=_to_nhwc(raw_images), eval_labels_raw=raw_labels,
     )
+
+
+def load_cell200(data_path: str, image_size: int = 64, **kwargs) -> DatasetBundle:
+    return cell200_from_arrays(*read_cell200(data_path, image_size), **kwargs)
 
 
 def make_synthetic(n: int = 512, image_size: int = 64, channels: int = 3,

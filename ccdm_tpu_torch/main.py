@@ -26,9 +26,13 @@ sample_<label>.png and, with --dump_fake_data, <label>.h5 holding
 fake_images_i (uint8, gzip 6), fake_labels_i and sample_time_i (for
 multi-dim labels sample_<i:05d>.png and label_<i:05d>.h5, i the row's
 index). A rerun skips a label whose h5 exists and reads its
-sample_time_i. --comp_FID on a multi-dim run prints that the scalar-label
-protocol is skipped; on scalar labels it and --dump_fake_for_NIQE come
-with eval (ROADMAP.md).
+sample_time_i (and, for the eval, its fakes). Then --dump_fake_for_NIQE
+writes every fake as results/saved_images/fake_images/<i>_<label>.png (or
+under --niqe_dump_path) and stops; --comp_FID on scalar labels scores the
+fakes with the CCGM protocol (eval/protocol.run_ccgm_eval: the pinned eval
+backbones under <eval_ckpt_path>/eval_models/, <setting
+folder>/eval_results_niters<N>.txt), and on a multi-dim run prints that the
+scalar-label protocol is skipped.
 """
 
 from __future__ import annotations
@@ -154,16 +158,24 @@ def write_fake_h5(path: str, images: np.ndarray, labels: np.ndarray, sample_time
         f.create_dataset("sample_time_i", data=np.array([sample_time]), dtype="float")
 
 
-def read_sample_time(path: str) -> float:
+def read_sample_dump(path: str, images: bool = False):
+    """sample_time_i of an existing dump, with its fake_images_i and
+    fake_labels_i when `images`."""
     from ccdm_tpu_torch.data.datasets import import_h5py
 
     with import_h5py("reading an existing sample dump").File(path, "r") as f:
-        return float(f["sample_time_i"][0])
+        sample_time = float(f["sample_time_i"][0])
+        if not images:
+            return sample_time, None, None
+        return sample_time, f["fake_images_i"][:], f["fake_labels_i"][:]
 
 
-def sample_eval_labels(trainer, bundle, args, fn_y2h) -> None:
-    """The per-eval-label sampling of ccdm_tpu/main.py:309-360 from the EMA
-    weights; a multi-dim label row gets index-keyed files."""
+def sample_eval_labels(trainer, bundle, args, fn_y2h):
+    """The per-eval-label sampling of ccdm_tpu/main.py:309-366 from the EMA
+    weights; a multi-dim label row gets index-keyed files. With --comp_FID
+    or --dump_fake_for_NIQE every label's fakes and labels are kept (read
+    back from the h5 where it exists): returns (fakes [N, H, W, C] uint8,
+    raw labels, total sampling seconds), the first two None otherwise."""
     from ccdm_tpu_torch.training.trainer import sample_given_labels
     from ccdm_tpu_torch.utils.viz import save_image_grid
 
@@ -175,11 +187,13 @@ def sample_eval_labels(trainer, bundle, args, fn_y2h) -> None:
     os.makedirs(dump_folder, exist_ok=True)
     diffusion = trainer.ema_diffusion()
     multi_dim = eval_labels.ndim > 1
+    keep = args.comp_FID or args.dump_fake_for_NIQE
     total_time = 0.0
+    all_fake_images, all_fake_labels = [], []
     for i, curr_label in enumerate(eval_labels):
         fp = os.path.join(dump_folder, f"label_{i:05d}.h5" if multi_dim else f"{curr_label}.h5")
         if os.path.isfile(fp):
-            sample_time_i = read_sample_time(fp)
+            sample_time_i, fake_images_i, fake_labels_i = read_sample_dump(fp, keep)
         else:
             fake_labels_i = (np.tile(curr_label, (args.nfake_per_label, 1)) if multi_dim
                              else curr_label * np.ones(args.nfake_per_label))
@@ -196,9 +210,30 @@ def sample_eval_labels(trainer, bundle, args, fn_y2h) -> None:
             save_image_grid(fake_images_i[:36].astype(np.float32) / 255.0,
                             os.path.join(dump_folder, grid_name), nrow=6)
         total_time += sample_time_i
+        if keep:
+            all_fake_images.append(fake_images_i)
+            all_fake_labels.append(fake_labels_i)
         print(f"\r [{i + 1}/{num_eval}] label {curr_label}: {sample_time_i:.2f}s "
               f"(total {total_time:.2f}s)", flush=True)
     print(f"Sampling finished; Time elapses: {total_time}s", flush=True)
+    if not keep:
+        return None, None, total_time
+    return np.concatenate(all_fake_images, axis=0), np.concatenate(all_fake_labels), total_time
+
+
+def dump_fake_for_niqe(args, fakes: np.ndarray, flabels: np.ndarray) -> str:
+    """Every fake as <niqe dir>/<i>_<label>.png (grayscale 2-D, RGB 3-D),
+    the file names of ccdm_tpu/main.py:371-384, for external MATLAB NIQE."""
+    from ccdm_tpu_torch.utils.viz import encode_png
+
+    niqe_dir = (args.niqe_dump_path if args.niqe_dump_path != "None"
+                else os.path.join(results_folder(args), "saved_images", "fake_images"))
+    os.makedirs(niqe_dir, exist_ok=True)
+    for i, (img, lab) in enumerate(zip(fakes, flabels)):
+        with open(os.path.join(niqe_dir, f"{i}_{lab}.png"), "wb") as f:
+            f.write(encode_png(img[..., 0] if img.shape[-1] == 1 else img))
+    print(f"NIQE dump complete: {len(fakes)} PNGs -> {niqe_dir}", flush=True)
+    return niqe_dir
 
 
 def save_trajectory_gif(trainer, args, fn_y2h, y_visual: np.ndarray) -> str:
@@ -259,8 +294,6 @@ def main(argv=None):
     from ccdm_tpu_torch.utils.device import resolve_device
 
     args = parse_opts(argv)
-    if args.dump_fake_for_NIQE:
-        raise NotImplementedError("--dump_fake_for_NIQE comes with eval (ROADMAP.md)")
     device = resolve_device(args.device)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -275,8 +308,6 @@ def main(argv=None):
     bundle = load_dataset(args.data_name, args.data_path, **dataset_kwargs(args))
     print(f"\n {args.data_name}: {len(bundle.images)} train images, "
           f"{bundle.image_size}^2 x{bundle.channels}, label_dim={bundle.label_dim}", flush=True)
-    if args.comp_FID and bundle.label_dim == 1:
-        raise NotImplementedError("--comp_FID on scalar labels comes with eval (ROADMAP.md)")
     if args.vicinity_type in ("shv", "ssv") and args.num_projections <= 0:
         d = bundle.label_dim
         args.num_projections = 10 if d > 20 else 5 if d > 10 else 3 if d > 5 else 1
@@ -334,10 +365,19 @@ def main(argv=None):
         save_trajectory_gif(trainer, args, fn_y2h, y_visual)
     if args.interpolation:
         save_interpolation(trainer, bundle, args, fn_y2h)
-    sample_eval_labels(trainer, bundle, args, fn_y2h)
-    if args.comp_FID:  # scalar labels raised above
+    fakes, flabels, total_time = sample_eval_labels(trainer, bundle, args, fn_y2h)
+    if args.dump_fake_for_NIQE:
+        dump_fake_for_niqe(args, fakes, flabels)
+        return trainer
+    if args.comp_FID and bundle.label_dim > 1:
+        # the sliding window slides over a 1-D label range
         print(" comp_FID skipped: the SFID/LS sliding-window protocol is scalar-label; "
               "multi-dim runs produce sample dumps only.", flush=True)
+    elif args.comp_FID:
+        from ccdm_tpu_torch.eval.protocol import run_ccgm_eval
+
+        trainer.eval_results = run_ccgm_eval(args, bundle, fakes, flabels, setting_folder,
+                                             total_time)
     return trainer
 
 

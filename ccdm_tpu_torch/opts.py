@@ -1,8 +1,6 @@
-"""CLI flags of the training, sampling and serving paths, with
+"""CLI flags of the training, sampling, eval and serving paths, with
 ccdm_tpu/opts.py's names, defaults and choices, plus --device. Flags that
-nothing in the port reads yet (most of eval) come with their slices;
---comp_FID (on scalar labels) and --dump_fake_for_NIQE are parsed and
-raise."""
+nothing in the port reads yet come with their slices."""
 
 from __future__ import annotations
 
@@ -146,12 +144,42 @@ def parse_opts(argv=None):
                         help="write results/interpolation_niters<N>.png, two "
                              "training images blended in latent space")
 
-    # Evaluation: the eval label grid; FID (on scalar labels) and NIQE are
-    # parsed and raise
+    # Evaluation (the CCGM protocol of eval/protocol.py; ccdm_tpu/opts.py:186-235)
+    parser.add_argument("--eval_ckpt_path", type=str, default="./",
+                        help="the eval backbones and the NIQE model are trained into, or "
+                             "loaded from, <eval_ckpt_path>/eval_models/")
+    parser.add_argument("--epochs_eval_ae", type=int, default=10,
+                        help="epochs for training the SFID autoencoder backbone")
+    parser.add_argument("--epochs_eval_cnn", type=int, default=20,
+                        help="epochs for training the LS/Diversity ResNet backbones")
     parser.add_argument("--comp_FID", action="store_true", default=False)
     parser.add_argument("--eval_mode", type=int, default=2, choices=[1, 2, 3, 4])
+    parser.add_argument("--FID_radius", type=float, default=0)
     parser.add_argument("--FID_num_centers", type=int, default=-1)
-    parser.add_argument("--dump_fake_for_NIQE", action="store_true", default=False)
+    parser.add_argument("--dump_fake_for_NIQE", action="store_true", default=False,
+                        help="write every fake as <niqe_dump_path>/<i>_<label>.png, then stop")
+    parser.add_argument("--niqe_dump_path", type=str, default="None",
+                        help="default results/saved_images/fake_images")
+    parser.add_argument("--comp_niqe", action="store_true", default=False,
+                        help="native NIQE (eval/niqe.py) calibrated on the real images")
+    parser.add_argument("--niqe_patch", type=int, default=0,
+                        help="NIQE patch size; 0 = auto (96 at >=192px, else image_size/2)")
+    parser.add_argument("--comp_IS_and_FID_only", action="store_true", default=False)
+    parser.add_argument("--comp_prdc", action="store_true", default=False,
+                        help="precision/recall/density/coverage over the FID feature net")
+    parser.add_argument("--prdc_nearest_k", type=int, default=5)
+    parser.add_argument("--comp_intra_fid", action="store_true", default=False,
+                        help="FID per label class, the labels binned into shared classes")
+    parser.add_argument("--knn_analysis", action="store_true", default=False,
+                        help="k-nearest-real grids for fake anchors")
+    parser.add_argument("--frequency_analysis", action="store_true", default=False,
+                        help="mean FFT log-spectrum, real vs fake")
+    parser.add_argument("--tsne_analysis", action="store_true", default=False,
+                        help="2-D t-SNE (PCA without sklearn) of the FID features, real vs fake")
+    parser.add_argument("--GAN_train", action="store_true", default=False,
+                        help="classification accuracy score: train on fake, test on real")
+    parser.add_argument("--GAN_test", action="store_true", default=False,
+                        help="classification accuracy score: train on real, test on fake")
 
     # Serving
     parser.add_argument("--serve_port", type=int, default=8600)

@@ -16,9 +16,14 @@ regressor of models/aux_net.py, params and batch_stats);
 - the attention blocks' qkv_kernel [C, 3F] and out_kernel [F, C] keep
   their layout (the kernel's signature is JAX's);
 - cond_bn_* scale/bias and batch_stats mean/var -> BatchNorm weight/bias
-  and running statistics; null_cond_emb as it is.
+  and running statistics; null_cond_emb as it is;
+- a ConvTranspose kernel (the eval autoencoder's decoder; flax's
+  transpose_kernel False) HWIO -> flipped in both spatial axes, [I, O, H, W],
+  which nn.ConvTranspose2d(stride 2, padding 1) applies as flax's "SAME".
 It raises on a leaf it does not consume and on a tensor of the port it
-leaves unset.
+leaves unset. `jax_variables_from_state_dict` maps the state_dict of a
+module of convs, Dense layers and flax norms back to the flax tree (the
+eval backbones' fingerprint hashes that layout).
 
 `train_state_from_jax` carries a whole JAX TrainState (numpy leaves) into
 the port's training/state.TrainState: params and BatchNorm statistics, the
@@ -46,7 +51,9 @@ def _leaves(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple[tuple[str, ...
             yield prefix + (k,), np.asarray(v, dtype=np.float32)
 
 
-def _to_torch_layout(name: str, arr: np.ndarray) -> np.ndarray:
+def _to_torch_layout(name: str, arr: np.ndarray, transposed: bool = False) -> np.ndarray:
+    if transposed:  # flax ConvTranspose HWIO, transpose_kernel False: flip, -> [I, O, H, W]
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
     if name == "res_weight":
         return arr.T[:, :, None, None]
     if name in ("weight", "conv1_weight", "conv2_weight") and arr.ndim == 4:
@@ -56,9 +63,10 @@ def _to_torch_layout(name: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
-def _named_tensors(tree: Mapping[str, Any], target: dict) -> dict:
+def _named_tensors(tree: Mapping[str, Any], target: dict, transposed=frozenset()) -> dict:
     """{state_dict key: tensor} for the leaves of a flax params or
-    batch_stats tree, each checked against `target`'s shape."""
+    batch_stats tree, each checked against `target`'s shape; the keys in
+    `transposed` are nn.ConvTranspose2d weights."""
     out: dict[str, torch.Tensor] = {}
     for path, arr in _leaves(tree):
         names = list(path)
@@ -69,7 +77,7 @@ def _named_tensors(tree: Mapping[str, Any], target: dict) -> dict:
         if key not in target or key in out:
             raise KeyError(f"JAX leaf {'/'.join(path)} has no place in the port "
                            f"(tried {key!r})")
-        value = torch.from_numpy(np.array(_to_torch_layout(names[-1], arr)))
+        value = torch.from_numpy(np.array(_to_torch_layout(names[-1], arr, key in transposed)))
         if value.shape != target[key].shape:
             raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)} does not "
                              f"fit {key} {tuple(target[key].shape)}")
@@ -81,7 +89,7 @@ def state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> dict:
     """The state_dict for `model` (the port's module of the same config)
     holding the JAX module's `variables`."""
     target = model.state_dict()
-    out = _named_tensors(variables["params"], target)
+    out = _named_tensors(variables["params"], target, _transposed_weights(model))
     stats = _named_tensors(variables.get("batch_stats", {}), target)
     if set(out) & set(stats):
         raise KeyError(f"params and batch_stats share {sorted(set(out) & set(stats))}")
@@ -93,6 +101,53 @@ def state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> dict:
             out[key] = value
         else:
             raise KeyError(f"the JAX variables leave {key} unset")
+    return out
+
+
+def _transposed_weights(model: nn.Module) -> frozenset:
+    return frozenset(f"{name}.weight" for name, m in model.named_modules()
+                     if isinstance(m, nn.ConvTranspose2d))
+
+
+# the flax leaf of each (module type, torch name); weights and biases are
+# params, running statistics batch_stats
+_FLAX_LEAVES = {"weight": ("params", "kernel"), "bias": ("params", "bias"),
+                "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def jax_variables_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                  model: nn.Module) -> dict:
+    """The inverse of state_dict_from_jax for modules built of nn.Conv2d,
+    nn.ConvTranspose2d, nn.Linear and resnet_embed's BatchNorm and
+    GroupNorm: {"params": ..., "batch_stats": ...} in flax layout (HWIO
+    kernels, Dense [in, out], norm scales), f32 numpy arrays in C order;
+    batch_stats only where the model has running statistics."""
+    from ccdm_tpu_torch.models.resnet_embed import BatchNorm, GroupNorm
+
+    modules = dict(model.named_modules())
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, tensor in state_dict.items():
+        owner, _, leaf = key.rpartition(".")
+        module = modules.get(owner)
+        arr = tensor.detach().cpu().numpy().astype(np.float32)
+        collection, name = _FLAX_LEAVES.get(leaf, (None, None))
+        if module is None or name is None or not isinstance(
+                module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, BatchNorm, GroupNorm)):
+            raise KeyError(f"{key} has no flax counterpart here")
+        if isinstance(module, (BatchNorm, GroupNorm)) and leaf == "weight":
+            name = "scale"
+        elif isinstance(module, nn.ConvTranspose2d) and leaf == "weight":
+            arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]  # [I, O, H, W] -> flipped HWIO
+        elif isinstance(module, nn.Conv2d) and leaf == "weight":
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif isinstance(module, nn.Linear) and leaf == "weight":
+            arr = arr.T
+        node = out[collection]
+        for part in owner.split("."):
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    if not out["batch_stats"]:
+        del out["batch_stats"]
     return out
 
 

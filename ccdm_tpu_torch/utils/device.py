@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -15,3 +16,16 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "(--device cpu) to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """cuDNN convs and cuBLAS matmuls in full f32 inside the block, where
+    PyTorch by default lets cuDNN round f32 products to TF32's 10-bit
+    mantissa. The caller's settings come back after the block."""
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before

@@ -175,18 +175,35 @@ Phases, each announced on a flushed line before it starts:
      counts as phase 8's plus those; seconds per aux epoch, seconds of
      each pass; every (B, N, C) at which #1 launched in (a), (a') and (b)
      among those phase 3 checked;
-  20. the share of the timed CFG forwards that the 23 blocks take (the
+  20. the eval protocol (eval_checks): `python -m ccdm_tpu_torch.main
+     --data_name SteeringAngle` on a 64x64 bundle built in memory (only
+     the h5 read is replaced: examples/make_fixture_sa64.py's road
+     renderer, 40 images for each of 100 signed angles in (-80, 80); the
+     port's steeringangle_from_arrays shifts the labels) at phase 8's
+     width, batch and dtype, 20 steps, then every raw label x 4 images at
+     10 DDIM steps (CFG forwards of B 8), then --comp_FID --FID_radius 2
+     with PRDC, NIQE, intra-class FID and the kNN, FFT and t-SNE analyses,
+     the eval backbones trained 1 epoch each on the card: launches exactly
+     8 of #1 and 2 each of #2-#5 per step and 10 of #1 per sampling
+     forward, none of the rest; every metric finite; seconds per epoch of
+     the AE, the classifier and the regressor, images/s of feature
+     extraction through the AE encoder and ResNet34, the NIQE fit's and
+     the protocol's seconds; the AE features of 64 real images on the
+     card within 1e-4 of the CPU's; a second run_ccgm_eval on the same
+     fakes loads the pinned checkpoint and gives the same fingerprint,
+     SFID, FID and LS bit for bit; every (B, N, C) of #1 among phase 3's;
+  21. the share of the timed CFG forwards that the 23 blocks take (the
      cuDNN composition with the switch off, #10 + #11 with it on, each
      timed alone in phase 9), #10 + #11 against that composition and per
      level, then one JSON line {"kernels": [...]} with errors, times and
      bounds of all 12 kernels (#1 with its route per shape, #12 with the
      card's own time beside F.leaky_relu's);
-  21. the card's name and power limit, then the last line
+  22. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
-main path (phases 5, 8, 11, 12, 16, 18, 19) starts from launch counts set
-to 0 and reads them just after; the paths of phases 5, 8, 11, 12, 18 and 19
-launch none of #6-#9 and #12. TF32 is off for the whole run (it only touches the f32
+main path (phases 5, 8, 11, 12, 16, 18, 19, 20) starts from launch counts
+set to 0 and reads them just after; the paths of phases 5, 8, 11, 12, 18,
+19 and 20 launch none of #6-#9 and #12. TF32 is off for the whole run (it only touches the f32
 checks and the f32 convolutions). Any failed phase raises and the script
 exits non-zero; a hang becomes a stack dump and a non-zero exit after
 1100 s. It writes nothing outside build/.
@@ -1434,6 +1451,200 @@ def aux_checks(card: str, passes: dict):
     return checks
 
 
+# ------------------------------------------------------------ the eval protocol
+
+EVAL_ANGLES = np.linspace(-79.6, 79.6, 100)  # signed, inside the loader's open (-80, 80)
+EVAL_PER_ANGLE = 40                          # 4000 images of 64x64x3, ~49 MB of uint8
+EVAL_STEPS = 20
+EVAL_NFAKE = 4                               # one batch of 4 a label: CFG forwards of B 8
+EVAL_SAMPLE_FORWARDS = len(EVAL_ANGLES) * 10  # 10 DDIM steps for each of the 100 labels
+EVAL_FEATURE_IMAGES = 64
+# AE features on the card against the CPU, f32 (the port sets TF32 off): rtol = atol.
+# On an H100 they agree to ~2e-7; the same forward with cuDNN's TF32 on is
+# ~8e-5 off, so 1e-5 tells the two apart where 1e-4 would not
+EVAL_FEATURE_TOL = 1e-5
+EVAL_RUN = Path(__file__).resolve().parent / "build" / "smoke_run"  # train_main_path's folder
+# phase 8's UNet, batch and dtype on a SteeringAngle 64x64 bundle built in
+# memory; then every raw label x 4 images at 10 DDIM steps, scored by the
+# whole protocol with the eval backbones' epochs cut from 10 and 20 to 1
+EVAL_ARGV = ["--data_name", "SteeringAngle", "--min_label", "-80", "--max_label", "80",
+             "--image_size", "64", "--model_channels", "64", "--channel_mult", "1_2_2_4_8",
+             "--train_amp", "--pred_objective", "pred_x0", "--vicinity_type", "hv",
+             "--train_batch_size", str(TRAIN_BATCH), "--train_lr", "1e-4",
+             "--niters", str(EVAL_STEPS), "--save_every", str(EVAL_STEPS), "--log_every", "5",
+             "--seed", "0", "--eval_mode", "2", "--nfake_per_label", str(EVAL_NFAKE),
+             "--samp_batch_size", str(EVAL_NFAKE), "--sample_timesteps", "10",
+             "--comp_FID", "--FID_radius", "2", "--comp_prdc", "--comp_niqe",
+             "--comp_intra_fid", "--knn_analysis", "--frequency_analysis", "--tsne_analysis",
+             "--epochs_eval_ae", "1", "--epochs_eval_cnn", "1",
+             "--eval_ckpt_path", str(EVAL_RUN)]
+
+
+def render_steering_angle() -> tuple:
+    """(images [4000, 3, 64, 64] uint8, signed labels): the repo's road
+    renderer (examples/make_fixture_sa64.py, numpy only), 40 images for
+    each of 100 angles, from a fixed seed."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / "make_fixture_sa64.py"
+    spec = importlib.util.spec_from_file_location("make_fixture_sa64", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    rng = np.random.default_rng(2026)
+    labels = np.repeat(EVAL_ANGLES, EVAL_PER_ANGLE)
+    return np.stack([module.render_road(float(a), 64, rng) for a in labels]), labels
+
+
+@contextlib.contextmanager
+def eval_in_memory(record: dict):
+    """The SteeringAngle h5 read replaced by the rendered arrays (the
+    port's steeringangle_from_arrays builds the bundle); run_ccgm_eval and
+    the NIQE fit wrapped to record their arguments and seconds."""
+    from ccdm_tpu_torch.data import datasets
+    from ccdm_tpu_torch.eval import niqe, protocol
+
+    arrays = render_steering_angle()
+    read, run, fit = datasets.read_steeringangle, protocol.run_ccgm_eval, niqe.fit_niqe_model
+
+    def run_spy(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = run(*args, **kwargs)
+        record["call"], record["protocol_s"] = args, time.perf_counter() - t0
+        return out
+
+    def fit_spy(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fit(*args, **kwargs)
+        record["niqe_fit_s"] = time.perf_counter() - t0
+        return out
+
+    datasets.read_steeringangle = lambda data_path, image_size: arrays
+    protocol.run_ccgm_eval, niqe.fit_niqe_model = run_spy, fit_spy
+    record["run_ccgm_eval"] = run
+    try:
+        yield record
+    finally:
+        datasets.read_steeringangle, protocol.run_ccgm_eval, niqe.fit_niqe_model = read, run, fit
+
+
+@contextlib.contextmanager
+def pytorch_precision_defaults():
+    """PyTorch's own TF32 defaults (cuDNN may use it, cuBLAS may not), the
+    setting a user's run has, in place of this script's TF32 off."""
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _finite_metrics(result: dict) -> dict:
+    """Every metric of a run_ccgm_eval result, flattened; raises on one
+    that is not finite."""
+    flat = {}
+    for name in ("sfid", "ls", "diversity", "niqe", "niqe_ctrl", "ifid"):
+        flat[f"{name}_mean"], flat[f"{name}_std"] = result[name]
+    flat["fid"] = result["fid"]
+    for name in ("prdc", "prdc_ctrl"):
+        flat.update({f"{name}_{k}": v for k, v in result[name].items()})
+    bad = {k: v for k, v in flat.items() if not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f"metrics not finite: {bad}")
+    return flat
+
+
+def images_per_s(fn, images: np.ndarray) -> float:
+    """fn over the images (a warm-up on 200 first), host clock to the
+    returned numpy array."""
+    fn(images[:200])
+    t0 = time.perf_counter()
+    fn(images)
+    return len(images) / (time.perf_counter() - t0)
+
+
+def eval_checks(card: str, record: dict):
+    """Phase 20's own checks: every metric finite; the backbones' epochs,
+    feature extraction rates and the NIQE fit timed; the AE features on
+    the card against the CPU's (under PyTorch's TF32 defaults, so they
+    hold only because the port turns TF32 off for its eval nets); a
+    second run_ccgm_eval on the same fakes loads the pinned checkpoint and
+    gives the same fingerprint, SFID, FID and LS bit for bit."""
+    import argparse
+
+    from ccdm_tpu_torch.eval import metrics
+    from ccdm_tpu_torch.eval import train_backbones as tb
+
+    def checks(trainer, argv, log) -> dict:
+        result = trainer.eval_results
+        args, bundle, fakes, flabels, setting, total_time = record["call"]
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("phase 20 runs under PyTorch's TF32 defaults; the eval "
+                                 "left cuDNN's TF32 off")
+        flat = _finite_metrics(result)
+        stages = dict(tb.STAGE_SECONDS)
+        if sorted(stages) != ["ae", "cls", "reg"]:
+            raise AssertionError(f"eval backbone stage times {stages}")
+        lines = Path(result["eval_path"]).read_text()
+        if f" Eval backbones: {result['fingerprint']}." not in lines:
+            raise AssertionError(f"no fingerprint line in {result['eval_path']}")
+        real = bundle.eval_images
+        num_classes = min(49, len(np.unique(bundle.eval_labels_raw)))
+        eval_dir = str(Path(args.eval_ckpt_path) / "eval_models")
+        nets = tb.get_eval_models(bundle, eval_dir, num_classes, seed=args.seed,
+                                  device=trainer.device)
+        ae_ips = images_per_s(lambda x: metrics.extract_features(nets["fid"], x), real)
+        resnet_ips = images_per_s(lambda x: metrics.extract_features(nets["div"], x), real)
+        cpu_ae = tb.get_eval_models(bundle, eval_dir, num_classes, seed=args.seed,
+                                    device="cpu")["fid"]
+        probe = real[:EVAL_FEATURE_IMAGES]
+        cpu_feats = torch.from_numpy(metrics.extract_features(cpu_ae, probe))
+        feat_err = check_close(torch.from_numpy(metrics.extract_features(nets["fid"], probe)),
+                               cpu_feats, EVAL_FEATURE_TOL, EVAL_FEATURE_TOL,
+                               "AE features on the card against the CPU")
+        # what the check guards against: the same forward with cuDNN's TF32
+        # left on (outside the port's eval, which turns it off)
+        with torch.no_grad():
+            x = torch.from_numpy(probe).to(trainer.device).float() / 255.0 * 2.0 - 1.0
+            tf32_err = float((nets["fid"](x).cpu() - cpu_feats).abs().max())
+        # the reload: the same fakes, the pinned checkpoint, the window metrics
+        light = argparse.Namespace(**{**vars(args), "comp_prdc": False, "comp_niqe": False,
+                                      "comp_intra_fid": False, "knn_analysis": False,
+                                      "frequency_analysis": False, "tsne_analysis": False})
+        t0 = time.perf_counter()
+        again = record["run_ccgm_eval"](light, bundle, fakes, flabels, setting, total_time)
+        reload_s = time.perf_counter() - t0
+        same = {k: (again[k], result[k]) for k in ("fingerprint", "sfid", "fid", "ls")}
+        if any(a != b for a, b in same.values()):
+            raise AssertionError(f"the reloaded protocol differs: {same}")
+        analysis = sorted(p.name for p in (Path(setting) / "analysis").iterdir())
+        print(f"   {len(fakes)} fakes of {len(np.unique(flabels))} signed labels "
+              f"({flabels.min():.1f} to {flabels.max():.1f}) scored against {len(real)} real "
+              f"images; backbones {result['fingerprint']}", flush=True)
+        print("   metrics (all finite): " + ", ".join(f"{k} {v:.4f}" for k, v in flat.items()),
+              flush=True)
+        print(f"   seconds per epoch: AE {stages['ae']:.3f}, classifier {stages['cls']:.3f}, "
+              f"regressor {stages['reg']:.3f}; feature extraction {ae_ips:.1f} images/s (AE "
+              f"encoder), {resnet_ips:.1f} (ResNet34); NIQE fit {record['niqe_fit_s']:.2f} s; "
+              f"the protocol {record['protocol_s']:.2f} s, its reload (window metrics only) "
+              f"{reload_s:.2f} s on {card}", flush=True)
+        print(f"   AE features of {EVAL_FEATURE_IMAGES} real images on the card against the "
+              f"CPU, the phase under PyTorch's TF32 defaults: max abs err {feat_err:.3e} "
+              f"(rtol = atol = {EVAL_FEATURE_TOL}; the same forward with TF32 left on: "
+              f"{tf32_err:.3e}); the reload "
+              f"read the same fingerprint, SFID, FID and LS bit for bit; analysis {analysis}",
+              flush=True)
+        return {"metrics": flat, "fingerprint": result["fingerprint"],
+                "backbone_seconds_per_epoch": stages, "ae_features_images_per_s": ae_ips,
+                "resnet34_features_images_per_s": resnet_ips,
+                "niqe_fit_s": record["niqe_fit_s"], "protocol_s": record["protocol_s"],
+                "reload_s": reload_s, "ae_features_max_abs_err": feat_err,
+                "ae_features_tf32_max_abs_err": tf32_err,
+                "sampling_s": total_time, "fakes": len(fakes), "card": card}
+
+    return checks
+
+
 # ------------------------------------------- the fused resnet block slice
 
 # (H = W, Cin, Cout) of the 23 resnet blocks of one RC-49 64x64 UNet forward
@@ -2304,12 +2515,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/21 device")
+    phase("1/22 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/21 build")
+    phase("2/22 build")
     libraries = ("attn_block", "attn_block_large", "resnet_block", "linear_attention",
                  "style_ops")
     t0 = time.perf_counter()
@@ -2324,26 +2535,26 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/21 attn_block kernel against its plain version")
+    phase("3/22 attn_block kernel against its plain version")
     rows, rows_by_batch = kernel_vs_plain(device)
 
-    phase("4/21 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/22 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/21 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/22 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/21 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
+    phase("6/22 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
           "bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
     other_dim_head = dim_head_vs_plain(device)
 
-    phase("7/21 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/22 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
     grads_hy = grad_parity(device, use_hy=True)
 
-    phase(f"8/21 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/22 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
     trained = train_main_path(
         device, card, TRAIN_ARGV, TRAIN_STEPS,
@@ -2351,18 +2562,18 @@ def main() -> int:
          **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, train_checks(card))
 
-    phase("9/21 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+    phase("9/22 kernels #10 and #11 (the fused resnet block) against their plain versions, "
           "f32 and bf16")
     resnet_rows = resnet_vs_plain(device)
 
-    phase("10/21 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    phase("10/22 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
     fused_parity = fused_model_parity(device)
 
-    phase(f"11/21 main path with the switch on: SamplerService over HTTP, bf16, batch "
+    phase(f"11/22 main path with the switch on: SamplerService over HTTP, bf16, batch "
           f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
     fused_served = fused_serve_main_path(device, card)
 
-    phase(f"12/21 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+    phase(f"12/22 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
           f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
     fused_trained = train_main_path(
         device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
@@ -2373,24 +2584,24 @@ def main() -> int:
          **{k: 0 for k in NEW_KERNELS}},
         True, fused_train_checks(card))
 
-    phase("13/21 kernels #6 and #9 (standalone linear attention) against their plain versions")
+    phase("13/22 kernels #6 and #9 (standalone linear attention) against their plain versions")
     la_rows = la_vs_plain(device)
 
-    phase("14/21 kernels #7 + #8 (its two-pass form) against their plain versions")
+    phase("14/22 kernels #7 + #8 (its two-pass form) against their plain versions")
     tp_rows = twopass_vs_plain(device)
 
-    phase("15/21 kernel #12 (bias_act) against its plain version")
+    phase("15/22 kernel #12 (bias_act) against its plain version")
     ba_rows = bias_act_vs_plain(device)
 
-    phase("16/21 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
+    phase("16/22 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
           "the two-pass route, linear_attention_per_head, bias_act")
     la_path = la_main_path(device)
 
-    phase("17/21 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
+    phase("17/22 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
           "kernel forward against the plain route")
     la_grads = la_grad_parity(device)
 
-    phase(f"18/21 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
+    phase(f"18/22 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
           f"bf16, {RECIPE_STEPS} steps, then serving from its milestone")
     recipe = train_main_path(
         device, card, RECIPE_ARGV, RECIPE_STEPS,
@@ -2398,7 +2609,7 @@ def main() -> int:
          **{k: 2 * RECIPE_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, recipe_checks(card, trained["train_images_per_s"]))
 
-    phase(f"19/21 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
+    phase(f"19/22 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
           f"{MULTIDIM_DIMS} dims, shv, resnet ILI, cross_attention), batch {TRAIN_BATCH}, bf16, "
           f"{MULTIDIM_STEPS} steps; (a') the same with the sinusoidal y2h, {ANALYTIC_STEPS} "
           f"steps; (b) the elastic aux loss, the trajectory GIF and the interpolation, "
@@ -2428,7 +2639,21 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C) {multidim['attn_shapes']} in this phase, each checked "
           f"against its plain version in phase 3", flush=True)
 
-    phase("20/21 kernels")
+    phase(f"20/22 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
+          f"training, batch {TRAIN_BATCH}, bf16, {EVAL_STEPS} steps, {len(EVAL_ANGLES)} labels x "
+          f"{EVAL_NFAKE} images at 10 DDIM steps, then --comp_FID with PRDC, NIQE, iFID and "
+          f"the analyses")
+    with attn_shapes() as shapes, eval_in_memory({}) as record, pytorch_precision_defaults():
+        eval_run = train_main_path(
+            device, card, EVAL_ARGV, EVAL_STEPS,
+            {"attn_block": 8 * EVAL_STEPS + ATTN_BLOCKS * EVAL_SAMPLE_FORWARDS,
+             **{k: 2 * EVAL_STEPS for k in LARGE}, **others},
+            False, eval_checks(card, record))
+    eval_run["attn_shapes"] = checked_in_phase_3(shapes)
+    print(f"   #1 launched at (B, N, C) {eval_run['attn_shapes']} in this phase, each checked "
+          f"against its plain version in phase 3", flush=True)
+
+    phase("21/22 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -2457,6 +2682,7 @@ def main() -> int:
         "launches_in_multidim": multidim["launches"]["attn_block"],
         "launches_in_multidim_sinusoidal": analytic["launches"]["attn_block"],
         "launches_in_aux_gif_interpolation": aux_run["launches"]["attn_block"],
+        "launches_in_eval": eval_run["launches"]["attn_block"],
         "max_err_bf16": max(r["max_err_bf16"] for r in rows.values()
                             if r["max_err_bf16"] is not None),
         "max_err_f32": max(r["max_err_f32"] for r in rows.values()),
@@ -2482,6 +2708,7 @@ def main() -> int:
             "launches_in_multidim": multidim["launches"][name],
             "launches_in_multidim_sinusoidal": analytic["launches"][name],
             "launches_in_aux_gif_interpolation": aux_run["launches"][name],
+            "launches_in_eval": eval_run["launches"][name],
             "routes": {tag: f"{r[name]['route']} x{r[name]['splits']}"
                        for tag, r in large_rows.items() if name in r},
             "by_shape": {tag: r.get(name, {}) for tag, r in large_rows.items()},
@@ -2495,12 +2722,13 @@ def main() -> int:
     kernels[4]["ccdm_recipe"] = recipe
     kernels[4]["multidim"] = multidim
     kernels[4]["aux_gif_interpolation"] = aux_run
+    kernels[4]["eval"] = eval_run
     kernels += resnet_kernel_rows(resnet_rows, fused_served, fused_trained, fused_parity, card,
                                   served["cfg_forward_ms"])
     kernels += slice4_kernel_rows(la_rows, tp_rows, ba_rows, la_path, la_grads, card)
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("21/21 done")
+    phase("22/22 done")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

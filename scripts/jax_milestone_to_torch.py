@@ -35,6 +35,18 @@ PRNGKey(seed + 7) draw, never trained) are written beside them too
 --lambda_aux come along as well: every entry model-aux_*/ of the JAX run's
 <setting folder>/aux_models/ becomes the port's, params and BatchNorm
 statistics.
+
+The pinned eval backbones come along with --jax_eval_ckpt_path (alone, or
+beside a milestone):
+
+    python scripts/jax_milestone_to_torch.py --jax_eval_ckpt_path <JAX
+        --eval_ckpt_path> --eval_ckpt_path <the port's>
+
+carries every entry model-evalnets_<name>_<size>_seed<seed>/ of the JAX
+<eval_ckpt_path>/eval_models/ (the AE encoder, the classifier and the
+regressor) into the port's <eval_ckpt_path>/eval_models/ under the same
+tag, and copies its niqe_model_*.npz; the port's run_ccgm_eval then loads
+them, and prints the fingerprint JAX printed.
 """
 
 from __future__ import annotations
@@ -170,6 +182,61 @@ def convert_aux_models(jax_aux_dir: str, port_aux_dir: str, args) -> list[str]:
     return written
 
 
+def eval_nets_for(stored: dict) -> dict:
+    """The port's eval backbones shaped as a JAX {"ae", "cls", "reg"} tree:
+    the channels, image size, classes and ResNet depth read off its
+    kernels."""
+    import numpy as np
+
+    from ccdm_tpu_torch.eval.backbones import AEEncoder, ResNetEval
+
+    ae = stored["ae"]["params"]
+    channels = np.asarray(ae["conv0"]["kernel"]).shape[2]
+    flat, bottleneck = np.asarray(ae["linear"]["kernel"]).shape
+    width = np.asarray(ae["conv7"]["kernel"]).shape[3]
+    size = 16 * int(round((flat // width) ** 0.5))
+
+    def resnet(tree, mode):
+        p = tree["params"]
+        stages = {}
+        for name in p:
+            if name.startswith("stage"):
+                stage, block = name[len("stage"):].split("_block")
+                stages[int(stage)] = max(stages.get(int(stage), 0), int(block) + 1)
+        blocks = tuple(stages[i] for i in range(len(stages)))
+        return ResNetEval(np.asarray(p["head"]["kernel"]).shape[1], mode, blocks, channels)
+
+    return {"ae": AEEncoder(bottleneck, width // 8, channels, size),
+            "cls": resnet(stored["cls"], "class"), "reg": resnet(stored["reg"], "regre")}
+
+
+def convert_eval_models(jax_eval_dir: str, port_eval_dir: str) -> list[str]:
+    """Carry a JAX --eval_ckpt_path's eval_models/ across: every
+    evalnets_* entry (the pinned SFID/LS/Diversity backbones) and every
+    niqe_model_*.npz (one npz layout serves both packages); returns what
+    was written."""
+    import glob
+    import shutil
+
+    from ccdm_tpu.utils.ckpt import load_checkpoint
+    from ccdm_tpu_torch.utils.ckpt import save_checkpoint
+    from ccdm_tpu_torch.utils.convert import state_dict_from_jax
+
+    written = []
+    for path in sorted(glob.glob(os.path.join(jax_eval_dir, "model-evalnets_*"))):
+        tag = os.path.basename(path)[len("model-"):]
+        stored = load_checkpoint(jax_eval_dir, tag)
+        nets = eval_nets_for(stored)
+        save_checkpoint(port_eval_dir, tag, {name: state_dict_from_jax(stored[name], net)
+                                             for name, net in nets.items()})
+        written.append(tag)
+    for path in sorted(glob.glob(os.path.join(jax_eval_dir, "niqe_model_*.npz"))):
+        os.makedirs(port_eval_dir, exist_ok=True)
+        shutil.copy(path, os.path.join(port_eval_dir, os.path.basename(path)))
+        written.append(os.path.basename(path))
+    return written
+
+
 def convert(jax_results: str, milestone: int, argv: list[str]) -> str:
     """Write the port's milestone `milestone` from the JAX one, and carry its
     setting folder's embed_models/ and aux_models/ across; returns the
@@ -199,12 +266,27 @@ def convert(jax_results: str, milestone: int, argv: list[str]) -> str:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--jax_results", required=True,
+    parser.add_argument("--jax_results", default=None,
                         help="the JAX run's results folder, holding model-<N>/")
-    parser.add_argument("--jax_milestone", type=int, required=True)
+    parser.add_argument("--jax_milestone", type=int, default=None)
+    parser.add_argument("--jax_eval_ckpt_path", default=None,
+                        help="a JAX --eval_ckpt_path: its eval_models/ goes to the port's "
+                             "--eval_ckpt_path")
     ours, port_argv = parser.parse_known_args(argv)
-    path = convert(ours.jax_results, ours.jax_milestone, port_argv)
-    print(f"wrote {path}")
+    if (ours.jax_results is None) != (ours.jax_milestone is None):
+        parser.error("--jax_results and --jax_milestone go together")
+    if ours.jax_results is None and ours.jax_eval_ckpt_path is None:
+        parser.error("give --jax_results and --jax_milestone, --jax_eval_ckpt_path, or both")
+    if ours.jax_results is not None:
+        path = convert(ours.jax_results, ours.jax_milestone, port_argv)
+        print(f"wrote {path}")
+    if ours.jax_eval_ckpt_path is not None:
+        from ccdm_tpu_torch.opts import parse_opts
+
+        port_eval = os.path.join(parse_opts(port_argv).eval_ckpt_path, "eval_models")
+        written = convert_eval_models(os.path.join(ours.jax_eval_ckpt_path, "eval_models"),
+                                      port_eval)
+        print(f"eval_models: {', '.join(written) or 'nothing to carry'} -> {port_eval}")
 
 
 if __name__ == "__main__":

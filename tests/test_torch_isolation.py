@@ -56,7 +56,9 @@ def test_port_and_smoke_script_import_no_jax():
                  "data.datasets", "ops.attn_block", "ops.linear_attention", "ops.style_ops",
                  "embedding.ili", "embedding.resolve", "embedding.analytic",
                  "models.resnet_embed", "data.power", "embedding.combine", "models.aux_net",
-                 "training.train_aux", "training.optim"):
+                 "training.train_aux", "training.optim", "eval.metrics", "eval.sfid",
+                 "eval.niqe", "eval.backbones", "eval.train_backbones", "eval.protocol",
+                 "eval.analysis"):
         assert f"ccdm_tpu_torch.{name}" in report["new"], name
     assert [m for m in report["new"] if _is_jax(m)] == []
 

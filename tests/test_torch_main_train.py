@@ -89,13 +89,12 @@ def test_missing_milestone_raises(trained):
                                    ["--interpolation"],
                                    ["--comp_FID"], ["--dump_fake_for_NIQE"]])
 def test_options_of_later_slices_raise(tmp_path, flags):
-    """--comp_FID on scalar labels and --dump_fake_for_NIQE still raise; the
-    other four options are ported and write their artifacts."""
+    """All six options are ported (--comp_FID and --dump_fake_for_NIQE since
+    the eval slice; they raised before it) and write their artifacts."""
     argv = ["--root_path", str(tmp_path), *MODEL, *TRAIN, "--niters", "1", *flags]
-    if flags[0] in ("--comp_FID", "--dump_fake_for_NIQE"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_main.main(argv)
-        return
+    if flags[0] == "--comp_FID":
+        argv += ["--eval_ckpt_path", str(tmp_path), "--epochs_eval_ae", "1",
+                 "--epochs_eval_cnn", "1"]
     trainer = port_main.main(argv)
     results = port_main.results_folder(parse_opts(argv))
     assert trainer.state.step == 1 and checkpoint_exists(results, 1)
@@ -105,7 +104,10 @@ def test_options_of_later_slices_raise(tmp_path, flags):
                                             "state.pt"),
                "--data_name": os.path.join(
                    os.path.basename(port_main.fake_data_folder(parse_opts(argv), 64)),
-                   "sample_00063.png")}[flags[0]]
+                   "sample_00063.png"),
+               "--comp_FID": os.path.join("..", "eval_results_niters1.txt"),
+               "--dump_fake_for_NIQE": os.path.join("saved_images", "fake_images",
+                                                    "3_0.9.png")}[flags[0]]
     assert os.path.isfile(os.path.join(results, written)), written
 
 
