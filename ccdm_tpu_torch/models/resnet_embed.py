@@ -37,13 +37,15 @@ def _fast_stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class BatchNorm(nn.Module):
-    """flax nn.BatchNorm over every axis but dim 1 (the channels)."""
+    """flax nn.BatchNorm over every axis but dim 1 (the channels); without
+    `affine`, flax's use_scale=False, use_bias=False."""
 
-    def __init__(self, channels: int, momentum: float = BN_MOMENTUM, eps: float = 1e-5):
+    def __init__(self, channels: int, momentum: float = BN_MOMENTUM, eps: float = 1e-5,
+                 affine: bool = True):
         super().__init__()
         self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.weight = nn.Parameter(torch.ones(channels)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(channels)) if affine else None
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
@@ -57,7 +59,10 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is None:
+            return (x - mean.view(shape)) * mul.view(shape)
+        mul = mul * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 

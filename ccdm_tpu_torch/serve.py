@@ -1,7 +1,8 @@
 """Batched inference serving of the guided samplers (DDIM, or the ancestral
-sampler with --sampler ddpm), over HTTP.
+sampler with --sampler ddpm), and of the one-step DMD2-M student
+(GeneratorService, python -m ccdm_tpu_torch.serve_dmd), over HTTP.
 
-Counterpart of ccdm_tpu/serve.py:49-147 and 245-323, with the same API:
+Counterpart of ccdm_tpu/serve.py, with the same API:
 
     python -m ccdm_tpu_torch.serve --image_size 64 \
         --model_channels 64 --channel_mult 1_2_2_4_8 --train_amp \
@@ -118,6 +119,78 @@ class SamplerService:
         return np.asarray(images[:n], np.uint8)
 
 
+class GeneratorService:
+    """The one-step DMD2-M student over the same HTTP surface: netG(z,
+    y2h(y)) in eval mode, one generator forward per batch of a request
+    (ccdm_tpu/serve.py:149-243). It serves the generator of the port's
+    milestone <setting folder>/dmd_results/model-dmd-<--serve_milestone>,
+    where dmd_main.py writes it, and the label embedding of the TEACHER's
+    setting folder (--teacher_setting_name, default --setting_name), as
+    dmd_main.py builds it, loaded only. (JAX's serve_dmd looks under
+    <setting>/results and embeds through --setting_name's folder, so it
+    never finds what JAX's dmd_main writes.) A request with cond_scale is
+    refused: the one-step student has no guidance pass."""
+
+    def __init__(self, args, max_batch: int = 64, warm: bool = True, max_labels: int = 1024,
+                 device: Optional[str] = None):
+        from ccdm_tpu_torch.dmd_main import build_gan, dmd_results_folder, setting_folder
+        from ccdm_tpu_torch.embedding.resolve import build_label_embedding
+        from ccdm_tpu_torch.training.dmd import load_generator
+        from ccdm_tpu_torch.utils.ckpt import checkpoint_exists, load_checkpoint
+        from ccdm_tpu_torch.utils.device import resolve_device
+
+        self.device = resolve_device(device)
+        results, name = dmd_results_folder(args), f"dmd-{args.serve_milestone}"
+        if not checkpoint_exists(results, name):
+            raise FileNotFoundError(f"DMD milestone {args.serve_milestone} not found under "
+                                    f"{results}")
+        netG, _ = build_gan(args, args.num_channels, args.image_size)
+        self.netG = load_generator(netG, load_checkpoint(results, name)).to(self.device).eval()
+        self.loaded_milestone = args.serve_milestone
+        self.fn_y2h, _ = build_label_embedding(args, setting_folder(args, teacher=True),
+                                               bundle=None, require_cached=True,
+                                               device=self.device)
+        self.dim_z = args.dim_z
+        self.max_batch = max_batch
+        self.max_labels = max_labels
+        self._lock = threading.Lock()
+        self.warm = False
+        if warm:
+            self.generate(np.full((max_batch,), 0.5, np.float32))
+            self.warm = True
+
+    def generate(self, labels01: np.ndarray, cond_scale: Optional[float] = None,
+                 seed: Optional[int] = None) -> np.ndarray:
+        """labels01 [N] in [0, 1] -> uint8 images [N, H, W, C], one forward a
+        batch; batch i draws z from a generator seeded from (seed, i)."""
+        from ccdm_tpu_torch.training.dmd import one_step
+        from ccdm_tpu_torch.training.trainer import chunk_seed
+
+        if cond_scale is not None:
+            raise ValueError("cond_scale is not applicable to the one-step DMD student "
+                             "(no classifier-free guidance pass exists)")
+        labels01 = np.asarray(labels01, np.float32)
+        if labels01.ndim != 1 or len(labels01) == 0:
+            raise ValueError("labels must be a non-empty 1-D list")
+        if len(labels01) > self.max_labels:
+            raise ValueError(f"request too large: {len(labels01)} labels "
+                             f"(cap {self.max_labels}); split into smaller requests")
+        if labels01.min() < 0.0 or labels01.max() > 1.0:
+            raise ValueError("labels must be normalized to [0,1]")
+        n = len(labels01)
+        padded = np.concatenate([labels01, np.repeat(labels01[-1:], (-n) % self.max_batch)])
+        key = 1 if seed is None else int(seed)
+        out = []
+        with self._lock:
+            for i in range(0, len(padded), self.max_batch):
+                gen = torch.Generator(device=self.device).manual_seed(chunk_seed(key, i))
+                z = torch.randn(self.max_batch, self.dim_z, generator=gen, device=self.device)
+                y = torch.from_numpy(padded[i:i + self.max_batch]).to(self.device)
+                x = torch.clamp(one_step(self.netG, self.fn_y2h, y, z), 0.0, 1.0)
+                out.append((x * 255.0 + 0.5).to(torch.uint8).cpu().numpy())
+        return np.concatenate(out, axis=0)[:n]
+
+
 def ema_model_from_milestone(model, results: str, milestone: int):
     """`model` holding the EMA parameters and BatchNorm statistics of the
     port's milestone (utils/ckpt.py); raises FileNotFoundError without it."""
@@ -137,7 +210,9 @@ def _encode_images(images: np.ndarray) -> str:
     return base64.b64encode(buf.getvalue()).decode("ascii")
 
 
-def make_handler(service: SamplerService):
+def make_handler(service):
+    """The handler of a SamplerService or a GeneratorService."""
+
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, payload: dict):
             body = json.dumps(payload).encode()
@@ -176,7 +251,7 @@ def make_handler(service: SamplerService):
     return Handler
 
 
-def serve(service: SamplerService, port: int, host: str = "127.0.0.1",
+def serve(service, port: int, host: str = "127.0.0.1",
           block: bool = True) -> ThreadingHTTPServer:
     """Bind the HTTP server. With `block` serve until interrupted, then
     close; without, return the bound server for the caller to run

@@ -9,8 +9,9 @@ running statistics are shadowed beside the parameters.
 
 `clip_by_global_norm` and `adam_update` are optax's formulas written out
 (optax.clip_by_global_norm scales by max_norm / norm only when norm >
-max_norm; optax.adam with eps 1e-8, eps_root 0 and f32 moments), in place
-on lists of tensors with torch's foreach ops.
+max_norm; optax.adam with eps 1e-8, eps_root 0 and f32 moments, and
+optax.adamw's decoupled decay), in place on lists of tensors with torch's
+foreach ops.
 """
 
 from __future__ import annotations
@@ -83,12 +84,16 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torc
 
 
 @torch.no_grad()
-def adam_update(state: TrainState, grads: list[torch.Tensor], lr: float,
-                b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8) -> None:
-    """One optax.adam step on the online parameters, in place:
+def adam_update(state, grads: list[torch.Tensor], lr: float,
+                b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
+                weight_decay: float = 0.0, params: list[torch.Tensor] | None = None) -> None:
+    """One optax.adam step (optax.adamw with weight_decay > 0) in place on
+    `params` (default: state.model's), with the moments state.mu, state.nu
+    and the count state.count (a TrainState or an AdamState):
     mu = (1-b1) g + b1 mu; nu = (1-b2) g^2 + b2 nu;
-    p += -lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)."""
-    params = [p.data for p in state.model.parameters()]
+    p += -lr ((mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd p)."""
+    if params is None:
+        params = [p.data for p in state.model.parameters()]
     state.count += 1
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)
     bc1 = float(f32(1.0) - f32(b1) ** state.count)
@@ -99,7 +104,23 @@ def adam_update(state: TrainState, grads: list[torch.Tensor], lr: float,
     torch._foreach_add_(state.nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
     denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(state.nu, bc2)), eps)
     step = torch._foreach_div(torch._foreach_div(state.mu, bc1), denom)
+    if weight_decay:  # optax.add_decayed_weights, on every leaf (its default mask)
+        step = torch._foreach_add(step, torch._foreach_mul(params, weight_decay))
     torch._foreach_add_(params, torch._foreach_mul(step, -lr))
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam's moments (one per parameter of the list it steps) and count."""
+
+    mu: list[torch.Tensor]
+    nu: list[torch.Tensor]
+    count: int = 0
+
+
+def adam_init(params: list[torch.Tensor]) -> AdamState:
+    return AdamState(mu=[torch.zeros_like(p) for p in params],
+                     nu=[torch.zeros_like(p) for p in params])
 
 
 @torch.no_grad()

@@ -28,10 +28,18 @@ eval backbones' fingerprint hashes that layout).
 `train_state_from_jax` carries a whole JAX TrainState (numpy leaves) into
 the port's training/state.TrainState: params and BatchNorm statistics, the
 EMA shadow of both, Adam's mu, nu and count, step and ema_step.
+
+`gan_state_dict_from_jax` does it for the GAN nets of models/sngan.py and
+models/sagan.py, whose batch_stats also hold each spectral norm's u and
+sigma under flax's names (<module>/SpectralNorm_<k>/<layer>/kernel/u);
+`dmd_state_from_jax` carries a whole JAX DMD2Trainer.state (netG, netD and
+the fake UNet with their statistics, both optimizers' Adam moments and
+counts, step) into the port's DMD checkpoint tree (training/dmd.py).
 """
 
 from __future__ import annotations
 
+import types
 from typing import Any, Iterator, Mapping
 
 import numpy as np
@@ -169,7 +177,11 @@ def prenorm_linear_attention_from_fused(block: Mapping[str, torch.Tensor]) -> di
 
 
 def _adam_state(opt_state: Any) -> Any:
-    """The optax ScaleByAdamState (count, mu, nu) inside a chain's state."""
+    """The optax ScaleByAdamState (count, mu, nu) inside a chain's state,
+    as a namedtuple, or as the dict an orbax restore without a target
+    gives (the chain's tuples then lists)."""
+    if isinstance(opt_state, Mapping) and {"count", "mu", "nu"} <= set(opt_state):
+        return types.SimpleNamespace(**opt_state)
     if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
         return opt_state
     if isinstance(opt_state, (tuple, list)):
@@ -205,3 +217,92 @@ def train_state_from_jax(jax_state: Any, model: nn.Module):
     state.count = int(np.asarray(adam.count))
     state.step, state.ema_step = int(np.asarray(jax_state.step)), int(np.asarray(jax_state.ema_step))
     return state
+
+
+def _spectral_batch_stats(tree: Mapping[str, Any]) -> dict:
+    """flax's spectral-norm statistics, SpectralNorm_<k>: {"<layer>/kernel/u",
+    "<layer>/kernel/sigma"} beside the wrapped layer, as <layer>: {u, sigma},
+    the port's buffers of models/sngan.SNConv2d and SNLinear; the rest of
+    the tree as it is."""
+    out: dict = {}
+    for key, value in tree.items():
+        if not isinstance(value, Mapping):
+            out[key] = value
+        elif key.startswith("SpectralNorm_"):
+            for name, leaf in value.items():
+                layer, sep, stat = name.partition("/kernel/")
+                if not sep or stat not in ("u", "sigma"):
+                    raise KeyError(f"spectral-norm statistic {key}/{name} has no place "
+                                   "in the port")
+                out.setdefault(layer, {})[stat] = leaf
+        else:
+            out.setdefault(key, {}).update(_spectral_batch_stats(value))
+    return out
+
+
+def gan_state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> dict:
+    """The state_dict of a port GAN net (models/sngan.py, models/sagan.py)
+    holding the flax variables of its JAX counterpart: kernels to torch's
+    layouts, BatchNorm statistics to running ones, and each spectral norm's
+    u [1, out] and sigma to its layer's buffers."""
+    return state_dict_from_jax({"params": variables["params"],
+                                "batch_stats": _spectral_batch_stats(
+                                    variables.get("batch_stats", {}))}, model)
+
+
+def _module_tensors(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> tuple:
+    """(parameters in model.parameters() order, floating-point buffers in
+    model.buffers() order) of `state_dict`: the layout of a DMD checkpoint's
+    params and stats lists (training/dmd.py)."""
+    params = [state_dict[name] for name, _ in model.named_parameters()]
+    stats = [state_dict[name] for name, b in model.named_buffers() if b.is_floating_point()]
+    return params, stats
+
+
+def _moments(adam: Any, trees: list, models: list) -> tuple[list, list]:
+    """Adam's mu and nu over the parameters of `models` in order, from the
+    JAX moment trees `trees(mu or nu)` of each."""
+    out = []
+    for which in ("mu", "nu"):
+        flat = []
+        for tree_of, model in zip(trees, models):
+            named = _named_tensors(tree_of(getattr(adam, which)), model.state_dict())
+            names = [name for name, _ in model.named_parameters()]
+            if set(named) != set(names):
+                raise KeyError(f"Adam's {which} does not cover {type(model).__name__}'s "
+                               "parameters")
+            flat += [named[k] for k in names]
+        out.append(flat)
+    return out[0], out[1]
+
+
+def dmd_state_from_jax(state: Mapping[str, Any], netG: nn.Module, netD: nn.Module,
+                       fake_unet: nn.Module) -> dict:
+    """The port's DMD2 checkpoint tree (training/dmd.checkpoint layout) of
+    a JAX DMD2Trainer.state (numpy leaves, e.g. an orbax restore of
+    model-dmd-<N>): step; netG's params and statistics (BatchNorm, spectral
+    norm); gui_params {netD, fake_unet} and their statistics; each
+    optimizer's (optax chain(clip_by_global_norm, adamw)) Adam moments and
+    count, the guidance one over netD's then the fake UNet's parameters.
+    Raises on a leaf it does not consume."""
+    gen = _module_tensors(netG, gan_state_dict_from_jax(
+        {"params": state["gen_params"], "batch_stats": state["gen_stats"]}, netG))
+    disc = _module_tensors(netD, gan_state_dict_from_jax(
+        {"params": state["gui_params"]["netD"], "batch_stats": state["netD_stats"]}, netD))
+    fake = _module_tensors(fake_unet, unet_state_dict_from_jax(
+        {"params": state["gui_params"]["fake_unet"],
+         "batch_stats": state["fake_unet_stats"]}, fake_unet))
+    if set(state["gui_params"]) != {"netD", "fake_unet"}:
+        raise KeyError(f"gui_params holds {sorted(state['gui_params'])}")
+    opts = {}
+    for name, trees, models in (("gen_opt", [lambda t: t], [netG]),
+                                ("gui_opt", [lambda t: t["netD"], lambda t: t["fake_unet"]],
+                                 [netD, fake_unet])):
+        adam = _adam_state(state[name])
+        if adam is None:
+            raise ValueError(f"the JAX {name} holds no Adam state (count, mu, nu)")
+        mu, nu = _moments(adam, trees, models)
+        opts[name] = {"mu": mu, "nu": nu, "count": int(np.asarray(adam.count))}
+    return {"step": int(np.asarray(state["step"])), "gen_params": gen[0], "gen_stats": gen[1],
+            "gui_params": {"netD": disc[0], "fake_unet": fake[0]}, "netD_stats": disc[1],
+            "fake_unet_stats": fake[1], **opts}

@@ -22,6 +22,8 @@ Phases, each announced on a flushed line before it starts:
      of one B-64 forward of the 64x64 UNet; then bf16 at every shape again
      at the other batches the main paths give #1 (128, 72, 8, 1, 4), the
      same checks (the f32 one at C <= 256) and route assertion, untimed;
+     then f32 at B 128 at the 64x64 UNet's levels (phase 21's f32 UNets),
+     the f32 bounds above;
   4. the full-width UNet in f32 (TF32 off) with the kernel and with the
      plain attention: one forward (max abs diff <= 1e-3) and a 5-step CFG
      DDIM run from the same noise ([0,1] images, max abs diff <= 1e-3);
@@ -192,19 +194,40 @@ Phases, each announced on a flushed line before it starts:
      card within 1e-4 of the CPU's; a second run_ccgm_eval on the same
      fakes loads the pinned checkpoint and gives the same fingerprint,
      SFID, FID and LS bit for bit; every (B, N, C) of #1 among phase 3's;
-  21. the share of the timed CFG forwards that the 23 blocks take (the
+  21. DMD2-M one-step distillation (dmd_main_path): `python -m
+     ccdm_tpu_torch.dmd_main` on phase 20's run folder (kept for it, then
+     deleted): its milestone the teacher, an f32 Unet as JAX's dmd_main
+     builds it, and a deep copy the fake UNet; SNGAN at JAX's default widths
+     (gene_ch = disc_ch = 64, dim_z 256), batch 128, 2 D steps, hinge,
+     DiffAugment, 12 iterations with a grid and a milestone at 6 and 12,
+     then every raw label x 4 one-step images (the h5 write recorded: the
+     card's machine has no h5py), --comp_FID against phase 20's pinned
+     backbones with the windows cut from 157 to 10, --interpolation and
+     --sefa; then SAGAN, 2 iterations: launches exactly 36 of #1 and 4
+     each of #2-#5 per iteration (20 f32 forwards of the G step without a
+     gradient, 2 x 8 in the D steps), none of the rest; every (B, N, C,
+     dtype) of #1 among phase 3's, all f32; losses finite, netG moved,
+     the one-step images uint8 and not constant, the grids and analysis
+     PNGs decode, every metric finite under phase 20's fingerprint; SNGAN's
+     D on the card (full f32) within 1e-5 of the CPU's, G within 5e-5 (the
+     CPU's own f32 G is ~1.2e-5 from its f64 one, printed beside); the G and D
+     steps and the one-step generator at batch 200 timed with CUDA events;
+     serve_dmd's GeneratorService over HTTP (5 and 40 labels, batch 32,
+     host clock; no kernel launched) and a request with cond_scale
+     answered 400;
+  22. the share of the timed CFG forwards that the 23 blocks take (the
      cuDNN composition with the switch off, #10 + #11 with it on, each
      timed alone in phase 9), #10 + #11 against that composition and per
      level, then one JSON line {"kernels": [...]} with errors, times and
      bounds of all 12 kernels (#1 with its route per shape, #12 with the
      card's own time beside F.leaky_relu's);
-  22. the card's name and power limit, then the last line
+  23. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
-main path (phases 5, 8, 11, 12, 16, 18, 19, 20) starts from launch counts
-set to 0 and reads them just after; the paths of phases 5, 8, 11, 12, 18,
-19 and 20 launch none of #6-#9 and #12. TF32 is off for the whole run (it only touches the f32
-checks and the f32 convolutions). Any failed phase raises and the script
+main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21) starts from launch
+counts set to 0 and reads them just after; the paths of phases 5, 8, 11,
+12, 18, 19, 20 and 21 launch none of #6-#9 and #12. TF32 is off for the
+whole run (it only touches the f32 checks and the f32 convolutions). Any failed phase raises and the script
 exits non-zero; a hang becomes a stack dump and a non-zero exit after
 1100 s. It writes nothing outside build/.
 """
@@ -213,6 +236,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import copy
 import faulthandler
 import io
 import json
@@ -223,6 +247,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -472,6 +497,20 @@ def kernel_vs_plain(device) -> tuple[dict, dict]:
               f"{max(e for pair in errs.values() for e in pair if e is not None):.3e} "
               f"(against the rounded plain version, then the f32 one); {json.dumps(errs)}",
               flush=True)
+    # f32 at the training batch, every level of the 64x64 UNet: the DMD
+    # phase's teacher and fake UNet run #1 in f32 there
+    errs = {}
+    for i, (n, c) in enumerate(sorted(set(FORWARD_SHAPES), reverse=True)):
+        x, w = block_inputs(n, c, TRAIN_BATCH, device, seed=200 + i, x_std=2.0)
+        errs[f"N{n}_C{c}"] = (check_close(attn_block.fused_attn_block(x, *w, HEADS, DIM_HEAD),
+                                          attn_block.attn_block_reference(x, *w, HEADS,
+                                                                          DIM_HEAD),
+                                          2e-3, 2e-4, f"f32 B={TRAIN_BATCH} N={n} C={c}"), None)
+        del x, w
+        torch.cuda.empty_cache()
+    by_batch[f"B{TRAIN_BATCH}_f32"] = errs
+    print(f"   B={TRAIN_BATCH} f32: {len(errs)} shapes within rtol 2e-3, atol 2e-4, max abs "
+          f"err {max(e for e, _ in errs.values()):.3e}; {json.dumps(errs)}", flush=True)
     return rows, by_batch
 
 
@@ -548,11 +587,14 @@ def _request(url: str, body: dict | None = None) -> dict:
         return json.loads(resp.read())
 
 
-def _serve_requests(service: SamplerService, requests, image_size: int) -> tuple[int, int, float]:
+def _serve_requests(service, requests, image_size: int,
+                    refused=()) -> tuple[int, int, float]:
     """POST each (n labels, seed) of `requests` to /generate of `service`
-    behind its HTTP server on 127.0.0.1; checks /healthz and every reply
-    (uint8 [n, size, size, 3], not constant) and stops the server. Returns
-    (batches sampled, images, seconds spent in the requests)."""
+    (a SamplerService or a GeneratorService) behind its HTTP server on
+    127.0.0.1, then each body of `refused`, which must be answered 400;
+    checks /healthz and every reply (uint8 [n, size, size, 3], not
+    constant) and stops the server. Returns (batches sampled, images,
+    seconds spent in the requests)."""
     httpd = serve(service, 0, host="127.0.0.1", block=False)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -574,6 +616,14 @@ def _serve_requests(service: SamplerService, requests, image_size: int) -> tuple
                 raise AssertionError("/generate gave constant images")
             n_images += n
             batches += -(-n // service.max_batch)
+        for body in refused:
+            try:
+                _request(url + "/generate", body)
+            except urllib.error.HTTPError as e:
+                if e.code != 400:
+                    raise
+            else:
+                raise AssertionError(f"/generate accepted {body}")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1024,9 +1074,10 @@ def _reset_counts() -> None:
 
 
 def train_main_path(device, card: str, argv_tail: list, steps: int, expected: dict,
-                    fused: bool, checks) -> dict:
+                    fused: bool, checks, keep: bool = False) -> dict:
     """Phases 8 and 12: `python -m ccdm_tpu_torch.main` with `argv_tail` and
-    the resnet switch `fused`, in build/smoke_run[_fused] (deleted after).
+    the resnet switch `fused`, in build/smoke_run[_fused] (deleted after,
+    unless `keep`: phase 21 distils phase 20's run, then deletes it).
     The launch counts must be exactly `expected`, every loss finite and the
     last logged step `steps`; `checks(trainer, argv, log)` runs the phase's
     own checks and returns its entries of the result."""
@@ -1053,7 +1104,8 @@ def train_main_path(device, card: str, argv_tail: list, steps: int, expected: di
         return {"launches": counts, "steps": steps, "losses": [r["loss"] for r in log],
                 **checks(trainer, argv, log)}
     finally:
-        shutil.rmtree(run, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(run, ignore_errors=True)
 
 
 def train_checks(card: str):
@@ -1226,11 +1278,11 @@ def sliced_widths():
 
 @contextlib.contextmanager
 def attn_shapes():
-    """The (B, N, C) of every launch of #1, recorded."""
+    """The (B, N, C, dtype) of every launch of #1, recorded."""
     shapes, launch = set(), attn_block._launch
 
     def spy(x2d, *args, **kwargs):
-        shapes.add(tuple(x2d.shape))
+        shapes.add((*x2d.shape, str(x2d.dtype).removeprefix("torch.")))
         return launch(x2d, *args, **kwargs)
 
     attn_block._launch = spy
@@ -1241,12 +1293,15 @@ def attn_shapes():
 
 
 def checked_in_phase_3(shapes: set) -> list:
-    """The (B, N, C) launched, each asserted to be among those phase 3 held
-    #1 to its plain version at (ATTN_BATCHES x CHECK_SHAPES)."""
-    checked = {(b, n, c) for b in ATTN_BATCHES for n, c in CHECK_SHAPES}
+    """The (B, N, C, dtype) launched, each asserted to be among those phase
+    3 held #1 to its plain version at: bf16 at ATTN_BATCHES x CHECK_SHAPES,
+    f32 at B BATCH x CHECK_SHAPES and B TRAIN_BATCH x FORWARD_SHAPES."""
+    checked = ({(b, n, c, "bfloat16") for b in ATTN_BATCHES for n, c in CHECK_SHAPES}
+               | {(BATCH, n, c, "float32") for n, c in CHECK_SHAPES}
+               | {(TRAIN_BATCH, n, c, "float32") for n, c in FORWARD_SHAPES})
     if not shapes <= checked:
-        raise AssertionError(f"#1 launched at (B, N, C) {sorted(shapes - checked)}, which phase 3 "
-                             f"did not check against its plain version")
+        raise AssertionError(f"#1 launched at (B, N, C, dtype) {sorted(shapes - checked)}, "
+                             f"which phase 3 did not check against its plain version")
     return sorted(shapes)
 
 
@@ -1643,6 +1698,240 @@ def eval_checks(card: str, record: dict):
                 "sampling_s": total_time, "fakes": len(fakes), "card": card}
 
     return checks
+
+
+# ----------------------------------------------- DMD2-M distillation
+
+DMD_STEPS = 12
+DMD_SAGAN_STEPS = 2
+DMD_NFAKE = 4          # one-step images of each of the 100 eval labels
+DMD_CENTERS = 10       # the student's sliding windows (phase 20: 157 at radius 2)
+DMD_GEN_BATCH = 200
+# SNGAN's D on the card against the CPU, full f32: rtol = atol. G's bound is
+# five times that: its own f32 rounding is ~1.2e-5 from its f64 forward on
+# the CPU alone (the running variances ~0.05-0.3 after the run amplify it
+# through nine BatchNorms), so two f32 implementations meet ~2e-5 apart;
+# the phase prints the CPU's f32 distance to f64 beside the check
+DMD_TOL = {"G": 5e-5, "D": 1e-5}
+# launches per DMD iteration (num_D_steps 2): the G step's teacher and fake
+# UNet forwards without a gradient (#1 at all ten blocks each), then each
+# D step's fake-UNet forward with a gradient (#1 at the eight blocks off
+# the two-pass route, #2 + #3 at the two N-4096 blocks) and its backward
+# (#4 + #5 there)
+DMD_TWO_PASS = sum(attn_block.takes_two_pass(n, F) for n, _ in FORWARD_SHAPES)
+DMD_PER_STEP = {"attn_block": 2 * len(FORWARD_SHAPES) + 2 * (len(FORWARD_SHAPES) - DMD_TWO_PASS),
+                **{k: 2 * DMD_TWO_PASS for k in LARGE}}
+assert DMD_PER_STEP["attn_block"] == 36 and DMD_TWO_PASS == 2
+
+
+def dmd_argv(arch: str, steps: int) -> list:
+    """dmd_main's flags: phase 20's SteeringAngle bundle, seed and setting
+    folder (its milestone the teacher, f32 as JAX's dmd_main builds it, its
+    pinned eval backbones), JAX's default GAN widths, batch TRAIN_BATCH,
+    hinge, DiffAugment; the SNGAN run with grids and milestones inside the
+    run, the protocol cut to DMD_CENTERS windows, both analyses; the SAGAN
+    run under a setting of its own with phase 20's as the teacher's."""
+    argv = ["--root_path", str(EVAL_RUN), "--data_name", "SteeringAngle", "--min_label", "-80",
+            "--max_label", "80", "--image_size", "64", "--model_channels", "64",
+            "--channel_mult", "1_2_2_4_8", "--seed", "0", "--teacher_milestone",
+            str(EVAL_STEPS), "--gan_arch", arch, "--gene_ch", "64", "--disc_ch", "64",
+            "--dim_z", "256", "--train_batch_size", str(TRAIN_BATCH), "--num_D_steps", "2",
+            "--gan_DiffAugment", "--adv_loss_type", "hinge", "--niters", str(steps),
+            "--nfake_per_label", str(DMD_NFAKE), "--samp_batch_size", str(DMD_NFAKE),
+            "--eval_mode", "2"]
+    if arch == "sngan":
+        return argv + ["--save_every", str(steps // 2), "--sample_every", str(steps // 2),
+                       "--comp_FID", "--FID_radius", "2", "--FID_num_centers", str(DMD_CENTERS),
+                       "--eval_ckpt_path", str(EVAL_RUN), "--interpolation", "--sefa"]
+    # SAGAN in a setting folder of its own, the teacher's named
+    return argv + ["--save_every", str(10 * steps), "--sample_every", str(10 * steps),
+                   "--setting_name", "Setup_SAGAN", "--teacher_setting_name", "Setup1"]
+
+
+@contextlib.contextmanager
+def dmd_records():
+    """dmd_main's h5 write replaced by a record of each label's images (the
+    card's machine has no h5py); the trainer's steps wrapped to record
+    their losses."""
+    from ccdm_tpu_torch import dmd_main
+    from ccdm_tpu_torch.training.dmd import DMD2Trainer
+
+    record = {"dumps": [], "g": [], "d": []}
+    write, g_step, d_step = dmd_main.write_dump, DMD2Trainer.g_step, DMD2Trainer.d_step
+
+    def g_spy(self, *args, **kwargs):
+        out = g_step(self, *args, **kwargs)
+        record["g"].append([float(v) for v in out])
+        return out
+
+    def d_spy(self, *args, **kwargs):
+        out = d_step(self, *args, **kwargs)
+        record["d"].append([float(v) for v in out])
+        return out
+
+    dmd_main.write_dump = lambda path, images, labels: record["dumps"].append(
+        (Path(path).name, images, labels))
+    DMD2Trainer.g_step, DMD2Trainer.d_step = g_spy, d_spy
+    try:
+        yield record
+    finally:
+        dmd_main.write_dump = write
+        DMD2Trainer.g_step, DMD2Trainer.d_step = g_step, d_step
+
+
+def dmd_run(device, arch: str, steps: int) -> tuple:
+    """dmd_main in process: (trainer, launch counts, the step and dump
+    records, seconds); the launch counts must be DMD_PER_STEP x steps and
+    none of the rest, every loss finite."""
+    from ccdm_tpu_torch import dmd_main
+
+    expected = {**{k: v * steps for k, v in DMD_PER_STEP.items()},
+                **{k: 0 for k in (*RESNET, *NEW_KERNELS)}}
+    with dmd_records() as record:
+        t0 = time.perf_counter()
+        _reset_counts()
+        trainer = dmd_main.main(["--device", str(device), *dmd_argv(arch, steps)])
+        torch.cuda.synchronize()
+        counts = _counts()
+        seconds = time.perf_counter() - t0
+    losses = record["g"] + record["d"]
+    print(f"   {arch}: {steps} iterations of batch {TRAIN_BATCH} in {seconds:.1f} s; G losses "
+          f"{[round(g[0], 4) for g in record['g']]}, D losses "
+          f"{[round(d[0], 4) for d in record['d']]}; launches {counts} (expected {expected})",
+          flush=True)
+    if counts != expected:
+        raise AssertionError(f"DMD launches {counts}, expected {expected}")
+    if (len(record["g"]), len(record["d"])) != (steps, 2 * steps) \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"DMD losses {record['g']}, {record['d']}")
+    return trainer, counts, record, seconds
+
+
+@torch.no_grad()
+def gan_on_card_vs_cpu(trainer, seed: int = 7) -> dict:
+    """SNGAN's G and D (eval mode, which stores nothing) on the card in full
+    f32 against copies on the CPU, on the same z, labels and images, each at
+    DMD_TOL; beside each, the CPU's own f32 forward against its f64 one."""
+    from ccdm_tpu_torch.utils.device import full_f32
+
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn(8, trainer.cfg.z_dim, generator=g)
+    y = trainer.fn_y2h(torch.linspace(0.05, 0.95, 8, device=trainer.device)[:, None]).cpu()
+    x = torch.rand(8, 3, 64, 64, generator=g) * 2 - 1
+    out = {}
+    for name, net, args in (("G", trainer.netG, (z, y)), ("D", trainer.netD, (x, y))):
+        cpu = copy.deepcopy(net).cpu()
+        with full_f32():
+            got = net(*(a.to(trainer.device) for a in args), train=False).cpu()
+        want = cpu(*args, train=False)
+        tol = DMD_TOL[name]
+        out[name] = check_close(got, want, tol, tol, f"SNGAN {name} on the card against the CPU")
+        # the largest share of its element's bound atol + rtol |want| an error takes
+        out[f"{name}_bound_share"] = float(((got - want).abs() / (tol + tol * want.abs())).max())
+        f64 = cpu.double()(*(a.double() for a in args), train=False)
+        out[f"{name}_cpu_f32_vs_f64"] = float((want.double() - f64).abs().max())
+    return out
+
+
+def dmd_main_path(device, card: str, eval_run: dict) -> dict:
+    """Phase 21: dmd_main on phase 20's setting folder (SNGAN, then SAGAN),
+    its artifacts, metrics and times, and serve_dmd's GeneratorService
+    over HTTP; deletes the run folder after."""
+    from ccdm_tpu_torch import dmd_main
+    from ccdm_tpu_torch.serve import GeneratorService
+
+    t_phase = time.perf_counter()
+    try:
+        args = dmd_main.parse_opts_dmd(dmd_argv("sngan", DMD_STEPS))
+        initial = dmd_main.build_gan(args, 3, 64)[0].state_dict()
+        with attn_shapes() as shapes, eval_in_memory({}) as evals:
+            trainer, counts, record, run_s = dmd_run(device, "sngan", DMD_STEPS)
+            sagan, sagan_counts, sagan_record, sagan_s = dmd_run(device, "sagan",
+                                                                 DMD_SAGAN_STEPS)
+        attn = checked_in_phase_3(shapes)
+        if {s[3] for s in attn} != {"float32"}:
+            raise AssertionError(f"#1 launched at {attn}: the DMD UNets run in f32")
+        moved = max(float((p.detach().cpu() - initial[name]).abs().max())
+                    for name, p in trainer.netG.named_parameters())
+        dumps = record["dumps"]
+        images = np.stack([d[1] for d in dumps])
+        if (len(dumps) != len(EVAL_ANGLES) or images.dtype != np.uint8
+                or images.shape[1:] != (DMD_NFAKE, 64, 64, 3) or images.std() == 0
+                or len(sagan_record["dumps"]) != len(EVAL_ANGLES) or not moved > 0):
+            raise AssertionError(f"{len(dumps)} label dumps {images.dtype} {images.shape}, "
+                                 f"std {images.std()}; netG moved {moved}")
+        results = Path(dmd_main.dmd_results_folder(args))
+        pngs = [results / f"sample_{DMD_STEPS // 2}.png", results / f"sample_{DMD_STEPS}.png",
+                *map(Path, trainer.analysis)]
+        stds = [float(read_png(p).std()) for p in pngs]
+        if len(trainer.analysis) != 2 or not all(v > 0 for v in stds):
+            raise AssertionError(f"grids and analysis PNGs {pngs}: pixel std {stds}")
+        result = trainer.eval_results
+        flat = {"fid": result["fid"]}
+        for name in ("sfid", "ls", "diversity"):
+            flat[f"{name}_mean"], flat[f"{name}_std"] = result[name]
+        if not np.isfinite(list(flat.values())).all():
+            raise AssertionError(f"student metrics not finite: {flat}")
+        if result["fingerprint"] != eval_run["fingerprint"]:
+            raise AssertionError(f"the student was scored under {result['fingerprint']}, "
+                                 f"phase 20 under {eval_run['fingerprint']}")
+        print(f"   {len(dumps)} labels x {DMD_NFAKE} one-step images (uint8, pixel std "
+              f"{images.std():.2f}); netG moved by up to {moved:.3e}; grids and analysis "
+              f"{[p.name for p in pngs]} (pixel std {[round(v, 2) for v in stds]})", flush=True)
+        print(f"   student metrics under {result['fingerprint']} (phase 20's), "
+              f"{DMD_CENTERS} windows: " + ", ".join(f"{k} {v:.4f}" for k, v in flat.items())
+              + f"; the protocol {evals['protocol_s']:.2f} s on {card}", flush=True)
+        parity = gan_on_card_vs_cpu(trainer)
+        print(f"   SNGAN on the card against the CPU (full f32, eval mode): max abs err G "
+              f"{parity['G']:.3e}, D {parity['D']:.3e} (rtol = atol = {DMD_TOL['G']} and "
+              f"{DMD_TOL['D']}; the largest share of an element's bound G "
+              f"{parity['G_bound_share']:.3f}, D {parity['D_bound_share']:.3f}); the CPU's f32 "
+              f"against its f64: G {parity['G_cpu_f32_vs_f64']:.3e}, D "
+              f"{parity['D_cpu_f32_vs_f64']:.3e}", flush=True)
+
+        # the steps and the one-step generator, timed after the run's warm-up
+        gen = torch.Generator(device=device).manual_seed(3)
+        g_ms = time_ms(lambda: trainer.g_step(gen), reps=5, warmup=1)
+        d_ms = time_ms(lambda: trainer.d_step(gen), reps=5, warmup=1)
+        z = torch.randn(DMD_GEN_BATCH, args.dim_z, generator=gen, device=device)
+        y = torch.linspace(0.0, 1.0, DMD_GEN_BATCH, device=device)
+        imgs = trainer.generate(y, z)
+        if imgs.shape != (DMD_GEN_BATCH, 64, 64, 3) or not bool(torch.isfinite(imgs).all()):
+            raise AssertionError(f"the one-step generator gave {tuple(imgs.shape)}, "
+                                 "not all finite")
+        gen_ms = time_ms(lambda: trainer.generate(y, z), reps=20)
+        gen_ips = DMD_GEN_BATCH / gen_ms * 1e3
+
+        serve_args = dmd_main.parse_opts_dmd([*dmd_argv("sngan", DMD_STEPS), "--device",
+                                              str(device), "--serve_milestone", str(DMD_STEPS)])
+        service = GeneratorService(serve_args, max_batch=SERVE_BATCH, warm=True,
+                                   device=str(device))
+        torch.cuda.synchronize()
+        _reset_counts()
+        batches, n_images, req_s = _serve_requests(
+            service, ((5, 0), (40, 1)), 64, refused=({"labels": [0.5], "cond_scale": 1.5},))
+        serve_counts = _counts()
+        if any(serve_counts.values()):
+            raise AssertionError(f"serving the one-step student launched {serve_counts}")
+        served_ips = n_images / req_s
+        phase_s = time.perf_counter() - t_phase
+        print(f"   G step {g_ms:.2f} ms, D step {d_ms:.2f} ms (f32, batch {TRAIN_BATCH}, "
+              f"events); one-step generator {gen_ips:.1f} images/s at batch {DMD_GEN_BATCH} "
+              f"(events); served {n_images} images in {batches} batches of {SERVE_BATCH} over "
+              f"HTTP: {served_ips:.1f} images/s (host clock), cond_scale refused with 400, no "
+              f"kernel launched; SAGAN {DMD_SAGAN_STEPS} iterations {sagan_s:.1f} s; the phase "
+              f"{phase_s:.1f} s on {card}", flush=True)
+        return {"launches": counts, "launches_sagan": sagan_counts, "steps": DMD_STEPS,
+                "attn_shapes": attn, "g_losses": record["g"], "d_losses": record["d"],
+                "sagan_g_losses": sagan_record["g"], "sagan_d_losses": sagan_record["d"],
+                "metrics": flat, "fingerprint": result["fingerprint"],
+                "protocol_s": evals["protocol_s"], "windows": DMD_CENTERS,
+                "on_card_vs_cpu_max_abs_err": parity, "g_step_ms": g_ms, "d_step_ms": d_ms,
+                "onestep_images_per_s": gen_ips, "served_images_per_s": served_ips,
+                "served_images": n_images, "run_s": run_s, "sagan_run_s": sagan_s,
+                "phase_s": phase_s, "card": card}
+    finally:
+        shutil.rmtree(EVAL_RUN, ignore_errors=True)
 
 
 # ------------------------------------------- the fused resnet block slice
@@ -2515,12 +2804,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/22 device")
+    phase("1/23 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/22 build")
+    phase("2/23 build")
     libraries = ("attn_block", "attn_block_large", "resnet_block", "linear_attention",
                  "style_ops")
     t0 = time.perf_counter()
@@ -2535,26 +2824,26 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/22 attn_block kernel against its plain version")
+    phase("3/23 attn_block kernel against its plain version")
     rows, rows_by_batch = kernel_vs_plain(device)
 
-    phase("4/22 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/23 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/22 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/23 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/22 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
+    phase("6/23 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
           "bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
     other_dim_head = dim_head_vs_plain(device)
 
-    phase("7/22 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/23 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
     grads_hy = grad_parity(device, use_hy=True)
 
-    phase(f"8/22 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/23 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
     trained = train_main_path(
         device, card, TRAIN_ARGV, TRAIN_STEPS,
@@ -2562,18 +2851,18 @@ def main() -> int:
          **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, train_checks(card))
 
-    phase("9/22 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+    phase("9/23 kernels #10 and #11 (the fused resnet block) against their plain versions, "
           "f32 and bf16")
     resnet_rows = resnet_vs_plain(device)
 
-    phase("10/22 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    phase("10/23 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
     fused_parity = fused_model_parity(device)
 
-    phase(f"11/22 main path with the switch on: SamplerService over HTTP, bf16, batch "
+    phase(f"11/23 main path with the switch on: SamplerService over HTTP, bf16, batch "
           f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
     fused_served = fused_serve_main_path(device, card)
 
-    phase(f"12/22 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+    phase(f"12/23 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
           f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
     fused_trained = train_main_path(
         device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
@@ -2584,24 +2873,24 @@ def main() -> int:
          **{k: 0 for k in NEW_KERNELS}},
         True, fused_train_checks(card))
 
-    phase("13/22 kernels #6 and #9 (standalone linear attention) against their plain versions")
+    phase("13/23 kernels #6 and #9 (standalone linear attention) against their plain versions")
     la_rows = la_vs_plain(device)
 
-    phase("14/22 kernels #7 + #8 (its two-pass form) against their plain versions")
+    phase("14/23 kernels #7 + #8 (its two-pass form) against their plain versions")
     tp_rows = twopass_vs_plain(device)
 
-    phase("15/22 kernel #12 (bias_act) against its plain version")
+    phase("15/23 kernel #12 (bias_act) against its plain version")
     ba_rows = bias_act_vs_plain(device)
 
-    phase("16/22 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
+    phase("16/23 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
           "the two-pass route, linear_attention_per_head, bias_act")
     la_path = la_main_path(device)
 
-    phase("17/22 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
+    phase("17/23 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
           "kernel forward against the plain route")
     la_grads = la_grad_parity(device)
 
-    phase(f"18/22 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
+    phase(f"18/23 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
           f"bf16, {RECIPE_STEPS} steps, then serving from its milestone")
     recipe = train_main_path(
         device, card, RECIPE_ARGV, RECIPE_STEPS,
@@ -2609,7 +2898,7 @@ def main() -> int:
          **{k: 2 * RECIPE_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, recipe_checks(card, trained["train_images_per_s"]))
 
-    phase(f"19/22 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
+    phase(f"19/23 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
           f"{MULTIDIM_DIMS} dims, shv, resnet ILI, cross_attention), batch {TRAIN_BATCH}, bf16, "
           f"{MULTIDIM_STEPS} steps; (a') the same with the sinusoidal y2h, {ANALYTIC_STEPS} "
           f"steps; (b) the elastic aux loss, the trajectory GIF and the interpolation, "
@@ -2636,24 +2925,38 @@ def main() -> int:
                 False, aux_checks(card, passes))
     multidim["analytic_y2h"] = analytic
     multidim["attn_shapes"] = checked_in_phase_3(shapes)
-    print(f"   #1 launched at (B, N, C) {multidim['attn_shapes']} in this phase, each checked "
-          f"against its plain version in phase 3", flush=True)
+    print(f"   #1 launched at (B, N, C, dtype) {multidim['attn_shapes']} in this phase, each "
+          f"checked against its plain version in phase 3", flush=True)
 
-    phase(f"20/22 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
+    phase(f"20/23 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
           f"training, batch {TRAIN_BATCH}, bf16, {EVAL_STEPS} steps, {len(EVAL_ANGLES)} labels x "
           f"{EVAL_NFAKE} images at 10 DDIM steps, then --comp_FID with PRDC, NIQE, iFID and "
           f"the analyses")
-    with attn_shapes() as shapes, eval_in_memory({}) as record, pytorch_precision_defaults():
-        eval_run = train_main_path(
-            device, card, EVAL_ARGV, EVAL_STEPS,
-            {"attn_block": 8 * EVAL_STEPS + ATTN_BLOCKS * EVAL_SAMPLE_FORWARDS,
-             **{k: 2 * EVAL_STEPS for k in LARGE}, **others},
-            False, eval_checks(card, record))
-    eval_run["attn_shapes"] = checked_in_phase_3(shapes)
-    print(f"   #1 launched at (B, N, C) {eval_run['attn_shapes']} in this phase, each checked "
+    try:
+        with attn_shapes() as shapes, eval_in_memory({}) as record, \
+                pytorch_precision_defaults():
+            eval_run = train_main_path(
+                device, card, EVAL_ARGV, EVAL_STEPS,
+                {"attn_block": 8 * EVAL_STEPS + ATTN_BLOCKS * EVAL_SAMPLE_FORWARDS,
+                 **{k: 2 * EVAL_STEPS for k in LARGE}, **others},
+                False, eval_checks(card, record), keep=True)
+        eval_run["attn_shapes"] = checked_in_phase_3(shapes)
+        print(f"   #1 launched at (B, N, C, dtype) {eval_run['attn_shapes']} in this phase, each "
+              f"checked against its plain version in phase 3", flush=True)
+    except BaseException:
+        shutil.rmtree(EVAL_RUN, ignore_errors=True)
+        raise
+
+    phase(f"21/23 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
+          f"backbones), SNGAN 64/64/256, batch {TRAIN_BATCH}, 2 D steps, DiffAugment, "
+          f"{DMD_STEPS} iterations, {len(EVAL_ANGLES)} labels x {DMD_NFAKE} one-step images, "
+          f"--comp_FID ({DMD_CENTERS} windows), --interpolation --sefa; SAGAN "
+          f"{DMD_SAGAN_STEPS} iterations; serve_dmd over HTTP")
+    dmd = dmd_main_path(device, card, eval_run)
+    print(f"   #1 launched at (B, N, C, dtype) {dmd['attn_shapes']} in this phase, each checked "
           f"against its plain version in phase 3", flush=True)
 
-    phase("21/22 kernels")
+    phase("22/23 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -2683,6 +2986,8 @@ def main() -> int:
         "launches_in_multidim_sinusoidal": analytic["launches"]["attn_block"],
         "launches_in_aux_gif_interpolation": aux_run["launches"]["attn_block"],
         "launches_in_eval": eval_run["launches"]["attn_block"],
+        "launches_in_dmd": dmd["launches"]["attn_block"],
+        "launches_in_dmd_sagan": dmd["launches_sagan"]["attn_block"],
         "max_err_bf16": max(r["max_err_bf16"] for r in rows.values()
                             if r["max_err_bf16"] is not None),
         "max_err_f32": max(r["max_err_f32"] for r in rows.values()),
@@ -2709,6 +3014,8 @@ def main() -> int:
             "launches_in_multidim_sinusoidal": analytic["launches"][name],
             "launches_in_aux_gif_interpolation": aux_run["launches"][name],
             "launches_in_eval": eval_run["launches"][name],
+            "launches_in_dmd": dmd["launches"][name],
+            "launches_in_dmd_sagan": dmd["launches_sagan"][name],
             "routes": {tag: f"{r[name]['route']} x{r[name]['splits']}"
                        for tag, r in large_rows.items() if name in r},
             "by_shape": {tag: r.get(name, {}) for tag, r in large_rows.items()},
@@ -2723,12 +3030,13 @@ def main() -> int:
     kernels[4]["multidim"] = multidim
     kernels[4]["aux_gif_interpolation"] = aux_run
     kernels[4]["eval"] = eval_run
+    kernels[4]["dmd"] = dmd
     kernels += resnet_kernel_rows(resnet_rows, fused_served, fused_trained, fused_parity, card,
                                   served["cfg_forward_ms"])
     kernels += slice4_kernel_rows(la_rows, tp_rows, ba_rows, la_path, la_grads, card)
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("22/22 done")
+    phase("23/23 done")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,20 @@ carries every entry model-evalnets_<name>_<size>_seed<seed>/ of the JAX
 regressor) into the port's <eval_ckpt_path>/eval_models/ under the same
 tag, and copies its niqe_model_*.npz; the port's run_ccgm_eval then loads
 them, and prints the fingerprint JAX printed.
+
+A DMD2-M milestone (JAX's dmd_main writes <setting>/dmd_results/model-dmd-<N>/)
+comes across with --jax_dmd_milestone:
+
+    python scripts/jax_milestone_to_torch.py --jax_results <folder holding
+        model-dmd-<N>/> --jax_dmd_milestone N <dmd_main.py's flags>
+
+restores it as orbax wrote it and converts the whole DMD2Trainer.state
+with ccdm_tpu_torch.utils.convert.dmd_state_from_jax into
+<root_path>/output/<data_name>_<image_size>/<setting_name>/dmd_results/
+model-dmd-<N>/state.pt: `python -m ccdm_tpu_torch.serve_dmd` with the same
+flags and --serve_milestone N serves its generator, and dmd_main.py
+--resume_niter N trains on from it. The embed_models/ beside the JAX
+results folder come along into the teacher's setting folder.
 """
 
 from __future__ import annotations
@@ -264,15 +278,55 @@ def convert(jax_results: str, milestone: int, argv: list[str]) -> str:
     return path
 
 
+def convert_dmd(jax_results: str, milestone: int, argv: list[str]) -> str:
+    """Write the port's DMD milestone dmd-<milestone> from JAX's (its
+    DMD2Trainer.state: netG, netD and the fake UNet with their statistics,
+    both optimizers' Adam moments and counts, step) under the port's
+    <setting folder>/dmd_results/, where dmd_main.py and serve_dmd.py read
+    it; carry <dirname of jax_results>/embed_models/ into the teacher's
+    setting folder, where both take the label embedding. argv holds
+    dmd_main.py's flags. Returns the milestone's path."""
+    from ccdm_tpu.utils.ckpt import legacy_to_fused, load_checkpoint
+    from ccdm_tpu_torch.dmd_main import (
+        build_gan, dmd_results_folder, parse_opts_dmd, setting_folder)
+    from ccdm_tpu_torch.models.unet import Unet
+    from ccdm_tpu_torch.opts import parse_channel_mult
+    from ccdm_tpu_torch.utils.ckpt import save_checkpoint
+    from ccdm_tpu_torch.utils.convert import dmd_state_from_jax
+
+    args = parse_opts_dmd(argv)
+    tree = legacy_to_fused(load_checkpoint(jax_results, f"dmd-{milestone}"))
+    netG, netD = build_gan(args, args.num_channels, args.image_size)
+    fake_unet = Unet(dim=args.model_channels, dim_mults=parse_channel_mult(args.channel_mult),
+                     in_channels=args.num_channels)
+    path = save_checkpoint(dmd_results_folder(args), f"dmd-{milestone}",
+                           dmd_state_from_jax(tree, netG, netD, fake_unet))
+    jax_setting = os.path.dirname(os.path.abspath(jax_results))
+    embed = convert_embed_models(os.path.join(jax_setting, "embed_models"),
+                                 os.path.join(setting_folder(args, teacher=True),
+                                              "embed_models"), args)
+    if embed:
+        print(f"embed_models: {', '.join(embed)}")
+    return path
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--jax_results", default=None,
                         help="the JAX run's results folder, holding model-<N>/")
     parser.add_argument("--jax_milestone", type=int, default=None)
+    parser.add_argument("--jax_dmd_milestone", type=int, default=None,
+                        help="a DMD milestone model-dmd-<N>/ in --jax_results; the other "
+                             "flags are then dmd_main.py's")
     parser.add_argument("--jax_eval_ckpt_path", default=None,
                         help="a JAX --eval_ckpt_path: its eval_models/ goes to the port's "
                              "--eval_ckpt_path")
     ours, port_argv = parser.parse_known_args(argv)
+    if ours.jax_dmd_milestone is not None:
+        if ours.jax_results is None or ours.jax_milestone is not None:
+            parser.error("--jax_dmd_milestone goes with --jax_results alone")
+        print(f"wrote {convert_dmd(ours.jax_results, ours.jax_dmd_milestone, port_argv)}")
+        return
     if (ours.jax_results is None) != (ours.jax_milestone is None):
         parser.error("--jax_results and --jax_milestone go together")
     if ours.jax_results is None and ours.jax_eval_ckpt_path is None:

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from ccdm_tpu_torch import serve
+from ccdm_tpu_torch import dmd_main, serve, serve_dmd
 from ccdm_tpu_torch.opts import parse_opts
 from ccdm_tpu_torch.utils.device import resolve_device
 
@@ -58,7 +58,8 @@ def test_port_and_smoke_script_import_no_jax():
                  "models.resnet_embed", "data.power", "embedding.combine", "models.aux_net",
                  "training.train_aux", "training.optim", "eval.metrics", "eval.sfid",
                  "eval.niqe", "eval.backbones", "eval.train_backbones", "eval.protocol",
-                 "eval.analysis"):
+                 "eval.analysis", "dmd_main", "serve_dmd", "models.sngan", "models.sagan",
+                 "training.diffaugment", "training.dmd"):
         assert f"ccdm_tpu_torch.{name}" in report["new"], name
     assert [m for m in report["new"] if _is_jax(m)] == []
 
@@ -80,6 +81,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         serve.SamplerService(parse_opts(SMALL_ARGV[:-2]), warm=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(SMALL_ARGV[:-2])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dmd_main.main(["--niters", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_dmd.main(["--serve_milestone", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
