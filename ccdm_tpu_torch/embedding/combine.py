@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ccdm_tpu_torch.models.resnet_embed import _flax_init_
+from ccdm_tpu_torch.models.layers import flax_init_
 
 
 class WeightedCombiner(nn.Module):
@@ -140,7 +140,7 @@ def combiner_weights(embed_dir: str, kind: str, dim_combination: str, embed_dim:
     if os.path.isfile(path):
         combiner.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
     else:
-        _flax_init_(combiner, seed)
+        flax_init_(combiner, torch.Generator().manual_seed(seed))
         if write:
             save_combiner(path, combiner)
     return combiner.to(device).eval().requires_grad_(False)

@@ -34,9 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ccdm_tpu_torch.models.layers import sinusoidal_pos_emb
-from ccdm_tpu_torch.models.resnet_embed import BasicBlock, BatchNorm, _conv, _flax_init_
-from ccdm_tpu_torch.models.unet import _lecun_normal_
+from ccdm_tpu_torch.models.layers import flax_init_, lecun_normal_, sinusoidal_pos_emb
+from ccdm_tpu_torch.models.resnet_embed import BasicBlock, BatchNorm, _conv
 
 FLAX_BN_MOMENTUM = 0.99
 
@@ -44,12 +43,12 @@ FLAX_BN_MOMENTUM = 0.99
 def _init_(module: nn.Module, seed: int) -> None:
     """flax's initialisers; a transposed conv's lecun_normal counts its
     fan-in over [in, kh, kw], which torch lays out as weight[:, 0]."""
-    _flax_init_(module, seed)
+    flax_init_(module, torch.Generator().manual_seed(seed))
     gen = torch.Generator().manual_seed(seed + 1)
     for m in module.modules():
         if isinstance(m, nn.ConvTranspose2d):
             w = m.weight
-            _lecun_normal_(w, w.shape[0] * w.shape[2] * w.shape[3], gen)
+            lecun_normal_(w, w.shape[0] * w.shape[2] * w.shape[3], gen)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:

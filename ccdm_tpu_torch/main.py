@@ -57,16 +57,27 @@ def resolve_label_embed(args) -> None:
 
 
 def build_model(args, image_size: int, channels: int):
-    """The denoiser of --architecture, weights drawn from --seed."""
+    """The denoiser of --architecture (ccdm_tpu/main.py:67-84): the UNet,
+    the ViT, or the ADM UNet; weights drawn from --seed."""
+    mults = parse_channel_mult(args.channel_mult)
+    dtype = torch.bfloat16 if args.train_amp else torch.float32
+    if args.architecture == "vit":
+        from ccdm_tpu_torch.models.vit import ViT
+
+        return ViT(dim=args.model_channels, dim_mults=mults, in_channels=channels,
+                   attn_heads=args.num_heads, dtype=dtype, seed=args.seed)
+    if args.architecture == "adm":
+        from ccdm_tpu_torch.models.unet_adm import ADMUnet
+
+        return ADMUnet(model_channels=args.model_channels, channel_mult=mults,
+                       in_channels=channels, num_res_blocks=args.num_res_blocks,
+                       attention_resolutions=parse_channel_mult(args.attention_resolutions),
+                       num_heads=args.num_heads, num_groups=args.num_groups, dtype=dtype,
+                       seed=args.seed)
     from ccdm_tpu_torch.models.unet import Unet
 
-    if args.architecture != "unet":
-        raise NotImplementedError(f"--architecture {args.architecture} comes in a "
-                                  "later slice (ROADMAP.md)")
-    return Unet(dim=args.model_channels, dim_mults=parse_channel_mult(args.channel_mult),
-                in_channels=channels, attn_heads=args.num_heads,
-                attn_dim_head=args.attn_dim_head,
-                dtype=torch.bfloat16 if args.train_amp else torch.float32,
+    return Unet(dim=args.model_channels, dim_mults=mults, in_channels=channels,
+                attn_heads=args.num_heads, attn_dim_head=args.attn_dim_head, dtype=dtype,
                 seed=args.seed)
 
 
@@ -343,7 +354,8 @@ def main(argv=None):
         percentile=args.percentile, adaptive_slicing=args.adaptive_slicing,
         y_visual=y_visual, cond_scale_visual=args.sample_cond_scale,
         sample_timesteps_visual=min(args.sample_timesteps, 250),
-        sample_precast_bf16=args.samp_precast_bf16, log_every=args.log_every, seed=args.seed)
+        sample_precast_bf16=args.samp_precast_bf16, log_every=args.log_every,
+        tb_log=args.tb_log, seed=args.seed)
     aux_info = None
     if args.lambda_aux > 0:  # the elastic aux loss: train or load the regressor
         from ccdm_tpu_torch.training.train_aux import get_aux_net

@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ccdm_tpu_torch.models.layers import sinusoidal_pos_emb
-from ccdm_tpu_torch.models.resnet_embed import BasicBlock, BatchNorm, _flax_init_
+from ccdm_tpu_torch.models.layers import flax_init_, sinusoidal_pos_emb
+from ccdm_tpu_torch.models.resnet_embed import BasicBlock, BatchNorm
 
 VGG_CFG = {
     "VGG11": [64, "M", 128, "M", 128, "M", 128, "M"],
@@ -67,7 +67,7 @@ class VGGAux(nn.Module):
                 self.t_proj = nn.Linear(T_EMB_DIM, spec)
             cin, ci = spec, ci + 1
         self.head = _RegressorHead(cin * size * size)
-        _flax_init_(self, seed)
+        flax_init_(self, torch.Generator().manual_seed(seed))
 
     def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
@@ -101,7 +101,7 @@ class ResNetAux(nn.Module):
                                 BasicBlock(in_planes, planes, 2 if b == 0 else 1))
                 in_planes = planes
         self.head = _RegressorHead(in_planes)
-        _flax_init_(self, seed)
+        flax_init_(self, torch.Generator().manual_seed(seed))
 
     def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:

@@ -36,6 +36,115 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+def _promoted(x: torch.Tensor, dtype, *params) -> torch.dtype:
+    """flax's compute dtype of a layer: `dtype` where given, else the
+    promoted dtype of the input and the parameters (dtype=None)."""
+    if dtype is not None:
+        return dtype
+    out = x.dtype
+    for p in params:
+        if p is not None:
+            out = torch.promote_types(out, p.dtype)
+    return out
+
+
+class PromotingConv2d(nn.Conv2d):
+    """nn.Conv2d computed as flax nn.Conv computes: in `compute_dtype`
+    where given, else in the promoted dtype of the input and the weights
+    (a bf16 input or bf16 weights meet f32 ones in f32)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _promoted(x, self.compute_dtype, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class PromotingLinear(nn.Linear):
+    """nn.Linear computed as flax nn.Dense computes (PromotingConv2d's rule)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _promoted(x, self.compute_dtype, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def flax_silu(x: torch.Tensor) -> torch.Tensor:
+    """nn.silu as XLA computes it: x * (1 / (1 + exp(-x))), each op
+    rounded to x's dtype. In f32 that is F.silu; on a bf16 input (the
+    t and c embeddings under --train_amp) F.silu would round once where
+    XLA rounds four times, a bf16 ulp apart."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax nn.GroupNorm(num_groups) over the channels of NCHW: eps 1e-6,
+    statistics and output in f32 whatever the input's dtype."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-6):
+        super().__init__(num_groups, channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+
+
+def flax_batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """flax nn.BatchNorm (momentum 0.99, eps 1e-5) in f32. train: batch
+    statistics, with the variance mean(x^2) - mean(x)^2 (biased), and the
+    running statistics moved 1% towards them; else the running ones."""
+    x = x.float()
+    if not train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            False, 0.0, bn.eps)
+    mean = x.mean(0)
+    var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.99).add_(0.01 * mean)
+        bn.running_var.mul_(0.99).add_(0.01 * var)
+    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's lecun_normal: a normal truncated to +-2 std, scaled to
+    variance 1/fan_in (drawn by the inverse CDF)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
+    u = torch.rand(w.shape, generator=gen) * (hi - lo) + lo
+    with torch.no_grad():
+        w.copy_(torch.erfinv(2 * u - 1) * math.sqrt(2) * std)
+
+
+@torch.no_grad()
+def flax_init_(model: nn.Module, gen: torch.Generator, flax_layout: tuple = ()) -> None:
+    """flax's initialisers over `model`, in named_parameters() order:
+    lecun_normal kernels (fan-in: every axis but the output one, dim 0 in
+    torch's layouts, dim 1 in the kernels named in `flax_layout`), zero
+    biases, unit norm gains and BatchNorm scales, null embeddings
+    -|N(0, 1)|; BatchNorm running statistics reset."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if p.ndim >= 2:
+            lecun_normal_(p, p.shape[0] if leaf in flax_layout else p[0].numel(), gen)
+        elif leaf.startswith("null_"):
+            p.copy_(-torch.randn(p.shape, generator=gen).abs())
+        elif leaf.endswith("bias") or leaf == "b":
+            p.zero_()
+        else:
+            p.fill_(1.0)
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm1d):
+            m.reset_running_stats()
+
+
 class RMSNorm(nn.Module):
     """Channel RMSNorm with a learned gain; f32 statistics, output in the
     activation dtype."""

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ccdm_tpu_torch.models.unet import _lecun_normal_
+from ccdm_tpu_torch.models.layers import flax_init_
 
 BN_MOMENTUM = 0.9
 
@@ -107,19 +107,6 @@ class BasicBlock(nn.Module):
         return F.relu(h + x)
 
 
-def _flax_init_(module: nn.Module, seed: int) -> None:
-    """lecun_normal kernels, zero biases, unit norm scales."""
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            if p.ndim >= 2:
-                _lecun_normal_(p, p[0].numel(), gen)
-            elif name.endswith("bias"):
-                p.zero_()
-            else:
-                p.fill_(1.0)
-
-
 class ResNetEmbed(nn.Module):
     """ResNet regressor x [B, H, W, C] -> (y_hat [B, label_dim], h [B,
     dim_embed]); (3, 4, 6, 3) blocks is ResNet34, (2, 2, 2, 2) ResNet18.
@@ -144,7 +131,7 @@ class ResNetEmbed(nn.Module):
         self.x2h_dense2 = nn.Linear(512, dim_embed)
         self.x2h_bn2 = BatchNorm(dim_embed)
         self.h2y = nn.Linear(dim_embed, label_dim)
-        _flax_init_(self, seed)
+        flax_init_(self, torch.Generator().manual_seed(seed))
 
     def forward(self, x: torch.Tensor, train: bool = False):
         h = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
@@ -175,7 +162,7 @@ class _LabelMLP(nn.Module):
             fan_in = width
         self.depth = len(widths)
         self.dense_out = nn.Linear(fan_in, out_dim)
-        _flax_init_(self, seed)
+        flax_init_(self, torch.Generator().manual_seed(seed))
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         h = y.reshape(-1, 1) + 1e-8

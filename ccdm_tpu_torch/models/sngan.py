@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ccdm_tpu_torch.models.resnet_embed import BatchNorm
-from ccdm_tpu_torch.models.unet import _lecun_normal_
+from ccdm_tpu_torch.models.layers import lecun_normal_
 
 SN_EPS = 1e-12
 GAN_SIZES = (64, 128, 192)
@@ -119,7 +119,7 @@ def reset_gan_parameters(net: nn.Module, gen: torch.Generator) -> None:
             fan_in, fan_out = w[0].numel(), w.shape[0] * w[0, 0].numel()
             gain = getattr(module, "xavier_gain", None)
             if gain is None:
-                _lecun_normal_(w, fan_in, gen)
+                lecun_normal_(w, fan_in, gen)
             else:
                 bound = gain * math.sqrt(6.0 / (fan_in + fan_out))
                 w.uniform_(-bound, bound, generator=gen)

@@ -15,7 +15,6 @@ NCHW in channels_last memory format.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
@@ -31,18 +30,10 @@ from ccdm_tpu_torch.models.layers import (
     Linear,
     PreNormResidual,
     Upsample,
+    flax_batch_norm,
+    flax_init_,
     sinusoidal_pos_emb,
 )
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
-    """flax's lecun_normal: a normal truncated to +-2 std, scaled to
-    variance 1/fan_in (drawn by the inverse CDF)."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
-    u = torch.rand(w.shape, generator=gen) * (hi - lo) + lo
-    with torch.no_grad():
-        w.copy_(torch.erfinv(2 * u - 1) * math.sqrt(2) * std)
 
 
 class Unet(nn.Module):
@@ -93,41 +84,9 @@ class Unet(nn.Module):
         self.final_conv = Conv2d(dim, in_channels, 1)
         self.reset_parameters(torch.Generator().manual_seed(seed))
 
-    @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
-        """flax's initialisers: lecun_normal kernels, zero biases, unit norm
-        gains and BatchNorm, null embedding -|N(0, 1)|."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if p.ndim >= 2:
-                # fan-in: every axis but the output one (dim 0 in torch's
-                # layouts, dim 1 in the flax-layout attention kernels)
-                fan_in = p.shape[0] if leaf in ("qkv_kernel", "out_kernel") else p[0].numel()
-                _lecun_normal_(p, fan_in, gen)
-            elif leaf == "null_cond_emb":
-                p.copy_(-torch.randn(p.shape, generator=gen).abs())
-            elif leaf.endswith("bias"):
-                p.zero_()
-            else:  # norm gains and BatchNorm scales
-                p.fill_(1.0)
-        for bn in (self.cond_bn_1, self.cond_bn_2):
-            bn.reset_running_stats()
-
-    @staticmethod
-    def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """flax nn.BatchNorm (momentum 0.99, eps 1e-5) in f32. train: batch
-        statistics, with the variance mean(x^2) - mean(x)^2 (biased), and the
-        running statistics moved 1% towards them; else the running ones."""
-        x = x.float()
-        if not train:
-            return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                                False, 0.0, bn.eps)
-        mean = x.mean(0)
-        var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
-        with torch.no_grad():
-            bn.running_mean.mul_(0.99).add_(0.01 * mean)
-            bn.running_var.mul_(0.99).add_(0.01 * var)
-        return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+        """flax's initialisers; the attention kernels are in flax's layout."""
+        flax_init_(self, gen, flax_layout=("qkv_kernel", "out_kernel"))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, labels_emb: torch.Tensor,
                 keep_mask: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
@@ -136,10 +95,10 @@ class Unet(nn.Module):
         all); train: BatchNorm on batch statistics, updating the running
         ones (flax's train=True). Returns [B, H, W, Cout] f32."""
         dt = self.dtype
-        c = F.relu(self._batch_norm(self.cond_bn_1, self.cond_dense_1(labels_emb.float()), train))
+        c = F.relu(flax_batch_norm(self.cond_bn_1, self.cond_dense_1(labels_emb.float()), train))
         if keep_mask is not None:
             c = torch.where(keep_mask[:, None], c, self.null_cond_emb[None, :].to(c.dtype))
-        c_emb = F.relu(self._batch_norm(self.cond_bn_2, self.cond_dense_2(c), train))
+        c_emb = F.relu(flax_batch_norm(self.cond_bn_2, self.cond_dense_2(c), train))
         t_emb = self.time_dense_1(sinusoidal_pos_emb(t, self.dim))
         t_emb = self.time_dense_2(F.gelu(t_emb, approximate="tanh"))
         t_emb, c_emb = t_emb.to(dt), c_emb.to(dt)

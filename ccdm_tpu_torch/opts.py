@@ -1,6 +1,6 @@
-"""CLI flags of the training, sampling, eval and serving paths, with
-ccdm_tpu/opts.py's names, defaults and choices, plus --device. Flags that
-nothing in the port reads yet come with their slices."""
+"""CLI flags of the training, sampling, eval and serving paths: every flag
+of ccdm_tpu/opts.py with its name, default and choices, plus --device and
+the flags of the port's own entry points."""
 
 from __future__ import annotations
 
@@ -28,6 +28,10 @@ def parse_opts(argv=None):
     parser.add_argument("--use_power_transformer", action="store_true", default=False,
                         help="normalize power labels with the quantile PowerTransformer")
     parser.add_argument("--seed", type=int, default=111)
+    parser.add_argument("--num_workers", type=int, default=0,
+                        help="accepted so that the reference's launch scripts run; "
+                             "inert: the data pipeline is device-resident, with no "
+                             "host loader processes to parallelise")
     parser.add_argument("--setting_name", type=str, default="Setup1")
     parser.add_argument("--architecture", type=str, default="unet",
                         choices=["unet", "vit", "adm"])
@@ -64,7 +68,14 @@ def parse_opts(argv=None):
     parser.add_argument("--num_channels", type=int, default=3)
     parser.add_argument("--image_size", type=int, default=64)
     parser.add_argument("--model_channels", type=int, default=64)
+    parser.add_argument("--num_res_blocks", type=int, default=2,
+                        help="--architecture adm: resnet blocks per level")
     parser.add_argument("--num_heads", type=int, default=4)
+    parser.add_argument("--num_groups", type=int, default=8,
+                        help="--architecture adm: GroupNorm groups")
+    parser.add_argument("--attention_resolutions", type=str, default="16_32",
+                        help="--architecture adm: the downsampling factors (1 at the "
+                             "input, doubling per level) whose blocks attend")
     parser.add_argument("--channel_mult", type=str, default="1_2_4_8")
     parser.add_argument("--attn_dim_head", type=int, default=32)
     parser.add_argument("--cond_drop_prob", type=float, default=0.1)
@@ -87,6 +98,8 @@ def parse_opts(argv=None):
     parser.add_argument("--save_every", type=int, default=10000)
     parser.add_argument("--log_every", type=int, default=500,
                         help="loss/throughput logging stride (reference logs every 500)")
+    parser.add_argument("--tb_log", action="store_true", default=False,
+                        help="also write TensorBoard event files under results/tb")
 
     # Label embedding
     parser.add_argument("--y2h_embed_type", type=str, default="sinusoidal",

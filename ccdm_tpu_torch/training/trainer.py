@@ -96,6 +96,7 @@ class TrainerConfig:
     sample_timesteps_visual: Optional[int] = None
     sample_precast_bf16: bool = False
     log_every: int = 500
+    tb_log: bool = False  # --tb_log: TensorBoard event files under results/tb
     seed: int = 0
 
 
@@ -260,7 +261,7 @@ class Trainer:
         train_num_steps, logging every log_every steps and saving a
         milestone every save_every."""
         cfg = self.config
-        logger = TrainLogger(cfg.results_folder, cfg.train_num_steps)
+        logger = TrainLogger(cfg.results_folder, cfg.train_num_steps, tb=cfg.tb_log)
         timer = StepTimer()
         step = self.state.step
         window_t0, window_start = time.perf_counter(), step

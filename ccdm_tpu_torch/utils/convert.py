@@ -8,6 +8,9 @@ of models/resnet_embed.py: ResNetEmbed's params and batch_stats, the label
 MLPs' params, their GroupNorm scales becoming weights; a combiner of
 embedding/combine.py, its LayerNorm scale becoming a weight; an aux
 regressor of models/aux_net.py, params and batch_stats);
+the ADM UNet and the ViT carry over by name alone (flax GroupNorm and
+ChannelLayerNorm gains, their stride-2 and 1x1 convs, the *_attn children,
+null_classes_emb / null_cond_emb as they are);
 `unet_state_dict_from_jax` does it for a Unet:
 - conv kernels HWIO -> OIHW (init_conv, the down/up convs, final_conv, the
   resnet blocks' conv1_kernel/conv2_kernel -> conv1_weight/conv2_weight);
@@ -22,10 +25,12 @@ regressor of models/aux_net.py, params and batch_stats);
   which nn.ConvTranspose2d(stride 2, padding 1) applies as flax's "SAME".
 It raises on a leaf it does not consume and on a tensor of the port it
 leaves unset. `jax_variables_from_state_dict` maps the state_dict of a
-module of convs, Dense layers and flax norms back to the flax tree (the
-eval backbones' fingerprint hashes that layout).
+module of convs, Dense layers and flax norms (the eval backbones, the ADM
+UNet, the ViT) back to the flax tree (the eval backbones' fingerprint
+hashes that layout).
 
-`train_state_from_jax` carries a whole JAX TrainState (numpy leaves) into
+`train_state_from_jax` carries a whole JAX TrainState (numpy leaves) of
+any of the three denoisers into
 the port's training/state.TrainState: params and BatchNorm statistics, the
 EMA shadow of both, Adam's mu, nu and count, step and ema_step.
 
@@ -126,23 +131,35 @@ _FLAX_LEAVES = {"weight": ("params", "kernel"), "bias": ("params", "bias"),
 def jax_variables_from_state_dict(state_dict: Mapping[str, torch.Tensor],
                                   model: nn.Module) -> dict:
     """The inverse of state_dict_from_jax for modules built of nn.Conv2d,
-    nn.ConvTranspose2d, nn.Linear and resnet_embed's BatchNorm and
-    GroupNorm: {"params": ..., "batch_stats": ...} in flax layout (HWIO
-    kernels, Dense [in, out], norm scales), f32 numpy arrays in C order;
-    batch_stats only where the model has running statistics."""
+    nn.ConvTranspose2d, nn.Linear, BatchNorm (resnet_embed's, or
+    nn.BatchNorm1d), GroupNorm (resnet_embed's, or nn.GroupNorm), the ViT's
+    ChannelLayerNorm and parameters of their own (the null embeddings):
+    {"params": ..., "batch_stats": ...} in flax layout (HWIO kernels, Dense
+    [in, out], norm scales), f32 numpy arrays in C order; batch_stats only
+    where the model has running statistics."""
     from ccdm_tpu_torch.models.resnet_embed import BatchNorm, GroupNorm
+    from ccdm_tpu_torch.models.vit import ChannelLayerNorm
 
+    norms = (BatchNorm, GroupNorm, nn.BatchNorm1d, nn.GroupNorm)
     modules = dict(model.named_modules())
+    own_params = {name for name, _ in model.named_parameters(recurse=False)}
     out: dict = {"params": {}, "batch_stats": {}}
     for key, tensor in state_dict.items():
         owner, _, leaf = key.rpartition(".")
         module = modules.get(owner)
-        arr = tensor.detach().cpu().numpy().astype(np.float32)
+        arr = tensor.detach().cpu().float().numpy()
+        if leaf == "num_batches_tracked" and isinstance(module, nn.BatchNorm1d):
+            continue  # flax keeps no count
+        if key in own_params:
+            out["params"][key] = np.ascontiguousarray(arr)
+            continue
         collection, name = _FLAX_LEAVES.get(leaf, (None, None))
-        if module is None or name is None or not isinstance(
-                module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, BatchNorm, GroupNorm)):
+        if isinstance(module, ChannelLayerNorm) and leaf in ("g", "b"):
+            collection, name = "params", leaf
+        elif module is None or name is None or not isinstance(
+                module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, *norms)):
             raise KeyError(f"{key} has no flax counterpart here")
-        if isinstance(module, (BatchNorm, GroupNorm)) and leaf == "weight":
+        if isinstance(module, norms) and leaf == "weight":
             name = "scale"
         elif isinstance(module, nn.ConvTranspose2d) and leaf == "weight":
             arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]  # [I, O, H, W] -> flipped HWIO

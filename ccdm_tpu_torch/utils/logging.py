@@ -1,6 +1,7 @@
 """Training telemetry (ccdm_tpu/utils/logging.py): the reference's loss text
 file and a jsonl of scalars per logged step (loss, step_time_s,
-imgs_per_sec)."""
+imgs_per_sec); with `tb` (--tb_log) the same scalars as TensorBoard events
+under <results>/tb, as train/<name>."""
 
 from __future__ import annotations
 
@@ -11,12 +12,20 @@ from typing import Any, Dict, Optional
 
 
 class TrainLogger:
-    def __init__(self, results_folder: str, train_num_steps: int):
+    def __init__(self, results_folder: str, train_num_steps: int, tb: bool = False):
         os.makedirs(results_folder, exist_ok=True)
         self.text_path = os.path.join(results_folder, f"log_loss_niters{train_num_steps}.txt")
         self.jsonl_path = os.path.join(results_folder, "train_log.jsonl")
         with open(self.text_path, "a") as f:
             f.write("\n" + "=" * 99)
+        self._tb = None
+        if tb:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(os.path.join(results_folder, "tb"))
+            except ImportError:  # no tensorboard package: the text and jsonl logs only
+                print(" TrainLogger: tensorboard writer unavailable")
 
     def log_text(self, step: int, loss: float) -> None:
         with open(self.text_path, "a") as f:
@@ -25,6 +34,12 @@ class TrainLogger:
     def log_scalars(self, scalars: Dict[str, Any]) -> None:
         with open(self.jsonl_path, "a") as f:
             f.write(json.dumps(scalars) + "\n")
+        if self._tb is not None:
+            step = int(scalars.get("step", 0))
+            for k, v in scalars.items():
+                if k != "step" and isinstance(v, (int, float)):
+                    self._tb.add_scalar(f"train/{k}", v, step)
+            self._tb.flush()
 
 
 class StepTimer:

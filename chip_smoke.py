@@ -9,7 +9,8 @@ Phases, each announced on a flushed line before it starts:
      (seconds, ptxas report);
   3. kernel #1 (the single-pass attention block) against its plain PyTorch
      version at every shape of the attention blocks of the RC-49 64x64, the
-     128x128 and the 192x192 UNet (N 9 to 36864, C 64 to 512), B 64:
+     128x128 and the 192x192 UNet (N 9 to 36864, C 64 to 512) and of the
+     Cell-200 teacher (64x64, dim 32, mults 1_2_2_4: C 32 to 128), B 64:
      bf16 against the plain version in f32 on the same bf16-rounded inputs
      (rtol = atol = 3e-2, rtol relative to max(|y|, |y - x|), x ~ N(0, 1);
      at C <= 256 and at the 64x64 UNet's shapes) and against the plain
@@ -35,9 +36,9 @@ Phases, each announced on a flushed line before it starts:
      this phase must be 10 x 250 x batches; then one CFG forward of the
      service's model (B 64) timed with CUDA events;
   6. kernels #2-#5 (two-pass forward, fused backward) against their plain
-     versions at every two-pass shape of the three UNets, B 128: (N, C)
-     (4096, 64), (2048, 64), (16384, 64), (4096, 128) and (36864, 64) at
-     B 32, in bf16 and in f32: forward bounds as phase 3 (a and s relative
+     versions at every two-pass shape of the three UNets and the Cell-200
+     teacher's top level, B 128: (N, C) (4096, 64), (2048, 64), (16384, 64),
+     (4096, 128), (36864, 64) at B 32, and (4096, 32), in bf16 and in f32: forward bounds as phase 3 (a and s relative
      to their largest value), kmax within 1e-5 of its largest value (in
      bf16 against the plain version at the tensor route's rounding points,
      ctx_large_tensor_reference, and against ctx_large_reference by
@@ -215,18 +216,42 @@ Phases, each announced on a flushed line before it starts:
      serve_dmd's GeneratorService over HTTP (5 and 40 labels, batch 32,
      host clock; no kernel launched) and a request with cond_scale
      answered 400;
-  22. the share of the timed CFG forwards that the 23 blocks take (the
+  22. the ADM and ViT denoisers (denoisers_main_path, arch_checks):
+     `python -m ccdm_tpu_torch.main --architecture adm` at JAX's default
+     widths (model_channels 64, channel_mult 1_2_4_8, 2 resnet blocks a
+     level, 8 groups, 4 heads; 67.1 M parameters at 4_8) with
+     --attention_resolutions 4_8 (attention at 16x16 and 8x8, down, mid and
+     up) on phase 8's data, --train_amp, batch 128, 20 steps, then 2 labels
+     x 4 images at 10 DDIM steps, then SamplerService over HTTP on the
+     milestone, one request of 4 labels at 25 steps without and one with
+     --samp_precast_bf16; then `--architecture vit` at the flagship's
+     widths (64 x 8 = 512 wide, 8 blocks, 4096 tokens, 4 heads of 128; its
+     token attention through SDPA pinned to the memory-efficient backend),
+     batch 32, 5 steps, 2 labels x 4 images at 5 DDIM steps and one served
+     request at 5 steps: no kernel of #1-#12 launched, counted from 0 and
+     read apart for each architecture's training and sampling and for its
+     serving and card forwards; losses
+     finite, the weights moved (ADM's frozen null embedding did not), the
+     grids decode to images that are not constant, the milestone reloads
+     and serves uint8 images that are not constant; the milestone's EMA
+     weights in an f32 model on the card against the CPU within 1e-4 (ADM
+     at B 2 at full width, the ViT cut to 2 blocks at B 1); warm train
+     images/s, ms per sampling step, served images/s, each train step's
+     torch.cuda.max_memory_allocated, and the ViT's attention kernels by
+     torch.profiler (the SDPA backend that ran);
+  23. the share of the timed CFG forwards that the 23 blocks take (the
      cuDNN composition with the switch off, #10 + #11 with it on, each
      timed alone in phase 9), #10 + #11 against that composition and per
      level, then one JSON line {"kernels": [...]} with errors, times and
      bounds of all 12 kernels (#1 with its route per shape, #12 with the
      card's own time beside F.leaky_relu's);
-  23. the card's name and power limit, then the last line
+  24. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
-main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21) starts from launch
+main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21, 22) starts from launch
 counts set to 0 and reads them just after; the paths of phases 5, 8, 11,
-12, 18, 19, 20 and 21 launch none of #6-#9 and #12. TF32 is off for the
+12, 18, 19, 20 and 21 launch none of #6-#9 and #12, and phase 22's none of
+#1-#12. TF32 is off for the
 whole run (it only touches the f32 checks and the f32 convolutions). Any failed phase raises and the script
 exits non-zero; a hang becomes a stack dump and a non-zero exit after
 1100 s. It writes nothing outside build/.
@@ -303,6 +328,10 @@ CHECK_SHAPES = sorted(set(FORWARD_SHAPES), reverse=True) + [(16384, 64), (36864,
 CHECK_SHAPES += sorted(set(unet_attn_shapes(128, (1, 2, 4, 4, 8, 8)) +
                            unet_attn_shapes(192, (1, 2, 2, 4, 4, 8, 8))) - set(CHECK_SHAPES),
                        reverse=True)
+# then those of the Cell-200 teacher (64x64, dim 32, mults 1_2_2_4; C 32 to
+# 128) that the three UNets lack
+CELL200_SHAPES = unet_attn_shapes(64, (1, 2, 2, 4), dim=32)
+CHECK_SHAPES += sorted(set(CELL200_SHAPES) - set(CHECK_SHAPES), reverse=True)
 # blocks of the split route's passes: two an SM on the H100's 132 SMs
 ATTN_SPLIT_BLOCKS = 2 * 132
 SERVE_ARGV = ["--image_size", "64", "--model_channels", "64",
@@ -704,9 +733,9 @@ TRAIN_STEPS = 30
 # (N, C) of kernels #2-#5: the two N 4096 blocks of the 64x64 training step
 # first (the main path's shape), then N 2048, the 128x128 UNet's 128^2 and
 # 64^2 up levels (N 16384 C 64, N 4096 C 128) and the 192x192 UNet's 192^2
-# level: every two-pass shape of the three UNets. A shape's index seeds its
-# inputs.
-LARGE_SHAPES = [(4096, 64), (2048, 64), (16384, 64), (4096, 128), (36864, 64)]
+# level: every two-pass shape of the three UNets; then the Cell-200 teacher's
+# top level (N 4096, C 32). A shape's index seeds its inputs.
+LARGE_SHAPES = [(4096, 64), (2048, 64), (16384, 64), (4096, 128), (36864, 64), (4096, 32)]
 # the batch of each shape: TRAIN_BATCH, but B 32 at N 36864, where the plain
 # versions' f32 intermediates ([B, N, 3F] and more) at B 128 would take tens of GB
 LARGE_BATCH = {(36864, 64): 32}
@@ -1094,7 +1123,7 @@ def train_main_path(device, card: str, argv_tail: list, steps: int, expected: di
             counts = _counts()
         log = [json.loads(line) for line in
                open(Path(port_main.results_folder(parse_opts(argv))) / "train_log.jsonl")]
-        print(f"   {steps} steps of batch {TRAIN_BATCH}: losses "
+        print(f"   {steps} steps of batch {parse_opts(argv).train_batch_size}: losses "
               f"{[round(r['loss'], 4) for r in log]}; launches {counts} (expected {expected})",
               flush=True)
         if not all(np.isfinite(r["loss"]) for r in log) or log[-1]["step"] != steps:
@@ -1932,6 +1961,202 @@ def dmd_main_path(device, card: str, eval_run: dict) -> dict:
                 "phase_s": phase_s, "card": card}
     finally:
         shutil.rmtree(EVAL_RUN, ignore_errors=True)
+
+
+# ------------------------------------------- the ADM and ViT denoisers
+
+ADM_STEPS = 20
+VIT_STEPS = 5
+VIT_BATCH = 32
+VIT_SAMPLE_STEPS = 5  # DDIM steps of the ViT's sampling after training (ADM: 10)
+ARCH_SERVE_STEPS = {"adm": 25, "vit": 5}
+# JAX's default ADM widths with attention at ds 4 and 8 (16x16 and 8x8), so
+# that the down and up paths attend and not only mid_attn
+ADM_ARGV = [*TRAIN_ARGV, "--architecture", "adm", "--channel_mult", "1_2_4_8",
+            "--num_res_blocks", "2", "--num_groups", "8", "--num_heads", "4",
+            "--attention_resolutions", "4_8", "--niters", str(ADM_STEPS),
+            "--save_every", str(ADM_STEPS), "--log_every", "1"]
+# the flagship's widths: width 64 x 8 = 512, 8 blocks over 4096 tokens
+VIT_ARGV = [*TRAIN_ARGV, "--architecture", "vit", "--num_heads", "4",
+            "--train_batch_size", str(VIT_BATCH), "--niters", str(VIT_STEPS),
+            "--save_every", str(VIT_STEPS), "--log_every", "1",
+            "--sample_timesteps", str(VIT_SAMPLE_STEPS)]
+ARCH_TOL = 1e-4  # the card's f32 EMA forward against the CPU's: rtol = atol
+ARCH_CPU_ROWS = {"adm": 2, "vit": 1}
+VIT_CPU_BLOCKS = 2  # the ViT cut for the CPU side of the comparison
+
+
+@contextlib.contextmanager
+def step_peaks():
+    """torch.cuda.max_memory_allocated (GiB) of every train step, recorded
+    around Trainer.train_step."""
+    from ccdm_tpu_torch.training.trainer import Trainer
+
+    peaks, step = [], Trainer.train_step
+
+    def recorded(self, *args, **kwargs):
+        torch.cuda.reset_peak_memory_stats()
+        loss = step(self, *args, **kwargs)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        return loss
+
+    Trainer.train_step = recorded
+    try:
+        yield peaks
+    finally:
+        Trainer.train_step = step
+
+
+def arch_model_inputs(rows: int, device, seed: int = 9) -> list:
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, 64, 64, 3, generator=g)
+    t = torch.tensor([10, 700][:rows])
+    emb = torch.rand(rows, 128, generator=g) * 2 - 1
+    keep = torch.tensor([True, False][:rows])
+    return [a.to(device) for a in (x, t, emb, keep)]
+
+
+@torch.no_grad()
+def ema_card_vs_cpu(arch: str, argv: list, steps: int) -> float:
+    """The milestone's EMA weights in an f32 model (no --train_amp) on the
+    card and on the CPU, one eval forward on the same inputs: the max abs
+    difference, within ARCH_TOL. The ViT is cut to its first
+    VIT_CPU_BLOCKS blocks so that the CPU side stays within seconds."""
+    from ccdm_tpu_torch import main as port_main
+    from ccdm_tpu_torch.models.vit import ViT
+    from ccdm_tpu_torch.opts import parse_channel_mult
+    from ccdm_tpu_torch.serve import ema_model_from_milestone
+
+    args = parse_opts([a for a in argv if a != "--train_amp"])
+    model = ema_model_from_milestone(port_main.build_model(args, 64, 3),
+                                     port_main.results_folder(args), steps)
+    if arch == "vit":
+        cut = ViT(dim=args.model_channels, dim_mults=parse_channel_mult(args.channel_mult),
+                  in_channels=3, attn_heads=args.num_heads, num_blocks=VIT_CPU_BLOCKS)
+        kept = {f"block_{i}." for i in range(VIT_CPU_BLOCKS)}
+        cut.load_state_dict({k: v for k, v in model.state_dict().items()
+                             if not k.startswith("block_") or k[:k.index(".") + 1] in kept})
+        model = cut
+    model.eval()
+    rows = ARCH_CPU_ROWS[arch]
+    want = copy.deepcopy(model).cpu()(*arch_model_inputs(rows, "cpu"))
+    card = model.to(args.device, memory_format=torch.channels_last)
+    got = card(*arch_model_inputs(rows, args.device))
+    return check_close(got.cpu(), want, ARCH_TOL, ARCH_TOL,
+                       f"{arch} EMA forward, card against CPU (f32, B {rows})")
+
+
+def vit_attention_kernels(device) -> list:
+    """The names of the card's attention kernels in one f32 forward and
+    backward of the cut ViT (B 1): the SDPA backend that ran, by
+    torch.profiler."""
+    from ccdm_tpu_torch.models.vit import ViT
+
+    model = ViT(dim=64, dim_mults=(1, 2, 2, 4, 8), in_channels=3, attn_heads=4,
+                num_blocks=VIT_CPU_BLOCKS).to(device, memory_format=torch.channels_last)
+    inputs = arch_model_inputs(1, device)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        model(*inputs, train=True).square().mean().backward()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages() if e.self_device_time_total > 0
+                    and ("fmha" in e.key or "attention" in e.key.lower())})
+    if not any("fmha" in n or "efficient" in n.lower() for n in names):
+        raise AssertionError(f"no memory-efficient attention kernel ran: {names}")
+    return names
+
+
+def arch_checks(card: str, arch: str, steps: int, batch: int, peaks: list):
+    """The phase's checks of one denoiser's run: the state took every
+    step, the weights moved (ADM's frozen null embedding did not), the
+    sampling's grids decode to images that are not constant, the
+    milestone serves over HTTP (ADM: a second service with
+    --samp_precast_bf16), the EMA forward on the card against the CPU's;
+    warm train images/s, ms per sampling step, served images/s and each
+    train step's peak memory. The launch counts, read by train_main_path
+    after training, start again at 0 here and are read after the last
+    forward on the card: every one must still be 0."""
+    from ccdm_tpu_torch import main as port_main
+
+    def checks(trainer, argv, log) -> dict:
+        _reset_counts()
+        args = parse_opts(argv)
+        state = trainer.state
+        fresh = port_main.build_model(args, 64, 3).state_dict()
+        named = dict(state.model.named_parameters())
+        moved = max(float((p.detach().cpu() - fresh[k]).abs().max()) for k, p in named.items())
+        if not moved > 0 or state.step != steps or state.ema_step != steps:
+            raise AssertionError(f"{arch}: params moved {moved}, step {state.step}, "
+                                 f"ema_step {state.ema_step}")
+        if arch == "adm":
+            for m in (state.model, state.ema_model):
+                if not torch.equal(m.null_classes_emb.cpu(), fresh["null_classes_emb"]):
+                    raise AssertionError("ADM's frozen null embedding moved")
+        grids = sorted(Path(port_main.fake_data_folder(args, 2)).glob("sample_*.png"))
+        stds = [float(read_png(p).std()) for p in grids]
+        if len(grids) != 2 or not all(v > 0 for v in stds):
+            raise AssertionError(f"{arch}: grids {grids}, pixel std {stds}")
+        warm = [r["imgs_per_sec"] for r in log if r["step"] > max(1, steps // 3)]
+        ips = sum(warm) / len(warm)
+        served = {}
+        for precast in ((False, True) if arch == "adm" else (False,)):
+            sargs = parse_opts([*argv, "--serve_milestone", str(steps), "--sample_timesteps",
+                                str(ARCH_SERVE_STEPS[arch]),
+                                *(["--samp_precast_bf16"] if precast else [])])
+            service = SamplerService(sargs, max_batch=4, warm=False, device=args.device)
+            if type(service.diffusion.model).__name__ != type(state.model).__name__:
+                raise AssertionError(f"the service built {type(service.diffusion.model)}")
+            batches, n_images, req_s = _serve_requests(service, ((4, int(precast)),), 64)
+            served["precast_bf16" if precast else "f32_weights"] = {
+                "images_per_s": n_images / req_s,
+                "ms_per_step": req_s * 1e3 / (batches * ARCH_SERVE_STEPS[arch]),
+                "cfg_rows": 2 * service.max_batch}
+            del service
+        parity = ema_card_vs_cpu(arch, argv, steps)
+        out = {"params_m": sum(p.numel() for p in named.values()) / 1e6, "moved": moved,
+               "grid_std": stds, "train_images_per_s": ips, "step_peak_gib": list(peaks),
+               "served": served, "ema_card_vs_cpu_max_abs_err": parity}
+        if arch == "vit":
+            out["sdpa_kernels"] = vit_attention_kernels(args.device)
+        torch.cuda.synchronize()
+        out["serve_launches"] = _counts()
+        if any(out["serve_launches"].values()):
+            raise AssertionError(f"{arch}: serving and the card's forwards launched a kernel: "
+                                 f"{out['serve_launches']}")
+        print(f"   {arch}: {out['params_m']:.2f} M parameters; warm train {ips:.2f} images/s "
+              f"(batch {batch}); peak memory per step {[round(v, 2) for v in peaks]} GiB; "
+              f"served {json.dumps(served)}; grids {[p.name for p in grids]} (pixel std "
+              f"{[round(v, 2) for v in stds]}); EMA forward card vs CPU max abs err "
+              f"{parity:.3e}{'; SDPA kernels ' + str(out['sdpa_kernels']) if arch == 'vit' else ''}"
+              f" on {card}", flush=True)
+        return out
+
+    return checks
+
+
+def denoisers_main_path(device, card: str) -> dict:
+    """Phase 22: `python -m ccdm_tpu_torch.main --architecture adm`, then
+    `vit`, each trained, sampled, served and held against the CPU
+    (arch_checks). No kernel of #1-#12 launches: each architecture's
+    training and sampling (train_main_path) and its serving and card
+    forwards (arch_checks) are counted from 0 and read apart."""
+    t_phase = time.perf_counter()
+    zero = {name: 0 for name in _counters()}
+    out = {}
+    for arch, argv, steps, batch in (("adm", ADM_ARGV, ADM_STEPS, TRAIN_BATCH),
+                                     ("vit", VIT_ARGV, VIT_STEPS, VIT_BATCH)):
+        t0 = time.perf_counter()
+        with step_peaks() as peaks:
+            out[arch] = train_main_path(device, card, argv, steps, zero, False,
+                                        arch_checks(card, arch, steps, batch, peaks))
+        out[arch]["run_s"] = time.perf_counter() - t0
+        if out[arch]["launches"] != zero or out[arch]["serve_launches"] != zero:
+            raise AssertionError(f"{arch} launched a kernel: {out[arch]['launches']}, "
+                                 f"{out[arch]['serve_launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"   no kernel of #1-#12 launched in the ADM's or the ViT's training, sampling, "
+          f"serving or card forwards; ADM {out['adm']['run_s']:.1f} s, ViT "
+          f"{out['vit']['run_s']:.1f} s, the phase {out['phase_s']:.1f} s on {card}", flush=True)
+    return out
 
 
 # ------------------------------------------- the fused resnet block slice
@@ -2804,12 +3029,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/23 device")
+    phase("1/24 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/23 build")
+    phase("2/24 build")
     libraries = ("attn_block", "attn_block_large", "resnet_block", "linear_attention",
                  "style_ops")
     t0 = time.perf_counter()
@@ -2824,26 +3049,26 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/23 attn_block kernel against its plain version")
+    phase("3/24 attn_block kernel against its plain version")
     rows, rows_by_batch = kernel_vs_plain(device)
 
-    phase("4/23 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/24 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/23 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/24 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/23 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
+    phase("6/24 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
           "bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
     other_dim_head = dim_head_vs_plain(device)
 
-    phase("7/23 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/24 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
     grads_hy = grad_parity(device, use_hy=True)
 
-    phase(f"8/23 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/24 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
     trained = train_main_path(
         device, card, TRAIN_ARGV, TRAIN_STEPS,
@@ -2851,18 +3076,18 @@ def main() -> int:
          **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, train_checks(card))
 
-    phase("9/23 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+    phase("9/24 kernels #10 and #11 (the fused resnet block) against their plain versions, "
           "f32 and bf16")
     resnet_rows = resnet_vs_plain(device)
 
-    phase("10/23 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    phase("10/24 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
     fused_parity = fused_model_parity(device)
 
-    phase(f"11/23 main path with the switch on: SamplerService over HTTP, bf16, batch "
+    phase(f"11/24 main path with the switch on: SamplerService over HTTP, bf16, batch "
           f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
     fused_served = fused_serve_main_path(device, card)
 
-    phase(f"12/23 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+    phase(f"12/24 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
           f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
     fused_trained = train_main_path(
         device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
@@ -2873,24 +3098,24 @@ def main() -> int:
          **{k: 0 for k in NEW_KERNELS}},
         True, fused_train_checks(card))
 
-    phase("13/23 kernels #6 and #9 (standalone linear attention) against their plain versions")
+    phase("13/24 kernels #6 and #9 (standalone linear attention) against their plain versions")
     la_rows = la_vs_plain(device)
 
-    phase("14/23 kernels #7 + #8 (its two-pass form) against their plain versions")
+    phase("14/24 kernels #7 + #8 (its two-pass form) against their plain versions")
     tp_rows = twopass_vs_plain(device)
 
-    phase("15/23 kernel #12 (bias_act) against its plain version")
+    phase("15/24 kernel #12 (bias_act) against its plain version")
     ba_rows = bias_act_vs_plain(device)
 
-    phase("16/23 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
+    phase("16/24 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
           "the two-pass route, linear_attention_per_head, bias_act")
     la_path = la_main_path(device)
 
-    phase("17/23 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
+    phase("17/24 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
           "kernel forward against the plain route")
     la_grads = la_grad_parity(device)
 
-    phase(f"18/23 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
+    phase(f"18/24 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
           f"bf16, {RECIPE_STEPS} steps, then serving from its milestone")
     recipe = train_main_path(
         device, card, RECIPE_ARGV, RECIPE_STEPS,
@@ -2898,7 +3123,7 @@ def main() -> int:
          **{k: 2 * RECIPE_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, recipe_checks(card, trained["train_images_per_s"]))
 
-    phase(f"19/23 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
+    phase(f"19/24 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
           f"{MULTIDIM_DIMS} dims, shv, resnet ILI, cross_attention), batch {TRAIN_BATCH}, bf16, "
           f"{MULTIDIM_STEPS} steps; (a') the same with the sinusoidal y2h, {ANALYTIC_STEPS} "
           f"steps; (b) the elastic aux loss, the trajectory GIF and the interpolation, "
@@ -2928,7 +3153,7 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C, dtype) {multidim['attn_shapes']} in this phase, each "
           f"checked against its plain version in phase 3", flush=True)
 
-    phase(f"20/23 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
+    phase(f"20/24 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
           f"training, batch {TRAIN_BATCH}, bf16, {EVAL_STEPS} steps, {len(EVAL_ANGLES)} labels x "
           f"{EVAL_NFAKE} images at 10 DDIM steps, then --comp_FID with PRDC, NIQE, iFID and "
           f"the analyses")
@@ -2947,7 +3172,7 @@ def main() -> int:
         shutil.rmtree(EVAL_RUN, ignore_errors=True)
         raise
 
-    phase(f"21/23 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
+    phase(f"21/24 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
           f"backbones), SNGAN 64/64/256, batch {TRAIN_BATCH}, 2 D steps, DiffAugment, "
           f"{DMD_STEPS} iterations, {len(EVAL_ANGLES)} labels x {DMD_NFAKE} one-step images, "
           f"--comp_FID ({DMD_CENTERS} windows), --interpolation --sefa; SAGAN "
@@ -2956,7 +3181,13 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C, dtype) {dmd['attn_shapes']} in this phase, each checked "
           f"against its plain version in phase 3", flush=True)
 
-    phase("22/23 kernels")
+    phase(f"22/24 the ADM and ViT denoisers: main.py --architecture adm (64, 1_2_4_8, attention "
+          f"at 4_8), batch {TRAIN_BATCH}, {ADM_STEPS} steps, then --architecture vit (width 512, "
+          f"8 blocks, 4096 tokens), batch {VIT_BATCH}, {VIT_STEPS} steps; each sampled, served "
+          f"over HTTP and held against the CPU")
+    denoisers = denoisers_main_path(device, card)
+
+    phase("23/24 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -3031,12 +3262,13 @@ def main() -> int:
     kernels[4]["aux_gif_interpolation"] = aux_run
     kernels[4]["eval"] = eval_run
     kernels[4]["dmd"] = dmd
+    kernels[4]["adm_vit"] = denoisers
     kernels += resnet_kernel_rows(resnet_rows, fused_served, fused_trained, fused_parity, card,
                                   served["cfg_forward_ms"])
     kernels += slice4_kernel_rows(la_rows, tp_rows, ba_rows, la_path, la_grads, card)
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("23/23 done")
+    phase("24/24 done")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,9 @@ names the model and the port's results folder,
 the milestone N is written as main.py writes it; `python -m
 ccdm_tpu_torch.serve` with the same flags and --serve_milestone N serves its
 EMA weights. The JAX milestone is restored with
-ccdm_tpu.utils.ckpt.load_checkpoint against the train state of the JAX Unet
-of those flags (legacy parameter layouts are migrated there), and converted
+ccdm_tpu.utils.ckpt.load_checkpoint against the train state of the JAX
+denoiser of those flags (--architecture unet, adm or vit, with their
+width flags; legacy parameter layouts are migrated there), and converted
 with ccdm_tpu_torch.utils.convert.train_state_from_jax: online and EMA
 weights, BatchNorm statistics, Adam's moments and count, step and ema_step.
 
@@ -78,20 +79,18 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 def restore_jax_state(jax_results: str, milestone: int, args):
     """The JAX milestone as a namespace of numpy trees (the TrainState's
-    fields), restored against the train state of the JAX Unet of `args`."""
+    fields), restored against the train state of the JAX denoiser of `args`
+    (--architecture unet, adm or vit, built by ccdm_tpu.main.build_model)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
     import optax
 
-    from ccdm_tpu.models import Unet as JaxUnet
-    from ccdm_tpu.opts import parse_channel_mult
+    from ccdm_tpu.main import build_model as jax_build_model
     from ccdm_tpu.training.state import create_train_state
     from ccdm_tpu.utils.ckpt import load_checkpoint
 
-    model = JaxUnet(dim=args.model_channels, dim_mults=parse_channel_mult(args.channel_mult),
-                    in_channels=args.num_channels, attn_heads=args.num_heads,
-                    attn_dim_head=args.attn_dim_head)
+    model = jax_build_model(args, args.image_size, args.num_channels)
     size, ch = args.image_size, args.num_channels
     tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(args.train_lr, b1=0.9, b2=0.99))
     shapes = jax.eval_shape(lambda key: create_train_state(model.init(

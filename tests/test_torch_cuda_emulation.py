@@ -356,6 +356,7 @@ def test_emulated_kernel_matches_plain_version(emulated, b, n, c, dtype):
     ("_short", 4, 200, 64, "split", 1, 0, False),  # four tiles a block: the next one loads
     ("_short", 1, 300, 256, "split", 4, 0, False),  # C 256: the weights streamed, two Wout chunks
     ("_short", 4, 256, 64, "split", 1, 0, True),   # k jumps at tile 2 of 4: a rescale
+    ("_short", 1, 200, 32, "split", 4, 0, False),  # C 32 (the Cell-200 teacher's top level)
     ("", 1, 128, 64, "fused", 1, 0, True),        # ... at tile 1 of 2 in the fused route
 ])
 def test_emulated_attn_bf16_routes_match_plain(request, lib, b, n, c, route, splits, x_offset,
@@ -574,6 +575,7 @@ def test_emulated_two_pass_forward_matches_plain(emulated_large, b, n, c, dtype)
 
 @pytest.mark.parametrize("lib,b,n,c,splits,x_offset,jump", [
     ("", 1, 200, 64, 2, 0, None),       # a ragged last tile of 72 tokens; two splits merged in order
+    ("", 1, 200, 32, 2, 0, None),       # ... at C 32, the Cell-200 teacher's top level
     ("", 2, 80, 128, 1, 0, None),       # C 128: Wkv, Wq and Wout resident, one ragged tile a row
     ("", 1, 300, 96, 3, 0, None),       # C 96, three splits; the last tile's 44 tokens end in warp 2
     ("", 1, 200, 64, 2, 1, None),       # x one element past an aligned base: element loads
@@ -705,6 +707,7 @@ def test_emulated_fused_backward_matches_plain(emulated_large, b, n, c, dtype):
 
 @pytest.mark.parametrize("b,n,c,splits,x_offset", [
     (1, 200, 64, 2, 0),    # a ragged last tile of 72 tokens; two splits merged in order
+    (1, 200, 32, 2, 0),    # ... at C 32, the Cell-200 teacher's top level
     (2, 80, 128, 1, 0),    # C 128: Wqkv 100 KB resident, one ragged tile a row
     (1, 300, 96, 3, 0),    # three splits; the last tile's 44 tokens end inside warp 2
     (1, 200, 64, 2, 1),    # x one element past an aligned base: element loads

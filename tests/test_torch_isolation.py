@@ -59,7 +59,7 @@ def test_port_and_smoke_script_import_no_jax():
                  "training.train_aux", "training.optim", "eval.metrics", "eval.sfid",
                  "eval.niqe", "eval.backbones", "eval.train_backbones", "eval.protocol",
                  "eval.analysis", "dmd_main", "serve_dmd", "models.sngan", "models.sagan",
-                 "training.diffaugment", "training.dmd"):
+                 "training.diffaugment", "training.dmd", "models.unet_adm", "models.vit"):
         assert f"ccdm_tpu_torch.{name}" in report["new"], name
     assert [m for m in report["new"] if _is_jax(m)] == []
 
@@ -71,6 +71,22 @@ def test_no_source_names_jax_or_the_jax_package():
     assert len(files) >= 20
     for path in files:
         assert not pattern.search(path.read_text()), path
+
+
+def test_parser_takes_every_flag_of_the_jax_parser():
+    """Every flag of ccdm_tpu.opts.parse_opts, with the same default; the
+    port adds --device only, and parses JAX's inert flags too."""
+    from ccdm_tpu.opts import INERT_FLAGS as JAX_INERT
+    from ccdm_tpu.opts import parse_opts as jax_parse_opts
+
+    want, got = vars(jax_parse_opts([])), vars(parse_opts([]))
+    assert set(got) - set(want) == {"device"}
+    assert {k: got[k] for k in want} == want
+    assert set(JAX_INERT) <= set(got)
+    flags = ["--num_res_blocks", "3", "--num_groups", "16", "--attention_resolutions", "4_8",
+             "--num_workers", "4", "--tb_log"]
+    assert vars(jax_parse_opts(flags)) == {k: v for k, v in vars(parse_opts(flags)).items()
+                                           if k != "device"}
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -91,15 +107,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 @pytest.mark.parametrize("flags", [["--architecture", "vit"], ["--architecture", "adm"],
                                    ["--label_dim", "2"]])
 def test_options_of_later_slices_raise(flags, tmp_path):
-    """The ADM and ViT denoisers still raise; --label_dim 2 builds the
-    multi-dim embedding and serves 1-D labels through dim 0's."""
+    """All three options are ported (the ADM and ViT denoisers since their
+    slice; they raised before it): each builds the service and generates;
+    --label_dim 2 builds the multi-dim embedding and serves 1-D labels
+    through dim 0's."""
     argv = SMALL_ARGV + ["--root_path", str(tmp_path)] + flags
-    if flags[0] == "--architecture":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.SamplerService(parse_opts(argv), warm=False, device="cpu")
-        return
     service = serve.SamplerService(parse_opts(argv), max_batch=2, warm=False, device="cpu")
-    assert service.fn_y2h(torch.tensor([[0.3, 0.6]])).shape == (1, 128)
+    if flags[0] == "--architecture":
+        assert type(service.diffusion.model).__name__ == {"vit": "ViT", "adm": "ADMUnet"}[flags[1]]
+    else:
+        assert service.fn_y2h(torch.tensor([[0.3, 0.6]])).shape == (1, 128)
     images = service.generate(np.array([0.3, 0.6], np.float32))
     assert images.dtype == np.uint8 and images.shape == (2, 16, 16, 3)
 

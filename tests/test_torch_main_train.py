@@ -87,10 +87,13 @@ def test_missing_milestone_raises(trained):
                                    ["--data_name", "synthetic_power", "--label_dim", "2",
                                     "--train_batch_size", "16"],
                                    ["--interpolation"],
-                                   ["--comp_FID"], ["--dump_fake_for_NIQE"]])
+                                   ["--comp_FID"], ["--dump_fake_for_NIQE"],
+                                   ["--architecture", "adm"], ["--architecture", "vit"],
+                                   ["--tb_log"], ["--comp_FID", "--architecture", "adm"]])
 def test_options_of_later_slices_raise(tmp_path, flags):
-    """All six options are ported (--comp_FID and --dump_fake_for_NIQE since
-    the eval slice; they raised before it) and write their artifacts."""
+    """All nine options are ported, --comp_FID also on an ADM run (--comp_FID and --dump_fake_for_NIQE since
+    the eval slice, the ADM and ViT denoisers and --tb_log since theirs;
+    they raised before) and write their artifacts."""
     argv = ["--root_path", str(tmp_path), *MODEL, *TRAIN, "--niters", "1", *flags]
     if flags[0] == "--comp_FID":
         argv += ["--eval_ckpt_path", str(tmp_path), "--epochs_eval_ae", "1",
@@ -98,6 +101,20 @@ def test_options_of_later_slices_raise(tmp_path, flags):
     trainer = port_main.main(argv)
     results = port_main.results_folder(parse_opts(argv))
     assert trainer.state.step == 1 and checkpoint_exists(results, 1)
+    if flags[0] == "--architecture":
+        model = trainer.state.model
+        assert type(model).__name__ == {"adm": "ADMUnet", "vit": "ViT"}[flags[1]]
+        fresh = port_main.build_model(parse_opts(argv), 16, 3)
+        if flags[1] == "adm":  # frozen: Adam and the EMA leave it where it was
+            for m in (model, trainer.state.ema_model):
+                torch.testing.assert_close(m.null_classes_emb, fresh.null_classes_emb,
+                                           rtol=0, atol=0)
+        assert not torch.equal(model.init_conv.weight, fresh.init_conv.weight)
+        return
+    if flags[0] == "--tb_log":
+        events = os.listdir(os.path.join(results, "tb"))
+        assert any(name.startswith("events.out.tfevents") for name in events), events
+        return
     written = {"--gif_trajectory": "trajectory_niters1.gif",
                "--interpolation": "interpolation_niters1.png",
                "--lambda_aux": os.path.join("..", "aux_models", "model-aux_VGG11_e1_seed111",

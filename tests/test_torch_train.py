@@ -44,6 +44,7 @@ from ccdm_tpu.training import state as jstate
 from ccdm_tpu.training.vicinity import _gumbel
 from ccdm_tpu_torch.diffusion.gaussian import DiffusionConfig, GaussianDiffusion
 from ccdm_tpu_torch.embedding.analytic import make_fn_y2h
+from ccdm_tpu_torch.models.layers import flax_batch_norm
 from ccdm_tpu_torch.models.unet import Unet
 from ccdm_tpu_torch.training import state as tstate
 from ccdm_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -156,7 +157,7 @@ def test_train_mode_batch_norm_matches_flax():
     with torch.no_grad():
         tbn.weight.copy_(_t(scale)), tbn.bias.copy_(_t(bias))
         tbn.running_mean.copy_(_t(mean0)), tbn.running_var.copy_(_t(var0))
-    got = Unet._batch_norm(tbn, _t(x), train=True)
+    got = flax_batch_norm(tbn, _t(x), train=True)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(tbn.running_mean.numpy(), np.asarray(upd["batch_stats"]["mean"]),
                                rtol=1e-6, atol=1e-6)
