@@ -141,15 +141,16 @@ def dmd_results_folder(args) -> str:
     return os.path.join(setting_folder(args), "dmd_results")
 
 
-def build_gan(args, channels: int, image_size: int):
-    """(netG, netD) of --gan_arch at --gene_ch, --disc_ch, --dim_z, weights
-    drawn from --seed."""
+def build_gan(args, channels: int, image_size: int, dim_z: int | None = None):
+    """(netG, netD) of --gan_arch at --gene_ch, --disc_ch, --dim_embed and
+    `dim_z` (default --dim_z; ccgan_main's is --dim_gan), weights drawn
+    from --seed."""
     from ccdm_tpu_torch.models import sagan, sngan
 
     G, D = ((sngan.SNGANGenerator, sngan.SNGANDiscriminator) if args.gan_arch == "sngan"
             else (sagan.SAGANGenerator, sagan.SAGANDiscriminator))
-    netG = G(dim_z=args.dim_z, dim_embed=args.dim_embed, nc=channels, img_size=image_size,
-             gene_ch=args.gene_ch, seed=args.seed)
+    netG = G(dim_z=dim_z or args.dim_z, dim_embed=args.dim_embed, nc=channels,
+             img_size=image_size, gene_ch=args.gene_ch, seed=args.seed)
     netD = D(dim_embed=args.dim_embed, nc=channels, img_size=image_size,
              disc_ch=args.disc_ch, seed=args.seed)
     return netG, netD

@@ -39,7 +39,12 @@ models/sagan.py, whose batch_stats also hold each spectral norm's u and
 sigma under flax's names (<module>/SpectralNorm_<k>/<layer>/kernel/u);
 `dmd_state_from_jax` carries a whole JAX DMD2Trainer.state (netG, netD and
 the fake UNet with their statistics, both optimizers' Adam moments and
-counts, step) into the port's DMD checkpoint tree (training/dmd.py).
+counts, step) into the port's DMD checkpoint tree (training/dmd.py);
+`ccgan_state_from_jax` and `classgan_state_from_jax` do it for a JAX
+CcGANTrainer.state and ClassGANTrainer.state (G, D, the ClassGAN's D2D-CE
+or ADC head by state_dict_from_jax, statistics, both Adam states), and `save_class_table_from_jax`
+writes JAX's class table of the class-conditional diffusion baselines
+where the port reads it.
 """
 
 from __future__ import annotations
@@ -311,15 +316,80 @@ def dmd_state_from_jax(state: Mapping[str, Any], netG: nn.Module, netD: nn.Modul
          "batch_stats": state["fake_unet_stats"]}, fake_unet))
     if set(state["gui_params"]) != {"netD", "fake_unet"}:
         raise KeyError(f"gui_params holds {sorted(state['gui_params'])}")
-    opts = {}
-    for name, trees, models in (("gen_opt", [lambda t: t], [netG]),
-                                ("gui_opt", [lambda t: t["netD"], lambda t: t["fake_unet"]],
-                                 [netD, fake_unet])):
-        adam = _adam_state(state[name])
-        if adam is None:
-            raise ValueError(f"the JAX {name} holds no Adam state (count, mu, nu)")
-        mu, nu = _moments(adam, trees, models)
-        opts[name] = {"mu": mu, "nu": nu, "count": int(np.asarray(adam.count))}
     return {"step": int(np.asarray(state["step"])), "gen_params": gen[0], "gen_stats": gen[1],
             "gui_params": {"netD": disc[0], "fake_unet": fake[0]}, "netD_stats": disc[1],
-            "fake_unet_stats": fake[1], **opts}
+            "fake_unet_stats": fake[1],
+            "gen_opt": _adam_tree(state["gen_opt"], "gen_opt", [lambda t: t], [netG]),
+            "gui_opt": _adam_tree(state["gui_opt"], "gui_opt",
+                                  [lambda t: t["netD"], lambda t: t["fake_unet"]],
+                                  [netD, fake_unet])}
+
+
+def _adam_tree(opt_state: Any, name: str, trees: list, models: list) -> dict:
+    """{"mu", "nu", "count"} of the Adam state inside a JAX optimizer
+    state, the moments over the parameters of `models` in order."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError(f"the JAX {name} holds no Adam state (count, mu, nu)")
+    mu, nu = _moments(adam, trees, models)
+    return {"mu": mu, "nu": nu, "count": int(np.asarray(adam.count))}
+
+
+def _gan_pair_tree(state: Mapping[str, Any], netG: nn.Module, netD: nn.Module,
+                   d_params: Mapping[str, Any]) -> dict:
+    """G's and D's params and statistics of a JAX CcGAN or ClassGAN state
+    ({"g_params", "g_stats", "d_stats", ...}; D's params given apart)."""
+    gen = _module_tensors(netG, gan_state_dict_from_jax(
+        {"params": state["g_params"], "batch_stats": state["g_stats"]}, netG))
+    disc = _module_tensors(netD, gan_state_dict_from_jax(
+        {"params": d_params, "batch_stats": state["d_stats"]}, netD))
+    return {"step": int(np.asarray(state["step"])), "g_params": gen[0], "g_stats": gen[1],
+            "d_params": disc[0], "d_stats": disc[1]}
+
+
+def ccgan_state_from_jax(state: Mapping[str, Any], netG: nn.Module, netD: nn.Module) -> dict:
+    """The port's CcGAN checkpoint tree (training/ccgan.checkpoint_tree) of a
+    JAX CcGANTrainer.state (numpy leaves): step, G's and D's params and
+    statistics (BatchNorm, spectral norm), both Adam states."""
+    tree = _gan_pair_tree(state, netG, netD, state["d_params"])
+    tree["g_opt"] = _adam_tree(state["g_opt"], "g_opt", [lambda t: t], [netG])
+    tree["d_opt"] = _adam_tree(state["d_opt"], "d_opt", [lambda t: t], [netD])
+    return tree
+
+
+def classgan_state_from_jax(state: Mapping[str, Any], netG: nn.Module, netD: nn.Module,
+                            head=None) -> dict:
+    """The port's ClassGAN checkpoint tree (training/classgan.checkpoint_tree)
+    of a JAX ClassGANTrainer.state: as ccgan_state_from_jax, D's params
+    {"d", "head"} (the head None for --cond_loss none, whose JAX head is
+    empty; D2DCEHead's embed and proxies, ADCHead's adc, by name) and one
+    Adam state over both."""
+    d_all = state["d_params"]
+    if set(d_all) != {"d", "head"} or bool(d_all["head"]) != (head is not None):
+        raise KeyError(f"d_params holds {sorted(d_all)}, head {bool(d_all.get('head'))}")
+    tree = _gan_pair_tree(state, netG, netD, d_all["d"])
+    head_params = []
+    trees, models = [lambda t: t["d"]], [netD]
+    if head is not None:
+        sd = state_dict_from_jax({"params": d_all["head"]}, head)
+        head_params = [sd[name] for name, _ in head.named_parameters()]
+        trees.append(lambda t: t["head"])
+        models.append(head)
+    tree["d_params"] = {"d": tree["d_params"], "head": head_params}
+    tree["g_opt"] = _adam_tree(state["g_opt"], "g_opt", [lambda t: t], [netG])
+    tree["d_opt"] = _adam_tree(state["d_opt"], "d_opt", trees, models)
+    return tree
+
+
+def save_class_table_from_jax(table, folder: str, num_classes: int, seed: int,
+                              dim: int = 128) -> str:
+    """Write JAX's class table (diffusion/guided.make_fn_class_embed's
+    N(0, 1) draw of PRNGKey(seed)) where the port's class_table reads it."""
+    from ccdm_tpu_torch.diffusion.guided import class_table_path, save_class_table
+
+    table = torch.from_numpy(np.array(table, np.float32))
+    if tuple(table.shape) != (num_classes, dim):
+        raise ValueError(f"the table is {tuple(table.shape)}, not {(num_classes, dim)}")
+    path = class_table_path(folder, num_classes, dim, seed)
+    save_class_table(path, table)
+    return path

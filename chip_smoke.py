@@ -24,7 +24,8 @@ Phases, each announced on a flushed line before it starts:
      at the other batches the main paths give #1 (128, 72, 8, 1, 4), the
      same checks (the f32 one at C <= 256) and route assertion, untimed;
      then f32 at B 128 at the 64x64 UNet's levels (phase 21's f32 UNets),
-     the f32 bounds above;
+     and at B 80 and B 40 at the Cell-200 teacher's (phase 23's CFG rows
+     and guided batch), the f32 bounds above;
   4. the full-width UNet in f32 (TF32 off) with the kernel and with the
      plain attention: one forward (max abs diff <= 1e-3) and a 5-step CFG
      DDIM run from the same noise ([0,1] images, max abs diff <= 1e-3);
@@ -38,7 +39,9 @@ Phases, each announced on a flushed line before it starts:
   6. kernels #2-#5 (two-pass forward, fused backward) against their plain
      versions at every two-pass shape of the three UNets and the Cell-200
      teacher's top level, B 128: (N, C) (4096, 64), (2048, 64), (16384, 64),
-     (4096, 128), (36864, 64) at B 32, and (4096, 32), in bf16 and in f32: forward bounds as phase 3 (a and s relative
+     (4096, 128), (36864, 64) at B 32, and (4096, 32), in bf16 and in f32,
+     and (4096, 32) in f32 at B 64 (phase 23's class UNet training):
+     forward bounds as phase 3 (a and s relative
      to their largest value), kmax within 1e-5 of its largest value (in
      bf16 against the plain version at the tensor route's rounding points,
      ctx_large_tensor_reference, and against ctx_large_reference by
@@ -239,19 +242,46 @@ Phases, each announced on a flushed line before it starts:
      images/s, ms per sampling step, served images/s, each train step's
      torch.cuda.max_memory_allocated, and the ViT's attention kernels by
      torch.profiler (the SDPA backend that ran);
-  23. the share of the timed CFG forwards that the 23 blocks take (the
+  23. the baselines (baselines_main_path): (a) `python -m
+     ccdm_tpu_torch.ccgan_main` on phase 8's data at JAX's default SNGAN
+     widths (64/64/256), batch 64, 2 D steps, hinge, the hard vicinity,
+     DiffAugment, Dual-NDA a 0.8, b 0.1, c 0.1 from iteration 10, the resnet
+     ILI y2h at phase 18's cut epochs, 10 iterations, then 10 more from its
+     milestone (--resume_niter 10), grids and milestones at 10 and 20, each
+     call sampling 2 eval labels x 4 images (the h5 writes recorded: the
+     card's machine has no h5py); (a') SAGAN, the soft vicinity, the
+     vanilla loss, 2 iterations; (b) `classgan_main --method studiogan`
+     (64/64, dim_z 128, batch 64) with the D2D-CE head, 20 iterations, and
+     the ADC head, 2; (c) `--method cfg` and (d) `--method admg`: the class
+     UNet at classgan_main's widths (32, 1_2_2_4; f32, as JAX builds it),
+     batch 64, 20 steps, then 10 classes x 4 fakes at 250 steps (CFG DDIM
+     at 1.5 on 80 rows; ADM-G's noisy classifier trained 1 epoch, then
+     classifier-guided ancestral steps on 40): launches, counted from 0 for
+     each run, exactly none of #1-#12 in (a), (a') and (b), and in (c) and
+     (d) 6 of #1 and 2 each of #2-#5 per step plus 8 of #1 per sampling
+     forward, each (B, N, C, dtype) of #1 among phase 3's and of #2-#5
+     among phase 6's; losses finite, the nets moved, the fakes uint8 and not
+     constant, the grids decode; SNGAN's D (a) on the card within 1e-5 of
+     the CPU's, the class UNet's EMA forward (c) within 1e-4, the guided
+     sampler's classifier gradient (d) within 1e-4 of its largest |g| in
+     f64 copies with the CPU's timestep embedding on both sides, in f32 each
+     with its own within 5e-2 (L2; the ReLU net's input gradient jumps where
+     rounding moves a unit across 0: classifier_grad_card_vs_cpu); ms a
+     GAN iteration (events), warm train images/s, ms a CFG and a guided
+     step, the noisy classifier's seconds an epoch;
+  24. the share of the timed CFG forwards that the 23 blocks take (the
      cuDNN composition with the switch off, #10 + #11 with it on, each
      timed alone in phase 9), #10 + #11 against that composition and per
      level, then one JSON line {"kernels": [...]} with errors, times and
      bounds of all 12 kernels (#1 with its route per shape, #12 with the
      card's own time beside F.leaky_relu's);
-  24. the card's name and power limit, then the last line
+  25. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
-main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21, 22) starts from launch
-counts set to 0 and reads them just after; the paths of phases 5, 8, 11,
-12, 18, 19, 20 and 21 launch none of #6-#9 and #12, and phase 22's none of
-#1-#12. TF32 is off for the
+main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21, 22, 23) starts from
+launch counts set to 0 and reads them just after; the paths of phases 5,
+8, 11, 12, 18, 19, 20, 21 and 23 launch none of #6-#9 and #12, phase 22's
+and phase 23's GANs none of #1-#12. TF32 is off for the
 whole run (it only touches the f32 checks and the f32 convolutions). Any failed phase raises and the script
 exits non-zero; a hang becomes a stack dump and a non-zero exit after
 1100 s. It writes nothing outside build/.
@@ -540,6 +570,23 @@ def kernel_vs_plain(device) -> tuple[dict, dict]:
     by_batch[f"B{TRAIN_BATCH}_f32"] = errs
     print(f"   B={TRAIN_BATCH} f32: {len(errs)} shapes within rtol 2e-3, atol 2e-4, max abs "
           f"err {max(e for e, _ in errs.values()):.3e}; {json.dumps(errs)}", flush=True)
+    # f32 at the class-conditional baselines' sampling batches (phase 23's
+    # f32 class UNet at the Cell-200 teacher's shapes): CFG's 2B rows and
+    # ADM-G's guided batch
+    for batch in BASE_F32_BATCHES:
+        errs = {}
+        for i, (n, c) in enumerate(sorted(set(CELL200_SHAPES), reverse=True)):
+            x, w = block_inputs(n, c, batch, device, seed=300 + i, x_std=2.0)
+            errs[f"N{n}_C{c}"] = (check_close(
+                attn_block.fused_attn_block(x, *w, HEADS, DIM_HEAD),
+                attn_block.attn_block_reference(x, *w, HEADS, DIM_HEAD), 2e-3, 2e-4,
+                f"f32 B={batch} N={n} C={c}"), None)
+            del x, w
+            torch.cuda.empty_cache()
+        by_batch[f"B{batch}_f32"] = errs
+        print(f"   B={batch} f32 (the Cell-200 teacher's shapes): {len(errs)} shapes within "
+              f"rtol 2e-3, atol 2e-4, max abs err {max(e for e, _ in errs.values()):.3e}; "
+              f"{json.dumps(errs)}", flush=True)
     return rows, by_batch
 
 
@@ -739,6 +786,10 @@ LARGE_SHAPES = [(4096, 64), (2048, 64), (16384, 64), (4096, 128), (36864, 64), (
 # the batch of each shape: TRAIN_BATCH, but B 32 at N 36864, where the plain
 # versions' f32 intermediates ([B, N, 3F] and more) at B 128 would take tens of GB
 LARGE_BATCH = {(36864, 64): 32}
+# each shape at its batch in bf16 and f32, then the extra cases: the
+# Cell-200 teacher's top level in f32 at B 64, phase 23's class UNet training
+LARGE_CASES = ([(n, c, LARGE_BATCH.get((n, c), TRAIN_BATCH), (torch.bfloat16, torch.float32))
+                for n, c in LARGE_SHAPES] + [(4096, 32, 64, (torch.float32,))])
 LARGE = ("attn_ctx_large", "attn_out_large", "attn_bwd_a", "attn_bwd_b")
 LARGE_OUTPUTS = {"attn_ctx_large": ("kmax", "a", "s"), "attn_out_large": ("y",),
                  "attn_bwd_a": ("do", "d_ctx", "d_wout", "d_bout", "d_gout"),
@@ -828,8 +879,9 @@ def _check_grad(got, want, dtype, what) -> float:
 
 
 def large_vs_plain(device) -> dict:
-    """Kernels #2-#5 against their plain versions at LARGE_SHAPES, bf16 and
-    f32 (TF32 off), timed in bf16 (event and host time, TFLOP/s and share of
+    """Kernels #2-#5 against their plain versions at LARGE_CASES (each of
+    LARGE_SHAPES in bf16 and f32, TF32 off, then the extra f32 batches),
+    timed in bf16 (event and host time, TFLOP/s and share of
     the bound; each kernel's route, asserted the tensor cores, tile and
     splits from its plan); #2's bf16 kmax against the plain version at the
     route's rounding points and against ctx_large_reference (kmax_check);
@@ -837,15 +889,16 @@ def large_vs_plain(device) -> dict:
     against autograd through attn_block_reference; #5 in bf16 nearer its
     plain version than one with d_a rounded to bf16 (check_rounding)."""
     rows = {}
-    for i, (n, c) in enumerate(LARGE_SHAPES):
-        batch = LARGE_BATCH.get((n, c), TRAIN_BATCH)
-        for dt in (torch.bfloat16, torch.float32):
+    for i, (n, c, batch, dtypes) in enumerate(LARGE_CASES):
+        for dt in dtypes:
             x, w = block_inputs(n, c, batch, device, seed=20 + i, x_std=1.0)
             g = torch.Generator().manual_seed(40 + i)
             x = x.to(dt)
             dy = torch.randn(batch, n, c, generator=g).to(device).to(dt)
             g_pre, wqkv, wout, bout, g_out = w
             tag = f"N={n} C={c} {str(dt)[6:]}"
+            if i >= len(LARGE_SHAPES):  # an extra case: its batch in the tag
+                tag += f" B={batch}"
             err = {}
             a, s, kmax = attn_block.attn_ctx_large(x, g_pre, wqkv, HEADS)
             ra, rs, rkmax = attn_block.ctx_large_reference(x, g_pre, wqkv, HEADS)
@@ -1324,10 +1377,12 @@ def attn_shapes():
 def checked_in_phase_3(shapes: set) -> list:
     """The (B, N, C, dtype) launched, each asserted to be among those phase
     3 held #1 to its plain version at: bf16 at ATTN_BATCHES x CHECK_SHAPES,
-    f32 at B BATCH x CHECK_SHAPES and B TRAIN_BATCH x FORWARD_SHAPES."""
+    f32 at B BATCH x CHECK_SHAPES, B TRAIN_BATCH x FORWARD_SHAPES and
+    BASE_F32_BATCHES x CELL200_SHAPES."""
     checked = ({(b, n, c, "bfloat16") for b in ATTN_BATCHES for n, c in CHECK_SHAPES}
                | {(BATCH, n, c, "float32") for n, c in CHECK_SHAPES}
-               | {(TRAIN_BATCH, n, c, "float32") for n, c in FORWARD_SHAPES})
+               | {(TRAIN_BATCH, n, c, "float32") for n, c in FORWARD_SHAPES}
+               | {(b, n, c, "float32") for b in BASE_F32_BATCHES for n, c in CELL200_SHAPES})
     if not shapes <= checked:
         raise AssertionError(f"#1 launched at (B, N, C, dtype) {sorted(shapes - checked)}, "
                              f"which phase 3 did not check against its plain version")
@@ -1837,21 +1892,25 @@ def dmd_run(device, arch: str, steps: int) -> tuple:
 
 
 @torch.no_grad()
-def gan_on_card_vs_cpu(trainer, seed: int = 7) -> dict:
-    """SNGAN's G and D (eval mode, which stores nothing) on the card in full
-    f32 against copies on the CPU, on the same z, labels and images, each at
-    DMD_TOL; beside each, the CPU's own f32 forward against its f64 one."""
+def gan_on_card_vs_cpu(netG, netD, z_dim: int, fn_y2h, device, seed: int = 7,
+                       nets=("G", "D")) -> dict:
+    """SNGAN's G and D (eval mode, which stores nothing; `nets` names which)
+    on the card in full f32 against copies on the CPU, on the same z,
+    labels and images, each at DMD_TOL; beside each, the CPU's own f32
+    forward against its f64 one."""
     from ccdm_tpu_torch.utils.device import full_f32
 
     g = torch.Generator().manual_seed(seed)
-    z = torch.randn(8, trainer.cfg.z_dim, generator=g)
-    y = trainer.fn_y2h(torch.linspace(0.05, 0.95, 8, device=trainer.device)[:, None]).cpu()
+    z = torch.randn(8, z_dim, generator=g)
+    y = fn_y2h(torch.linspace(0.05, 0.95, 8, device=device)[:, None]).cpu()
     x = torch.rand(8, 3, 64, 64, generator=g) * 2 - 1
     out = {}
-    for name, net, args in (("G", trainer.netG, (z, y)), ("D", trainer.netD, (x, y))):
+    for name, net, args in (("G", netG, (z, y)), ("D", netD, (x, y))):
+        if name not in nets:
+            continue
         cpu = copy.deepcopy(net).cpu()
         with full_f32():
-            got = net(*(a.to(trainer.device) for a in args), train=False).cpu()
+            got = net(*(a.to(device) for a in args), train=False).cpu()
         want = cpu(*args, train=False)
         tol = DMD_TOL[name]
         out[name] = check_close(got, want, tol, tol, f"SNGAN {name} on the card against the CPU")
@@ -1910,7 +1969,8 @@ def dmd_main_path(device, card: str, eval_run: dict) -> dict:
         print(f"   student metrics under {result['fingerprint']} (phase 20's), "
               f"{DMD_CENTERS} windows: " + ", ".join(f"{k} {v:.4f}" for k, v in flat.items())
               + f"; the protocol {evals['protocol_s']:.2f} s on {card}", flush=True)
-        parity = gan_on_card_vs_cpu(trainer)
+        parity = gan_on_card_vs_cpu(trainer.netG, trainer.netD, trainer.cfg.z_dim,
+                                    trainer.fn_y2h, trainer.device)
         print(f"   SNGAN on the card against the CPU (full f32, eval mode): max abs err G "
               f"{parity['G']:.3e}, D {parity['D']:.3e} (rtol = atol = {DMD_TOL['G']} and "
               f"{DMD_TOL['D']}; the largest share of an element's bound G "
@@ -2156,6 +2216,436 @@ def denoisers_main_path(device, card: str) -> dict:
     print(f"   no kernel of #1-#12 launched in the ADM's or the ViT's training, sampling, "
           f"serving or card forwards; ADM {out['adm']['run_s']:.1f} s, ViT "
           f"{out['vit']['run_s']:.1f} s, the phase {out['phase_s']:.1f} s on {card}", flush=True)
+    return out
+
+
+# ------------------------------------------- the class-conditional and CcGAN baselines
+
+BASE_GAN_STEPS = 20     # CcGAN (in two calls of 10, the second resuming) and StudioGAN D2D-CE
+BASE_SHORT_STEPS = 2    # SAGAN soft-vicinity CcGAN and StudioGAN ADC
+BASE_DIFF_STEPS = 20    # the class UNet's training steps (cfg, admg)
+BASE_CLASSES, BASE_PER_CLASS = 10, 4
+BASE_FAKES = BASE_CLASSES * BASE_PER_CLASS
+BASE_SAMPLE_STEPS = 250  # classgan_main's default --sample_timesteps
+BASE_TIMED_STEPS = 5     # sampling steps of the timed CFG and guided calls
+# classgan_main's default --samp_batch_size 50 over the 40 fakes: one CFG
+# chunk of 40 (2B = 80 rows a forward) and one guided batch of 40; the class
+# UNet is f32 (JAX's classgan_main builds it at the Unet's default dtype)
+CFG_ROWS = 2 * min(50, BASE_FAKES)
+ADMG_BATCH = min(50, BASE_FAKES)
+BASE_F32_BATCHES = (CFG_ROWS, ADMG_BATCH)
+BASE_TRAIN_BATCH = 64
+# launches per training step of the class UNet (64x64, dim 32, 1_2_2_4): #1
+# at the blocks off the two-pass route, #2-#5 at the two N-4096 blocks;
+# every sampling forward runs #1 at all eight
+BASE_TWO_PASS = sum(attn_block.takes_two_pass(n, F) for n, _ in CELL200_SHAPES)
+BASE_PER_STEP = {"attn_block": len(CELL200_SHAPES) - BASE_TWO_PASS,
+                 **{k: BASE_TWO_PASS for k in LARGE}}
+BASE_PER_FORWARD = len(CELL200_SHAPES)
+assert BASE_PER_STEP["attn_block"] == 6 and BASE_TWO_PASS == 2 and BASE_PER_FORWARD == 8
+GRAD_TOL = 1e-4  # the classifier gradient, card against CPU: of its largest |g|
+# the f32 gradient, card against CPU, each with its own timestep embedding:
+# a sanity bound on the L2 distance (scripts/classifier_grad_conditioning.py
+# reads ~8e-3 on the CPU alone between an f32 and an f64 embedding)
+GRAD_L2_SANITY = 5e-2
+BASE_COMMON = ["--data_name", "synthetic", "--image_size", "64", "--num_channels", "3",
+               "--seed", "0"]
+# (a) CcGAN at JAX's default SNGAN widths with Dual-NDA from iteration 10,
+# the resnet ILI y2h at phase 18's cut epochs; 2 eval labels x 4 images
+CCGAN_ARGV = [*BASE_COMMON, "--gan_arch", "sngan", "--gene_ch", "64", "--disc_ch", "64",
+              "--dim_gan", "256", "--batch_size_disc", "64", "--batch_size_gene", "64",
+              "--num_D_steps", "2", "--loss_type", "hinge", "--threshold_type", "hard",
+              "--gan_DiffAugment", "--nda_a", "0.8", "--nda_b", "0.1", "--nda_c", "0.1",
+              "--nda_start_iter", str(BASE_GAN_STEPS // 2), "--y2h_embed_type", "resnet",
+              "--epoch_cnn_embed", "2", "--epoch_net_y2h", "20",
+              "--visualize_freq", str(BASE_GAN_STEPS // 2),
+              "--save_niters_freq", str(BASE_GAN_STEPS // 2),
+              "--log_every", "1", "--eval_mode", "4", "--FID_num_centers", "2",
+              "--nfake_per_label", "4", "--samp_batch_size", "4", "--dump_fake_data"]
+# (a') SAGAN, the soft vicinity, the vanilla loss
+SAGAN_ARGV = [*CCGAN_ARGV, "--gan_arch", "sagan", "--threshold_type", "soft", "--loss_type",
+              "vanilla", "--nda_b", "0", "--nda_c", "0", "--niters", str(BASE_SHORT_STEPS)]
+CLASSGAN_ARGV = [*BASE_COMMON, "--num_classes", str(BASE_CLASSES), "--nfake_per_class",
+                 str(BASE_PER_CLASS), "--log_every", "1", "--dump_fake_data"]
+# (b) StudioGAN at classgan_main's default widths and batch
+STUDIOGAN_ARGV = [*CLASSGAN_ARGV, "--method", "studiogan", "--cond_loss", "d2dce", "--niters",
+                  str(BASE_GAN_STEPS), "--visualize_freq", str(BASE_GAN_STEPS // 2),
+                  "--save_niters_freq", str(BASE_GAN_STEPS // 2)]
+ADC_ARGV = [*CLASSGAN_ARGV, "--method", "studiogan", "--cond_loss", "adc", "--niters",
+            str(BASE_SHORT_STEPS), "--setting_name", "Setup_ADC"]
+# (c), (d) the class UNet at classgan_main's default widths (32, 1_2_2_4),
+# batch 64, T 1000, then 250 sampling steps
+CFG_ARGV = [*CLASSGAN_ARGV, "--method", "cfg", "--niters", str(BASE_DIFF_STEPS)]
+ADMG_ARGV = [*CLASSGAN_ARGV, "--method", "admg", "--niters", str(BASE_DIFF_STEPS),
+             "--classifier_epochs", "1"]
+BASE_RUN = Path(__file__).resolve().parent / "build" / "smoke_baselines"
+
+
+@contextlib.contextmanager
+def large_shapes():
+    """The (B, N, C, dtype) of every launch of #2-#5, recorded."""
+    shapes, inputs = set(), attn_block._large_inputs
+
+    def spy(x2d, *args, **kwargs):
+        shapes.add((*x2d.shape, str(x2d.dtype).removeprefix("torch.")))
+        return inputs(x2d, *args, **kwargs)
+
+    attn_block._large_inputs = spy
+    try:
+        yield shapes
+    finally:
+        attn_block._large_inputs = inputs
+
+
+def checked_in_phase_6(shapes: set) -> list:
+    """The (B, N, C, dtype) at which #2-#5 launched, each asserted to be
+    among those phase 6 held them to their plain versions at (LARGE_CASES)."""
+    checked = {(batch, n, c, str(dt).removeprefix("torch."))
+               for n, c, batch, dtypes in LARGE_CASES for dt in dtypes}
+    if not shapes <= checked:
+        raise AssertionError(f"#2-#5 launched at (B, N, C, dtype) {sorted(shapes - checked)}, "
+                             f"which phase 6 did not check against their plain versions")
+    return sorted(shapes)
+
+
+@contextlib.contextmanager
+def baseline_records():
+    """The entries' h5 writes replaced by records (the card's machine has
+    no h5py), the GAN trainers' steps wrapped to record their losses."""
+    from ccdm_tpu_torch import classgan_main, dmd_main
+    from ccdm_tpu_torch.training.ccgan import CcGANTrainer
+    from ccdm_tpu_torch.training.classgan import ClassGANTrainer
+
+    record = {"dumps": [], "losses": []}
+    saved = [(dmd_main, "write_dump"), (classgan_main, "write_fake_h5"),
+             *[(cls, name) for cls in (CcGANTrainer, ClassGANTrainer)
+               for name in ("d_step", "g_step")]]
+    originals = [getattr(owner, name) for owner, name in saved]
+
+    def stepped(step):
+        def spy(self, *args, **kwargs):
+            loss = step(self, *args, **kwargs)
+            record["losses"].append(float(loss))
+            return loss
+        return spy
+
+    dmd_main.write_dump = lambda path, images, labels: record["dumps"].append(
+        (Path(path).name, images, labels))
+    classgan_main.write_fake_h5 = lambda path, images, labels: record["dumps"].append(
+        (Path(path).name, images, labels))
+    for (owner, name), original in zip(saved[2:], originals[2:]):
+        setattr(owner, name, stepped(original))
+    try:
+        yield record
+    finally:
+        for (owner, name), original in zip(saved, originals):
+            setattr(owner, name, original)
+
+
+def baseline_run(entry, argv: list, expected: dict, what: str) -> tuple:
+    """One entry point in process from launch counts of 0: (its return,
+    the counts, the record of dumps and losses, seconds); the counts must
+    be `expected` (every kernel not named there 0), every loss finite, the
+    dumps uint8 and not constant."""
+    want = {name: expected.get(name, 0) for name in _counters()}
+    with baseline_records() as record:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _reset_counts()
+        out = entry.main(["--root_path", str(BASE_RUN), *argv])
+        torch.cuda.synchronize()
+        counts = _counts()
+        seconds = time.perf_counter() - t0
+    images = [d[1] for d in record["dumps"]]
+    print(f"   {what}: {seconds:.1f} s; {len(record['losses'])} GAN step losses "
+          f"{[round(v, 4) for v in record['losses'][:4]]}...; dumps "
+          f"{[(d[0], d[1].shape) for d in record['dumps']]}; launches {counts}", flush=True)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    if not np.isfinite(record["losses"]).all() or not images or any(
+            im.dtype != np.uint8 or im.std() == 0 for im in images):
+        raise AssertionError(f"{what}: losses {record['losses']}, dumps "
+                             f"{[(d[0], d[1].dtype, float(d[1].std())) for d in record['dumps']]}")
+    return out, counts, record, seconds
+
+
+def _grids(folder: Path, names: list) -> list:
+    stds = [float(read_png(folder / name).std()) for name in names]
+    if not all(v > 0 for v in stds):
+        raise AssertionError(f"grids {names} in {folder}: pixel std {stds}")
+    return stds
+
+
+def _train_log(folder: Path, steps: int) -> list:
+    log = [json.loads(line) for line in open(folder / "train_log.jsonl")]
+    if log[-1]["step"] != steps or not all(np.isfinite(
+            [v for r in log for k, v in r.items() if k != "step"])):
+        raise AssertionError(f"train log of {folder}: {log}")
+    return log
+
+
+def _moved(net, fresh: dict) -> float:
+    return max(float((p.detach().cpu() - fresh[k]).abs().max())
+               for k, p in net.named_parameters())
+
+
+def ccgan_sub_runs(device, card: str) -> dict:
+    """(a) and (a'): ccgan_main, SNGAN hard in two calls (the second
+    resuming from the first's milestone), then SAGAN soft."""
+    from ccdm_tpu_torch import ccgan_main
+    from ccdm_tpu_torch.dmd_main import build_gan
+
+    args = ccgan_main.parse_opts_ccgan(["--device", str(device), *CCGAN_ARGV])
+    fresh_g = build_gan(args, 3, 64, dim_z=args.dim_gan)[0].state_dict()
+    results = BASE_RUN / "output" / "synthetic_64" / "Setup_CcGAN" / "ccgan_results"
+    half = BASE_GAN_STEPS // 2
+    first, c1, r1, s1 = baseline_run(ccgan_main, ["--device", str(device), *CCGAN_ARGV,
+                                                  "--niters", str(half)], {},
+                                     f"(a) CcGAN SNGAN hard, iterations 1-{half}")
+    trainer, c2, r2, s2 = baseline_run(
+        ccgan_main, ["--device", str(device), *CCGAN_ARGV, "--niters", str(BASE_GAN_STEPS),
+                     "--resume_niter", str(half)], {},
+        f"(a) CcGAN resumed at {half}, iterations {half + 1}-{BASE_GAN_STEPS}")
+    if first.step != half or trainer.step != BASE_GAN_STEPS or not trainer.uses_nda(half) \
+            or first.uses_nda(half - 1):
+        raise AssertionError(f"CcGAN steps {first.step}, {trainer.step}")
+    log = _train_log(results, BASE_GAN_STEPS)
+    dumps = r1["dumps"] + r2["dumps"]
+    if len(dumps) != 4 or any(d[1].shape != (4, 64, 64, 3) for d in dumps):
+        raise AssertionError(f"CcGAN dumps {[(d[0], d[1].shape) for d in dumps]}")
+    grids = _grids(results, [f"sample_{half}.png", f"sample_{BASE_GAN_STEPS}.png"])
+    moved = _moved(trainer.netG, fresh_g)
+    if not moved > 0:
+        raise AssertionError("CcGAN's netG did not move")
+    parity = gan_on_card_vs_cpu(trainer.netG, trainer.netD, trainer.cfg.dim_gan,
+                                trainer.fn_y2h, trainer.device, nets=("D",))
+    gen = torch.Generator(device=device).manual_seed(5)
+    iter_ms = time_ms(lambda: [trainer.d_step(True, gen), trainer.d_step(True, gen),
+                               trainer.g_step(gen)], reps=5, warmup=1)
+    sagan, c3, r3, s3 = baseline_run(ccgan_main, ["--device", str(device), *SAGAN_ARGV], {},
+                                     "(a') CcGAN SAGAN soft vanilla")
+    if sagan.step != BASE_SHORT_STEPS or type(sagan.netG).__name__ != "SAGANGenerator":
+        raise AssertionError(f"SAGAN run: step {sagan.step}, {type(sagan.netG).__name__}")
+    print(f"   (a) netG moved by up to {moved:.3e}; D losses of the log "
+          f"{[round(r['d_loss'], 4) for r in log[::5]]}; grids (pixel std "
+          f"{[round(v, 2) for v in grids]}); SNGAN D card vs CPU (full f32) max abs err "
+          f"{parity['D']:.3e} (rtol = atol = {DMD_TOL['D']}); {iter_ms:.2f} ms an iteration "
+          f"(2 D steps with Dual-NDA b and c, 1 G step, batch 64, events) on {card}",
+          flush=True)
+    return {"launches": [c1, c2, c3], "seconds": [s1, s2, s3], "moved": moved,
+            "d_losses": [r["d_loss"] for r in log], "g_losses": [r["g_loss"] for r in log],
+            "grid_std": grids, "D_card_vs_cpu": parity, "iteration_ms": iter_ms}
+
+
+def studiogan_sub_runs(device, card: str) -> dict:
+    """(b): classgan_main --method studiogan, D2D-CE then ADC."""
+    from ccdm_tpu_torch import classgan_main
+
+    results = BASE_RUN / "output" / "synthetic_64" / "Setup_ClassCond" / "studiogan_results"
+    out, c1, r1, s1 = baseline_run(classgan_main, ["--device", str(device), *STUDIOGAN_ARGV],
+                                   {}, "(b) StudioGAN D2D-CE")
+    trainer = out["trainer"]
+    log = _train_log(results, BASE_GAN_STEPS)
+    grids = _grids(results, [f"sample_{BASE_GAN_STEPS // 2}.png",
+                             f"sample_{BASE_GAN_STEPS}.png", "sample_studiogan.png"])
+    if r1["dumps"][0][1].shape != (BASE_FAKES, 64, 64, 3) or trainer.step != BASE_GAN_STEPS:
+        raise AssertionError(f"StudioGAN dump {r1['dumps'][0][1].shape}, step {trainer.step}")
+    args = classgan_main.parse_opts_classgan(STUDIOGAN_ARGV)
+    from ccdm_tpu_torch.models.sngan import SNGANGenerator
+
+    fresh = SNGANGenerator(dim_embed=BASE_CLASSES, dim_z=args.dim_z, nc=3, img_size=64,
+                           gene_ch=args.gene_ch, seed=args.seed).state_dict()
+    moved = _moved(trainer.netG, fresh)
+    gen = torch.Generator(device=device).manual_seed(6)
+    iter_ms = time_ms(lambda: [trainer.d_step(gen), trainer.g_step(gen)], reps=5, warmup=1)
+    adc, c2, r2, s2 = baseline_run(classgan_main, ["--device", str(device), *ADC_ARGV], {},
+                                   "(b) StudioGAN ADC")
+    if not moved > 0 or type(adc["trainer"].head).__name__ != "ADCHead":
+        raise AssertionError(f"StudioGAN netG moved {moved}, head {adc['trainer'].head}")
+    d_losses, g_losses = ([round(r[k], 4) for r in log[::5]] for k in ("d_loss", "g_loss"))
+    print(f"   (b) netG moved by up to {moved:.3e}; losses d {d_losses}, g {g_losses}; grids "
+          f"(pixel std "
+          f"{[round(v, 2) for v in grids]}); {iter_ms:.2f} ms an iteration (1 D step with the "
+          f"D2D-CE head, 1 G step, batch 64, events) on {card}", flush=True)
+    return {"launches": [c1, c2], "seconds": [s1, s2], "moved": moved, "grid_std": grids,
+            "d_losses": [r["d_loss"] for r in log], "g_losses": [r["g_loss"] for r in log],
+            "iteration_ms": iter_ms}
+
+
+def class_unet_checks(out: dict, method: str, card: str) -> dict:
+    """The class UNet's run: the state took every step and moved, warm
+    train images/s, the fakes and grid; its EMA forward on the card against
+    the CPU (f32, ARCH_TOL)."""
+    from ccdm_tpu_torch.models.unet import Unet
+
+    trainer = out["trainer"]
+    results = BASE_RUN / "output" / "synthetic_64" / "Setup_ClassCond" / f"{method}_results"
+    log = _train_log(results, BASE_DIFF_STEPS)
+    state = trainer.state
+    fresh = Unet(dim=32, dim_mults=(1, 2, 2, 4), in_channels=3, seed=0).state_dict()
+    moved = _moved(state.model, fresh)
+    if not moved > 0 or state.step != BASE_DIFF_STEPS or out["fakes"].shape != (
+            BASE_FAKES, 64, 64, 3):
+        raise AssertionError(f"{method}: moved {moved}, step {state.step}, fakes "
+                             f"{out['fakes'].shape}")
+    grid = _grids(results, [f"sample_{method}.png"])
+    warm = [r["imgs_per_sec"] for r in log if r["step"] > BASE_DIFF_STEPS // 4]
+    ema = state.ema_model.eval()
+    with torch.no_grad():
+        want = copy.deepcopy(ema).cpu()(*arch_model_inputs(2, "cpu"))
+        got = ema(*arch_model_inputs(2, trainer.device)).cpu()
+    err = check_close(got, want, ARCH_TOL, ARCH_TOL, f"{method} class UNet EMA forward, card "
+                      "against CPU (f32, B 2)")
+    return {"moved": moved, "train_images_per_s": sum(warm) / len(warm), "grid_std": grid,
+            "losses": [r["loss"] for r in log], "ema_card_vs_cpu_max_abs_err": err}
+
+
+@contextlib.contextmanager
+def cpu_timestep_embedding(dtype):
+    """The NoisyClassifier's sinusoidal timestep embedding computed on the
+    CPU (the port's function, f32) and moved to t's device in `dtype`."""
+    from ccdm_tpu_torch.eval import backbones
+
+    embed = backbones.sinusoidal_pos_emb
+    backbones.sinusoidal_pos_emb = lambda t, dim: embed(t.cpu(), dim).to(t.device, dtype)
+    try:
+        yield
+    finally:
+        backbones.sinusoidal_pos_emb = embed
+
+
+def classifier_grad_card_vs_cpu(classifier, device, seed: int = 8) -> dict:
+    """The guided sampler's cond_fn through the run's NoisyClassifier on the
+    card against a copy on the CPU, at t < 250 on q_sample'd synthetic
+    images. Held within GRAD_TOL of the largest |g| in f64 copies on both
+    sides with one timestep embedding (the CPU's): the port's function,
+    computed by both. The f32 path the sampler runs, each side with its own
+    embedding, is recorded and held to GRAD_L2_SANITY only: a ReLU net's
+    input gradient is piecewise constant in which units are on, so f32
+    rounding that moves a unit across 0 (the two sides' convs, or their
+    sin, cos and exp in the embedding) moves the gradient by up to a few
+    1e-2 of its largest |g| at the pixels behind it
+    (scripts/classifier_grad_conditioning.py shows it on the CPU alone)."""
+    from ccdm_tpu_torch.data.datasets import make_synthetic
+    from ccdm_tpu_torch.diffusion.guided import classifier_grad_fn
+    from ccdm_tpu_torch.models.layers import sinusoidal_pos_emb
+    from ccdm_tpu_torch.ops.image import normalize_images
+    from ccdm_tpu_torch.ops.schedule import make_schedule, q_sample
+
+    g = torch.Generator().manual_seed(seed)
+    x0 = normalize_images(torch.from_numpy(make_synthetic(n=8, seed=seed).images),
+                          to_neg_one_to_one=True)
+    t = torch.randint(0, 250, (8,), generator=g)
+    y = torch.randint(0, BASE_CLASSES, (8,), generator=g)
+    x = q_sample(make_schedule(1000, "cosine", "pred_noise"), x0, t,
+                 torch.randn(x0.shape, generator=g))
+    cpu = copy.deepcopy(classifier).cpu()
+
+    def grad(net, dev, dtype):
+        return classifier_grad_fn(net, takes_t=True)(
+            x.to(dev, dtype), t.to(dev), y.to(dev)).double().cpu()
+
+    with cpu_timestep_embedding(torch.float64):
+        want = grad(copy.deepcopy(cpu).double(), "cpu", torch.float64)
+        got = grad(copy.deepcopy(classifier).double(), device, torch.float64)
+    scale = float(want.abs().max())
+    err = check_close(got, want, 0.0, GRAD_TOL * scale,
+                      "classifier gradient, card against CPU (f64, one timestep embedding)")
+    want32 = grad(cpu, "cpu", torch.float32)
+    own = grad(classifier, device, torch.float32) - want32
+    l2 = float(own.norm() / want32.norm())
+    if not l2 <= GRAD_L2_SANITY:
+        raise AssertionError(f"classifier gradient in f32, card against CPU: {l2:.3e} "
+                             "relative (L2)")
+    emb = float((sinusoidal_pos_emb(t.to(device), 128).cpu() - sinusoidal_pos_emb(t, 128))
+                .abs().max())
+    return {"max_abs_err": err, "largest_abs_grad": scale,
+            "f32": {"max_abs_err": float(own.abs().max()), "l2_relative": l2,
+                    "share_beyond_tol": float((own.abs() > GRAD_TOL * scale).float().mean())},
+            "embedding_max_abs_err": emb}
+
+
+def sampling_step_ms(out: dict, method: str, device) -> float:
+    """ms per sampling step of the run's EMA weights at its batch: CFG's
+    DDIM at --sample_cond_scale 1.5 (2B rows), or one guided ancestral step
+    (the UNet forward and the classifier's gradient), BASE_TIMED_STEPS
+    steps a call, events."""
+    from ccdm_tpu_torch.diffusion.guided import classifier_grad_fn, classifier_guided_sample
+
+    diffusion = out["trainer"].ema_diffusion()
+    g = torch.Generator(device=device).manual_seed(4)
+    emb = torch.randn(ADMG_BATCH, 128, generator=g, device=device)
+    if method == "cfg":
+        call = lambda: diffusion.ddim_sample(emb, cond_scale=1.5,
+                                             sampling_timesteps=BASE_TIMED_STEPS, generator=g)
+    else:
+        cond_fn = classifier_grad_fn(out["classifier"], takes_t=True)
+        classes = torch.arange(ADMG_BATCH, device=device) % BASE_CLASSES
+        call = lambda: classifier_guided_sample(diffusion, emb, classes, cond_fn,
+                                                sampling_timesteps=BASE_TIMED_STEPS,
+                                                generator=g)
+    return time_ms(call, reps=3, warmup=1) / BASE_TIMED_STEPS
+
+
+def class_diffusion_sub_runs(device, card: str) -> dict:
+    """(c) and (d): classgan_main --method cfg, then --method admg."""
+    from ccdm_tpu_torch import classgan_main
+
+    train = {k: v * BASE_DIFF_STEPS for k, v in BASE_PER_STEP.items()}
+    sampled = BASE_PER_FORWARD * BASE_SAMPLE_STEPS  # one CFG chunk, one guided batch
+    expected = {**train, "attn_block": train["attn_block"] + sampled}
+    out, shapes, two_pass = {}, set(), set()
+    for method, argv in (("cfg", CFG_ARGV), ("admg", ADMG_ARGV)):
+        with attn_shapes() as launched, large_shapes() as launched_two_pass:
+            run, counts, record, seconds = baseline_run(
+                classgan_main, ["--device", str(device), *argv], expected,
+                f"({'c' if method == 'cfg' else 'd'}) {method}: {BASE_DIFF_STEPS} steps of "
+                f"batch {BASE_TRAIN_BATCH}, then {BASE_FAKES} fakes at {BASE_SAMPLE_STEPS} steps")
+        shapes |= launched
+        two_pass |= launched_two_pass
+        out[method] = {"launches": counts, "seconds": seconds,
+                       **class_unet_checks(run, method, card)}
+        if method == "admg":
+            out[method]["classifier_seconds_per_epoch"] = run["classifier"].seconds_per_epoch
+            out[method]["classifier_grad"] = classifier_grad_card_vs_cpu(run["classifier"],
+                                                                         device)
+        out[method]["ms_per_sampling_step"] = sampling_step_ms(run, method, device)
+        del run
+    out["attn_shapes"] = checked_in_phase_3(shapes)
+    out["two_pass_shapes"] = checked_in_phase_6(two_pass)
+    if {s[3] for s in out["attn_shapes"]} != {"float32"}:
+        raise AssertionError(f"#1 launched at {out['attn_shapes']}: the class UNet is f32")
+    c, d = out["cfg"], out["admg"]
+    print(f"   (c) cfg: warm train {c['train_images_per_s']:.2f} images/s (batch "
+          f"{BASE_TRAIN_BATCH}, f32); {c['ms_per_sampling_step']:.2f} ms a CFG step ({CFG_ROWS} "
+          f"rows); EMA forward card vs CPU {c['ema_card_vs_cpu_max_abs_err']:.3e}; (d) admg: "
+          f"warm train {d['train_images_per_s']:.2f} images/s; noisy classifier "
+          f"{d['classifier_seconds_per_epoch']:.2f} s an epoch; {d['ms_per_sampling_step']:.2f} "
+          f"ms a guided step (batch {ADMG_BATCH}); classifier gradient card vs CPU "
+          f"{d['classifier_grad']['max_abs_err']:.3e} (largest |g| "
+          f"{d['classifier_grad']['largest_abs_grad']:.3e}; f64, one timestep embedding), in "
+          f"f32 {json.dumps(d['classifier_grad']['f32'])} (the embeddings "
+          f"{d['classifier_grad']['embedding_max_abs_err']:.3e} apart); #1 at "
+          f"{out['attn_shapes']}, #2-#5 at {out['two_pass_shapes']}, each checked in phases 3 "
+          f"and 6, on {card}", flush=True)
+    return out
+
+
+def baselines_main_path(device, card: str) -> dict:
+    """Phase 23: the CcGAN/Dual-NDA and class-conditional baselines
+    (ccgan_main, classgan_main) in build/smoke_baselines, deleted after."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(BASE_RUN, ignore_errors=True)
+    try:
+        out = {"ccgan": ccgan_sub_runs(device, card),
+               "studiogan": studiogan_sub_runs(device, card),
+               **class_diffusion_sub_runs(device, card)}
+    finally:
+        shutil.rmtree(BASE_RUN, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"   the baselines: no kernel launched by the GANs, #1-#5 exactly as counted by the "
+          f"class UNet's training and sampling; the phase {out['phase_s']:.1f} s on {card}",
+          flush=True)
     return out
 
 
@@ -3029,12 +3519,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/24 device")
+    phase("1/25 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/24 build")
+    phase("2/25 build")
     libraries = ("attn_block", "attn_block_large", "resnet_block", "linear_attention",
                  "style_ops")
     t0 = time.perf_counter()
@@ -3049,26 +3539,26 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/24 attn_block kernel against its plain version")
+    phase("3/25 attn_block kernel against its plain version")
     rows, rows_by_batch = kernel_vs_plain(device)
 
-    phase("4/24 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/25 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/24 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/25 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/24 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
+    phase("6/25 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
           "bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
     other_dim_head = dim_head_vs_plain(device)
 
-    phase("7/24 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/25 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
     grads_hy = grad_parity(device, use_hy=True)
 
-    phase(f"8/24 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/25 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
     trained = train_main_path(
         device, card, TRAIN_ARGV, TRAIN_STEPS,
@@ -3076,18 +3566,18 @@ def main() -> int:
          **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, train_checks(card))
 
-    phase("9/24 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+    phase("9/25 kernels #10 and #11 (the fused resnet block) against their plain versions, "
           "f32 and bf16")
     resnet_rows = resnet_vs_plain(device)
 
-    phase("10/24 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    phase("10/25 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
     fused_parity = fused_model_parity(device)
 
-    phase(f"11/24 main path with the switch on: SamplerService over HTTP, bf16, batch "
+    phase(f"11/25 main path with the switch on: SamplerService over HTTP, bf16, batch "
           f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
     fused_served = fused_serve_main_path(device, card)
 
-    phase(f"12/24 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+    phase(f"12/25 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
           f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
     fused_trained = train_main_path(
         device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
@@ -3098,24 +3588,24 @@ def main() -> int:
          **{k: 0 for k in NEW_KERNELS}},
         True, fused_train_checks(card))
 
-    phase("13/24 kernels #6 and #9 (standalone linear attention) against their plain versions")
+    phase("13/25 kernels #6 and #9 (standalone linear attention) against their plain versions")
     la_rows = la_vs_plain(device)
 
-    phase("14/24 kernels #7 + #8 (its two-pass form) against their plain versions")
+    phase("14/25 kernels #7 + #8 (its two-pass form) against their plain versions")
     tp_rows = twopass_vs_plain(device)
 
-    phase("15/24 kernel #12 (bias_act) against its plain version")
+    phase("15/25 kernel #12 (bias_act) against its plain version")
     ba_rows = bias_act_vs_plain(device)
 
-    phase("16/24 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
+    phase("16/25 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
           "the two-pass route, linear_attention_per_head, bias_act")
     la_path = la_main_path(device)
 
-    phase("17/24 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
+    phase("17/25 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
           "kernel forward against the plain route")
     la_grads = la_grad_parity(device)
 
-    phase(f"18/24 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
+    phase(f"18/25 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
           f"bf16, {RECIPE_STEPS} steps, then serving from its milestone")
     recipe = train_main_path(
         device, card, RECIPE_ARGV, RECIPE_STEPS,
@@ -3123,7 +3613,7 @@ def main() -> int:
          **{k: 2 * RECIPE_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, recipe_checks(card, trained["train_images_per_s"]))
 
-    phase(f"19/24 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
+    phase(f"19/25 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
           f"{MULTIDIM_DIMS} dims, shv, resnet ILI, cross_attention), batch {TRAIN_BATCH}, bf16, "
           f"{MULTIDIM_STEPS} steps; (a') the same with the sinusoidal y2h, {ANALYTIC_STEPS} "
           f"steps; (b) the elastic aux loss, the trajectory GIF and the interpolation, "
@@ -3153,7 +3643,7 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C, dtype) {multidim['attn_shapes']} in this phase, each "
           f"checked against its plain version in phase 3", flush=True)
 
-    phase(f"20/24 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
+    phase(f"20/25 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
           f"training, batch {TRAIN_BATCH}, bf16, {EVAL_STEPS} steps, {len(EVAL_ANGLES)} labels x "
           f"{EVAL_NFAKE} images at 10 DDIM steps, then --comp_FID with PRDC, NIQE, iFID and "
           f"the analyses")
@@ -3172,7 +3662,7 @@ def main() -> int:
         shutil.rmtree(EVAL_RUN, ignore_errors=True)
         raise
 
-    phase(f"21/24 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
+    phase(f"21/25 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
           f"backbones), SNGAN 64/64/256, batch {TRAIN_BATCH}, 2 D steps, DiffAugment, "
           f"{DMD_STEPS} iterations, {len(EVAL_ANGLES)} labels x {DMD_NFAKE} one-step images, "
           f"--comp_FID ({DMD_CENTERS} windows), --interpolation --sefa; SAGAN "
@@ -3181,13 +3671,21 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C, dtype) {dmd['attn_shapes']} in this phase, each checked "
           f"against its plain version in phase 3", flush=True)
 
-    phase(f"22/24 the ADM and ViT denoisers: main.py --architecture adm (64, 1_2_4_8, attention "
+    phase(f"22/25 the ADM and ViT denoisers: main.py --architecture adm (64, 1_2_4_8, attention "
           f"at 4_8), batch {TRAIN_BATCH}, {ADM_STEPS} steps, then --architecture vit (width 512, "
           f"8 blocks, 4096 tokens), batch {VIT_BATCH}, {VIT_STEPS} steps; each sampled, served "
           f"over HTTP and held against the CPU")
     denoisers = denoisers_main_path(device, card)
 
-    phase("23/24 kernels")
+    phase(f"23/25 the baselines: (a) ccgan_main SNGAN 64/64/256, batch 64, hard, Dual-NDA "
+          f"from iteration 10, {BASE_GAN_STEPS} iterations in two calls, (a') SAGAN soft "
+          f"vanilla, {BASE_SHORT_STEPS} iterations; (b) classgan_main studiogan D2D-CE "
+          f"{BASE_GAN_STEPS} and ADC {BASE_SHORT_STEPS} iterations; (c) cfg and (d) admg: the "
+          f"class UNet (32, 1_2_2_4, f32), batch {BASE_TRAIN_BATCH}, {BASE_DIFF_STEPS} steps, "
+          f"{BASE_FAKES} fakes at {BASE_SAMPLE_STEPS} steps")
+    baselines = baselines_main_path(device, card)
+
+    phase("24/25 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -3219,6 +3717,8 @@ def main() -> int:
         "launches_in_eval": eval_run["launches"]["attn_block"],
         "launches_in_dmd": dmd["launches"]["attn_block"],
         "launches_in_dmd_sagan": dmd["launches_sagan"]["attn_block"],
+        "launches_in_baselines_cfg": baselines["cfg"]["launches"]["attn_block"],
+        "launches_in_baselines_admg": baselines["admg"]["launches"]["attn_block"],
         "max_err_bf16": max(r["max_err_bf16"] for r in rows.values()
                             if r["max_err_bf16"] is not None),
         "max_err_f32": max(r["max_err_f32"] for r in rows.values()),
@@ -3247,6 +3747,8 @@ def main() -> int:
             "launches_in_eval": eval_run["launches"][name],
             "launches_in_dmd": dmd["launches"][name],
             "launches_in_dmd_sagan": dmd["launches_sagan"][name],
+            "launches_in_baselines_cfg": baselines["cfg"]["launches"][name],
+            "launches_in_baselines_admg": baselines["admg"]["launches"][name],
             "routes": {tag: f"{r[name]['route']} x{r[name]['splits']}"
                        for tag, r in large_rows.items() if name in r},
             "by_shape": {tag: r.get(name, {}) for tag, r in large_rows.items()},
@@ -3263,12 +3765,13 @@ def main() -> int:
     kernels[4]["eval"] = eval_run
     kernels[4]["dmd"] = dmd
     kernels[4]["adm_vit"] = denoisers
+    kernels[4]["baselines"] = baselines
     kernels += resnet_kernel_rows(resnet_rows, fused_served, fused_trained, fused_parity, card,
                                   served["cfg_forward_ms"])
     kernels += slice4_kernel_rows(la_rows, tp_rows, ba_rows, la_path, la_grads, card)
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("24/24 done")
+    phase("25/25 done")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

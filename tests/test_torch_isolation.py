@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from ccdm_tpu_torch import dmd_main, serve, serve_dmd
+from ccdm_tpu_torch import ccgan_main, classgan_main, dmd_main, serve, serve_dmd
 from ccdm_tpu_torch.opts import parse_opts
 from ccdm_tpu_torch.utils.device import resolve_device
 
@@ -59,7 +59,10 @@ def test_port_and_smoke_script_import_no_jax():
                  "training.train_aux", "training.optim", "eval.metrics", "eval.sfid",
                  "eval.niqe", "eval.backbones", "eval.train_backbones", "eval.protocol",
                  "eval.analysis", "dmd_main", "serve_dmd", "models.sngan", "models.sagan",
-                 "training.diffaugment", "training.dmd", "models.unet_adm", "models.vit"):
+                 "training.diffaugment", "training.dmd", "models.unet_adm", "models.vit",
+                 "diffusion.respace", "diffusion.guided", "training.resample",
+                 "training.classgan", "training.ccgan", "training.gan_config",
+                 "utils.kvlogger", "ccgan_main", "classgan_main"):
         assert f"ccdm_tpu_torch.{name}" in report["new"], name
     assert [m for m in report["new"] if _is_jax(m)] == []
 
@@ -89,6 +92,32 @@ def test_parser_takes_every_flag_of_the_jax_parser():
                                            if k != "device"}
 
 
+@pytest.mark.parametrize("entry", ["ccgan_main", "classgan_main"])
+def test_baseline_parsers_take_every_flag_of_the_jax_parsers(entry):
+    """Every flag of ccdm_tpu's ccgan_main and classgan_main parsers, with
+    the same defaults and choices; the port adds --device only."""
+    import importlib
+
+    jax_entry = importlib.import_module(f"ccdm_tpu.{entry}")
+    port_entry = {"ccgan_main": ccgan_main, "classgan_main": classgan_main}[entry]
+    name = f"parse_opts_{entry.removesuffix('_main')}"
+    jax_parse, parse = getattr(jax_entry, name), getattr(port_entry, name)
+    want, got = vars(jax_parse([])), vars(parse([]))
+    assert set(got) - set(want) == {"device"}
+    assert {k: got[k] for k in want} == want
+    flags = (["--gan_arch", "sagan", "--threshold_type", "soft", "--loss_type", "vanilla",
+              "--nda_b", "0.2", "--gan_DiffAugment", "--dump_fake_data", "--comp_FID"]
+             if entry == "ccgan_main" else
+             ["--method", "admg", "--cond_loss", "adc", "--gan_DiffAugment",
+              "--dump_fake_data", "--comp_FID", "--classifier_scale", "2.0"])
+    assert vars(jax_parse(flags)) == {k: v for k, v in vars(parse(flags)).items()
+                                      if k != "device"}
+    bad = ["--gan_arch", "biggan"] if entry == "ccgan_main" else ["--method", "gan"]
+    for p in (jax_parse, parse):
+        with pytest.raises(SystemExit):
+            p(bad)
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -101,6 +130,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         dmd_main.main(["--niters", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_dmd.main(["--serve_milestone", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ccgan_main.main(["--niters", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        classgan_main.main(["--niters", "0"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
