@@ -165,16 +165,16 @@ def sample_eval_labels(trainer, bundle, args, results_folder: str):
     return np.concatenate(all_fake_images, axis=0), np.concatenate(all_fake_labels)
 
 
-def main(argv=None):
+def build_trainer(args, device, mesh):
+    """(trainer, bundle, setting folder, results folder): the data, the
+    label embedding, the GANs and their CcGANTrainer on `mesh` (a
+    parallel.Mesh) as main() builds them."""
     from ccdm_tpu_torch.data.datasets import load_dataset
     from ccdm_tpu_torch.dmd_main import build_gan
     from ccdm_tpu_torch.embedding.resolve import build_label_embedding
+    from ccdm_tpu_torch.parallel.mesh import main_first
     from ccdm_tpu_torch.training.ccgan import CcGANConfig, CcGANTrainer
-    from ccdm_tpu_torch.utils.device import resolve_device
 
-    args = parse_opts_ccgan(argv)
-    _check_nda_inputs(args)
-    device = resolve_device(args.device)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
@@ -189,7 +189,8 @@ def main(argv=None):
     else:
         ds_kwargs.update(min_label=args.min_label, max_label=args.max_label)
     bundle = load_dataset(args.data_name, args.data_path, **ds_kwargs)
-    fn_y2h, _ = build_label_embedding(args, setting_folder, bundle=bundle, device=device)
+    with main_first(mesh):  # rank 0 trains and caches the embedding nets, the others load them
+        fn_y2h, _ = build_label_embedding(args, setting_folder, bundle=bundle, device=device)
     netG, netD = (net.to(device) for net in build_gan(args, bundle.channels, bundle.image_size,
                                                         dim_z=args.dim_gan))
 
@@ -209,12 +210,27 @@ def main(argv=None):
         log_every=args.log_every, seed=args.seed)
     trainer = CcGANTrainer(netG, netD, bundle.images, bundle.labels_norm, fn_y2h, cfg,
                            badfake_niqe=_load_badfake(args.badfake_niqe_path),
-                           badfake_mae=_load_badfake(args.badfake_mae_path), device=device)
+                           badfake_mae=_load_badfake(args.badfake_mae_path), device=device,
+                           mesh=mesh)
+    return trainer, bundle, setting_folder, results_folder
+
+
+def main(argv=None):
+    from ccdm_tpu_torch.parallel.mesh import bootstrap
+    from ccdm_tpu_torch.utils.device import resolve_device
+
+    args = parse_opts_ccgan(argv)
+    _check_nda_inputs(args)
+    mesh = bootstrap(args.device)  # before any device query
+    device = resolve_device(args.device)
+    trainer, bundle, setting_folder, results_folder = build_trainer(args, device, mesh)
     if args.resume_niter > 0:
         trainer.load(args.resume_niter)
         print(f" resumed from milestone ccgan-{args.resume_niter}", flush=True)
     trainer.train()
     trainer.save(args.niters)
+    if not mesh.is_main:  # rank 0 samples, evaluates and writes the artifacts
+        return trainer
 
     fakes, flabels = sample_eval_labels(trainer, bundle, args, results_folder)
     if args.comp_FID:

@@ -163,7 +163,7 @@ def write_fake_h5(path: str, fakes: np.ndarray, flabels: np.ndarray) -> None:
         f.create_dataset("fake_labels", data=flabels)
 
 
-def _train_class_diffusion(args, bundle, results_folder, device):
+def _train_class_diffusion(args, bundle, results_folder, device, mesh):
     """(trainer, fn_y2h): a class-conditional Unet trained by the stock
     Trainer with the vicinity off, its label embedding the class table's
     row of each normalised label's class (the ADM and CFG semantics)."""
@@ -171,9 +171,11 @@ def _train_class_diffusion(args, bundle, results_folder, device):
     from ccdm_tpu_torch.diffusion.guided import CLASS_EMBED_DIM, class_table
     from ccdm_tpu_torch.models.unet import Unet
     from ccdm_tpu_torch.opts import parse_channel_mult
+    from ccdm_tpu_torch.parallel.mesh import main_first
     from ccdm_tpu_torch.training.trainer import Trainer, TrainerConfig
 
-    table = class_table(results_folder, args.num_classes, CLASS_EMBED_DIM, args.seed)
+    with main_first(mesh):  # rank 0 draws and writes the table, the others read it
+        table = class_table(results_folder, args.num_classes, CLASS_EMBED_DIM, args.seed)
     fn_y2h = make_fn_y2h_classes(class_uppers_norm(bundle, args.num_classes), table, device)
     model = Unet(dim=args.model_channels, dim_mults=parse_channel_mult(args.channel_mult),
                  in_channels=bundle.channels, seed=args.seed).to(
@@ -189,7 +191,7 @@ def _train_class_diffusion(args, bundle, results_folder, device):
                          results_folder=results_folder, vicinity_type="none",
                          sample_every=10 ** 9, save_every=max(args.niters, 1),
                          log_every=args.log_every, seed=args.seed)
-    trainer = Trainer(diffusion, bundle.images, bundle.labels_norm, tcfg)
+    trainer = Trainer(diffusion, bundle.images, bundle.labels_norm, tcfg, mesh=mesh)
     trainer.train(fn_y2h)
     return trainer, fn_y2h
 
@@ -248,9 +250,12 @@ def main(argv=None) -> dict:
     "classifier" for admg)."""
     from ccdm_tpu_torch.data.datasets import load_dataset
     from ccdm_tpu_torch.eval.train_backbones import bin_labels_to_classes
+    from ccdm_tpu_torch.parallel.mesh import bootstrap
     from ccdm_tpu_torch.utils.device import resolve_device
 
     args = parse_opts_classgan(argv)
+    # the process group, then the mesh both trainers share (JAX's classgan_main.py:189, 208)
+    mesh = bootstrap(args.device)
     device = resolve_device(args.device)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -290,11 +295,16 @@ def main(argv=None) -> dict:
             use_DiffAugment=args.gan_DiffAugment, save_niters_freq=args.save_niters_freq,
             visualize_freq=args.visualize_freq, results_folder=results_folder,
             log_every=args.log_every, seed=args.seed)
-        trainer = ClassGANTrainer(netG, netD, bundle.images, classes, cfg, device=device)
+        trainer = ClassGANTrainer(netG, netD, bundle.images, classes, cfg, device=device,
+                                  mesh=mesh)
         trainer.train()
+        if not mesh.is_main:  # rank 0 samples, evaluates and writes the artifacts
+            return {**out, "trainer": trainer}
         fakes = trainer.sample_given_classes(fake_classes, batch_size=args.samp_batch_size)
     else:
-        trainer, fn_y2h = _train_class_diffusion(args, bundle, results_folder, device)
+        trainer, fn_y2h = _train_class_diffusion(args, bundle, results_folder, device, mesh)
+        if not mesh.is_main:
+            return {**out, "trainer": trainer}
         flabels_norm = np.asarray(bundle.fn_normalize(flabels), np.float32)
         if args.method == "cfg":
             from ccdm_tpu_torch.training.trainer import sample_given_labels

@@ -55,6 +55,7 @@ from ccdm_tpu_torch.ops.vicinal import (
     random_projection_vectors,
     sliced_batch_weights,
 )
+from ccdm_tpu_torch.parallel.mesh import sharded_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,9 +132,11 @@ class GaussianDiffusion:
     # ------------------------------------------------------------- loss
 
     def _per_sample_loss(self, images01, labels, labels_emb, train, gen, draws, offset,
-                         aux_info=None):
+                         aux_info=None, mesh=None):
         """(per-sample SNR-weighted MSE [B], keep_mask [B], the elastic aux
-        term or 0) for one batch; `offset` adds the offset noise."""
+        term or 0) for one batch; `offset` adds the offset noise. With a
+        data-parallel `mesh` the model (and the aux net) run on this rank's
+        rows and every other tensor is the global batch's."""
         c = self.config
         sched, dev = self.schedule, self.device
         b = images01.shape[0]
@@ -160,7 +163,8 @@ class GaussianDiffusion:
             offset_noise = offset_noise.to(dev)
         x_t = q_sample(sched, x_start, t, noise, c.offset_noise_strength if offset else 0.0,
                        offset_noise)
-        model_out = self.model(x_t, t, labels_emb, keep_mask, train=train)
+        model_out = sharded_apply(mesh, self.model, x_t, t, labels_emb, keep_mask,
+                                  train=train)
         if c.objective == "pred_noise":
             target = noise
         elif c.objective == "pred_x0":
@@ -172,10 +176,11 @@ class GaussianDiffusion:
             sq = sq / torch.where(keep4, hy, torch.ones_like(hy))
         aux = 0.0
         if aux_info is not None and c.objective == "pred_noise":
-            aux = self._elastic_aux(x_start, t, model_out, keep_mask, labels, aux_info)
+            aux = self._elastic_aux(x_start, t, model_out, keep_mask, labels, aux_info, mesh)
         return sq.reshape(b, -1).mean(-1) * sched.loss_weight[t], keep_mask, aux
 
-    def _elastic_aux(self, x_start, t, model_out, keep_mask, labels, aux_info) -> torch.Tensor:
+    def _elastic_aux(self, x_start, t, model_out, keep_mask, labels, aux_info,
+                     mesh=None) -> torch.Tensor:
         """The elastic aux loss (gaussian.py:235-256): x_t rebuilt from the
         predicted noise, the frozen aux net's label prediction, |y_pred - y|
         of label dim 0 on the kept rows beyond the vicinity radius, summed
@@ -183,7 +188,7 @@ class GaussianDiffusion:
         step aux_start_step. aux_info: {apply(x_t_hat, t) -> [B, 1],
         lambda_aux, vicinity_radius, aux_start_step?, current_step?}."""
         x_t_hat = q_sample(self.schedule, x_start, t, model_out.float())
-        y_pred = aux_info["apply"](x_t_hat, t).reshape(-1)
+        y_pred = sharded_apply(mesh, aux_info["apply"], x_t_hat, t).reshape(-1)
         labels_gt = labels.float().to(self.device).reshape(x_start.shape[0], -1)
         err = (y_pred - labels_gt[:, 0]).abs()
         aux_w = keep_mask.float() * (err > aux_info["vicinity_radius"]).float()
@@ -196,15 +201,19 @@ class GaussianDiffusion:
     def loss(self, images01: torch.Tensor, labels: torch.Tensor, labels_emb: torch.Tensor,
              vicinal_weights: Optional[torch.Tensor] = None, kappa=0.01, train: bool = True,
              gen: Optional[torch.Generator] = None, draws: Optional[dict] = None,
-             aux_info: Optional[dict] = None):
+             aux_info: Optional[dict] = None, mesh=None):
         """Vicinal diffusion loss (gaussian.py:139-224). images01 NHWC in
         [0, 1]; vicinal_weights acts as a gate, as in the JAX package: with
         it, the batch is weighted by the intra-batch vicinal weights. With
-        `aux_info`, returns (loss, its elastic aux term)."""
+        `aux_info`, returns (loss, its elastic aux term). Under a
+        data-parallel `mesh` (parallel/mesh.py) every rank passes the global
+        batch and gets the global loss, whose gradient reaches the model
+        through this rank's rows only."""
         c = self.config
         draws = draws or {}
         per_sample, keep_mask, aux = self._per_sample_loss(
-            images01, labels, labels_emb, train, gen, draws, offset=True, aux_info=aux_info)
+            images01, labels, labels_emb, train, gen, draws, offset=True, aux_info=aux_info,
+            mesh=mesh)
         with_aux = (lambda v: (v + aux, aux)) if aux_info is not None else (lambda v: v)
         if vicinal_weights is None or c.vicinity_type == "none":
             return with_aux(per_sample.mean())
@@ -225,13 +234,14 @@ class GaussianDiffusion:
     def weighted_loss(self, images01: torch.Tensor, labels: torch.Tensor,
                       labels_emb: torch.Tensor, weights: torch.Tensor, train: bool = True,
                       gen: Optional[torch.Generator] = None, draws: Optional[dict] = None,
-                      aux_info: Optional[dict] = None):
+                      aux_info: Optional[dict] = None, mesh=None):
         """Vanilla-tree reduction (gaussian.py:258-312): per-sample weights
         applied directly, dropped-condition rows at weight 1; no offset
-        noise. With `aux_info`, returns (loss, its elastic aux term)."""
+        noise. With `aux_info`, returns (loss, its elastic aux term); `mesh`
+        as in `loss`."""
         per_sample, keep_mask, aux = self._per_sample_loss(
             images01, labels, labels_emb, train, gen, draws or {}, offset=False,
-            aux_info=aux_info)
+            aux_info=aux_info, mesh=mesh)
         w = torch.where(keep_mask, weights.to(self.device), torch.ones_like(per_sample))
         loss = (w * per_sample).sum() / per_sample.shape[0]
         return loss if aux_info is None else (loss + aux, aux)

@@ -252,12 +252,14 @@ def main(argv=None):
     from ccdm_tpu_torch.embedding.resolve import build_label_embedding
     from ccdm_tpu_torch.models.unet import Unet
     from ccdm_tpu_torch.opts import parse_channel_mult
+    from ccdm_tpu_torch.parallel.mesh import bootstrap, main_first
     from ccdm_tpu_torch.serve import ema_model_from_milestone
     from ccdm_tpu_torch.training.dmd import DMD2Trainer, DMDConfig
     from ccdm_tpu_torch.utils.ckpt import checkpoint_exists
     from ccdm_tpu_torch.utils.device import resolve_device
 
     args = parse_opts_dmd(argv)
+    mesh = bootstrap(args.device)  # before any device query
     device = resolve_device(args.device)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -276,8 +278,9 @@ def main(argv=None):
     # the embeddings of the TEACHER's setting folder: distillation conditions
     # through the space the teacher was trained in
     teacher_setting = setting_folder(args, teacher=True)
-    fn_y2h, fn_y2cov = build_label_embedding(args, teacher_setting, bundle=bundle,
-                                             device=device)
+    with main_first(mesh):  # rank 0 trains and caches the embedding nets, the others load them
+        fn_y2h, fn_y2cov = build_label_embedding(args, teacher_setting, bundle=bundle,
+                                                 device=device)
 
     teacher = Unet(dim=args.model_channels, dim_mults=parse_channel_mult(args.channel_mult),
                    in_channels=bundle.channels, seed=args.seed)
@@ -306,12 +309,14 @@ def main(argv=None):
         z_dim=args.dim_z, sample_every=args.sample_every, save_every=args.save_every,
         results_folder=results, seed=args.seed)
     trainer = DMD2Trainer(teacher, fake_unet, netG, netD, bundle.images, bundle.labels_norm,
-                          fn_y2h, cfg, fn_y2cov=fn_y2cov, device=device)
+                          fn_y2h, cfg, fn_y2cov=fn_y2cov, device=device, mesh=mesh)
     if args.resume_niter > 0:
         trainer.load(args.resume_niter)
         print(f" resumed from milestone dmd-{args.resume_niter}", flush=True)
     trainer.train()
     trainer.save(args.niters)
+    if not mesh.is_main:  # rank 0 samples, evaluates and writes the artifacts
+        return trainer
 
     fakes, flabels = sample_eval_labels(trainer, bundle, args, results)
     if args.comp_FID:

@@ -295,26 +295,26 @@ def save_interpolation(trainer, bundle, args, fn_y2h) -> str:
     return path
 
 
-def main(argv=None):
+def build_trainer(args, device, mesh):
+    """(trainer, bundle, fn_y2h, y_visual): the data, the label embedding,
+    the denoiser and its Trainer on `mesh` (a parallel.Mesh) as main() builds
+    them; rank 0 writes the setting's files and caches."""
     from ccdm_tpu_torch.data.datasets import load_dataset
     from ccdm_tpu_torch.diffusion.gaussian import DiffusionConfig, GaussianDiffusion
     from ccdm_tpu_torch.embedding.resolve import build_label_embedding
-    from ccdm_tpu_torch.opts import parse_opts
+    from ccdm_tpu_torch.parallel.mesh import main_first
     from ccdm_tpu_torch.training.trainer import Trainer, TrainerConfig
-    from ccdm_tpu_torch.utils.ckpt import checkpoint_exists
-    from ccdm_tpu_torch.utils.device import resolve_device
 
-    args = parse_opts(argv)
-    device = resolve_device(args.device)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
     results = results_folder(args)
     setting_folder = os.path.dirname(results)
     os.makedirs(results, exist_ok=True)
-    with open(os.path.join(setting_folder, "setting_info.txt"), "a") as f:
-        f.write("\n" + "=" * 99 + "\n")
-        print(args, file=f)
+    if mesh.is_main:
+        with open(os.path.join(setting_folder, "setting_info.txt"), "a") as f:
+            f.write("\n" + "=" * 99 + "\n")
+            print(args, file=f)
 
     bundle = load_dataset(args.data_name, args.data_path, **dataset_kwargs(args))
     print(f"\n {args.data_name}: {len(bundle.images)} train images, "
@@ -326,7 +326,9 @@ def main(argv=None):
               flush=True)
 
     resolve_label_embed(args)
-    fn_y2h, fn_y2cov = build_label_embedding(args, setting_folder, bundle=bundle, device=device)
+    with main_first(mesh):  # rank 0 trains and caches the embedding nets, the others load them
+        fn_y2h, fn_y2cov = build_label_embedding(args, setting_folder, bundle=bundle,
+                                                 device=device)
     model = build_model(args, bundle.image_size, bundle.channels).to(
         device, memory_format=torch.channels_last)
     n_params = sum(p.numel() for p in model.parameters())
@@ -360,19 +362,37 @@ def main(argv=None):
     if args.lambda_aux > 0:  # the elastic aux loss: train or load the regressor
         from ccdm_tpu_torch.training.train_aux import get_aux_net
 
-        aux_apply = get_aux_net(bundle, setting_folder, name=args.net_aux,
-                                epochs=args.epoch_aux, batch_size=args.batch_size_aux,
-                                seed=args.seed, device=device)
+        with main_first(mesh):
+            aux_apply = get_aux_net(bundle, setting_folder, name=args.net_aux,
+                                    epochs=args.epoch_aux, batch_size=args.batch_size_aux,
+                                    seed=args.seed, device=device)
         aux_info = {"apply": aux_apply, "lambda_aux": args.lambda_aux,
                     "aux_start_step": args.aux_start_step}
-    trainer = Trainer(diffusion, bundle.images, bundle.labels_norm, tcfg, aux_info=aux_info)
+    trainer = Trainer(diffusion, bundle.images, bundle.labels_norm, tcfg, aux_info=aux_info,
+                      mesh=mesh)
     print(f" sigma_delta={trainer.sigma_delta}, kappa={trainer.kappa}", flush=True)
+    return trainer, bundle, fn_y2h, y_visual
 
+
+def main(argv=None):
+    from ccdm_tpu_torch.opts import parse_opts
+    from ccdm_tpu_torch.parallel.mesh import bootstrap
+    from ccdm_tpu_torch.utils.ckpt import checkpoint_exists
+    from ccdm_tpu_torch.utils.device import resolve_device
+
+    args = parse_opts(argv)
+    mesh = bootstrap(args.device)  # before any device query
+    device = resolve_device(args.device)
+    trainer, bundle, fn_y2h, y_visual = build_trainer(args, device, mesh)
+    results = results_folder(args)
+    setting_folder = os.path.dirname(results)
     if args.resume_niter > 0 and checkpoint_exists(results, args.resume_niter):
         trainer.load(args.resume_niter)
         print(f" resumed from milestone {args.resume_niter}", flush=True)
     trainer.train(fn_y2h)
     trainer.save(args.niters)
+    if not mesh.is_main:  # rank 0 samples, evaluates and writes the artifacts
+        return trainer
     if args.gif_trajectory:
         save_trajectory_gif(trainer, args, fn_y2h, y_visual)
     if args.interpolation:

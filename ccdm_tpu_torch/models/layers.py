@@ -18,6 +18,7 @@ from torch import nn
 from ccdm_tpu_torch.ops import attn_block, resnet_block
 from ccdm_tpu_torch.ops.attn_block import _rms_norm
 from ccdm_tpu_torch.ops.linear_attention import linear_attention
+from ccdm_tpu_torch.parallel.mesh import global_moments
 
 
 class Conv2d(nn.Conv2d):
@@ -100,13 +101,14 @@ class GroupNorm(nn.GroupNorm):
 def flax_batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool) -> torch.Tensor:
     """flax nn.BatchNorm (momentum 0.99, eps 1e-5) in f32. train: batch
     statistics, with the variance mean(x^2) - mean(x)^2 (biased), and the
-    running statistics moved 1% towards them; else the running ones."""
+    running statistics moved 1% towards them; else the running ones. Under
+    a data-parallel step (`bn.sync_mesh`, set by parallel.sharded_apply)
+    the statistics are the global batch's."""
     x = x.float()
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                             False, 0.0, bn.eps)
-    mean = x.mean(0)
-    var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+    mean, var = global_moments(x, [0], getattr(bn, "sync_mesh", None))
     with torch.no_grad():
         bn.running_mean.mul_(0.99).add_(0.01 * mean)
         bn.running_var.mul_(0.99).add_(0.01 * var)

@@ -26,19 +26,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ccdm_tpu_torch.models.layers import flax_init_
+from ccdm_tpu_torch.parallel.mesh import global_moments
 
 BN_MOMENTUM = 0.9
 
 
-def _fast_stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
-    """flax's mean and variance: E[x], max(E[x^2] - E[x]^2, 0)."""
-    mean = x.mean(dims)
-    return mean, torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
-
-
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm over every axis but dim 1 (the channels); without
-    `affine`, flax's use_scale=False, use_bias=False."""
+    `affine`, flax's use_scale=False, use_bias=False. Under a data-parallel
+    step (`sync_mesh`, set by parallel.sharded_apply) the statistics are the
+    global batch's."""
+
+    sync_mesh = None
 
     def __init__(self, channels: int, momentum: float = BN_MOMENTUM, eps: float = 1e-5,
                  affine: bool = True):
@@ -52,7 +51,8 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if train:
-            mean, var = _fast_stats(x, [d for d in range(x.ndim) if d != 1])
+            mean, var = global_moments(x, [d for d in range(x.ndim) if d != 1],
+                                       self.sync_mesh)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -78,7 +78,7 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape
         g = x.reshape(b, self.num_groups, c // self.num_groups)
-        mean, var = _fast_stats(g, [2])
+        mean, var = global_moments(g, [2], None)
         g = (g - mean[:, :, None]) * torch.rsqrt(var + self.eps)[:, :, None]
         return g.reshape(b, c) * self.weight + self.bias
 

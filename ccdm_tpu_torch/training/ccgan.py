@@ -29,6 +29,11 @@ and "nda_e" {"idx", "aug"}. G step: "target_idx", "target_eps", "z",
 "aug". `train` gives iteration s the generator
 training/optim.step_generator(seed, s).
 
+With a data-parallel `mesh` (parallel/mesh.py; by default the process
+group's) every rank draws a step at the global batch, runs G and D on its
+own rows (`sharded_apply`) and sums the gradients over the ranks before
+Adam; milestones, logs and grids are written by rank 0.
+
 A milestone <results_folder>/model-ccgan-<N>/state.pt holds
 `checkpoint_tree`, JAX's CcGANTrainer.state layout with lists of tensors,
 which utils/convert.ccgan_state_from_jax also writes.
@@ -47,6 +52,13 @@ from torch import nn
 
 from ccdm_tpu_torch.ops.image import augment_for_dataset, normalize_images, to_uint8
 from ccdm_tpu_torch.ops.vicinal import pairwise_distance, soft_weights_from_targets
+from ccdm_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    barrier,
+    create_mesh,
+    replicated,
+    sharded_apply,
+)
 from ccdm_tpu_torch.training.diffaugment import diff_augment, rand_cutout
 from ccdm_tpu_torch.training.dmd import _grads, stats_of
 from ccdm_tpu_torch.training.hyperparams import compute_vicinal_hyperparams
@@ -121,7 +133,7 @@ class CcGANTrainer:
     def __init__(self, netG: nn.Module, netD: nn.Module, train_images: np.ndarray,
                  train_labels: np.ndarray, fn_y2h: Callable, config: CcGANConfig,
                  badfake_niqe: Optional[tuple] = None, badfake_mae: Optional[tuple] = None,
-                 device=None):
+                 device=None, mesh=None):
         """netG, netD: models/sngan.py or models/sagan.py nets on `device`;
         train_images uint8 [N, H, W, C]; train_labels [N] in [0, 1];
         badfake_*: (uint8 images [M, H, W, C], labels) for nda_d / nda_e."""
@@ -140,6 +152,8 @@ class CcGANTrainer:
         bank = lambda bf: None if bf is None else torch.from_numpy(np.asarray(bf[0])).to(dev)
         self.badfake_niqe, self.badfake_mae = bank(badfake_niqe), bank(badfake_mae)
 
+        self.mesh = mesh if mesh is not None else create_mesh()
+        replicated(self.mesh, netG), replicated(self.mesh, netD)
         self.step = 0
         self.g_params, self.d_params = list(netG.parameters()), list(netD.parameters())
         self.g_opt: AdamState = adam_init(self.g_params)
@@ -238,16 +252,18 @@ class CcGANTrainer:
         loss on the device."""
         cfg, draws = self.cfg, draws or {}
         b = cfg.batch_size_disc
+        mesh = self.mesh.over(b)
         targets, real, real_labels, fake_labels = self.draw_common(gen, draws)
         target_emb = self.fn_y2h(targets)
         z = self._z(b, gen, draws)
         with torch.no_grad():  # netG in train mode: its statistics move here too
-            fake = self.netG(z, self.fn_y2h(fake_labels), train=True)
+            fake = sharded_apply(mesh, self.netG, z, self.fn_y2h(fake_labels), train=True)
         w_real = self._weights(real_labels, targets)
         w_fake = self._weights(fake_labels, targets)
 
         def score(x, aug_draws) -> torch.Tensor:  # netD in train mode: its u moves
-            return self.netD(self._aug(x, gen, aug_draws), target_emb, train=True)
+            return sharded_apply(mesh, self.netD, self._aug(x, gen, aug_draws), target_emb,
+                                 train=True)
 
         loss = (torch.mean(w_real * self._pos_loss(score(real, draws.get("aug_real"))))
                 + cfg.nda_a * torch.mean(
@@ -271,7 +287,8 @@ class CcGANTrainer:
                 idx_bf = self._randint(nda.get("idx"), bank.shape[0], (b,), gen)
                 bf = self._nchw(bank[idx_bf])
                 loss = loss + weight * torch.mean(self._neg_loss(score(bf, nda.get("aug"))))
-        adam_update(self.d_opt, _grads(loss, self.d_params), cfg.lr_d, *ADAM_BETAS,
+        grads = all_reduce_grads(mesh, _grads(loss, self.d_params))
+        adam_update(self.d_opt, grads, cfg.lr_d, *ADAM_BETAS,
                     params=[p.data for p in self.d_params])
         return loss.detach()
 
@@ -280,16 +297,19 @@ class CcGANTrainer:
         """One G step through the eval-mode D; returns the loss."""
         cfg, draws = self.cfg, draws or {}
         b = cfg.batch_size_gene
+        mesh = self.mesh.over(b)
         targets = sample_target_labels(self.unique_labels, b, self.kernel_sigma, gen,
                                        draws.get("target_idx"), draws.get("target_eps"))
         emb = self.fn_y2h(targets)
-        fake = self.netG(self._z(b, gen, draws), emb, train=True)
-        d_out = self.netD(self._aug(fake, gen, draws.get("aug")), emb, train=False)
+        fake = sharded_apply(mesh, self.netG, self._z(b, gen, draws), emb, train=True)
+        d_out = sharded_apply(mesh, self.netD, self._aug(fake, gen, draws.get("aug")), emb,
+                              train=False)
         if cfg.loss_type == "vanilla":
             loss = -torch.mean(torch.log(torch.sigmoid(d_out) + 1e-20))
         else:
             loss = -torch.mean(d_out)
-        adam_update(self.g_opt, _grads(loss, self.g_params), cfg.lr_g, *ADAM_BETAS,
+        grads = all_reduce_grads(mesh, _grads(loss, self.g_params))
+        adam_update(self.g_opt, grads, cfg.lr_g, *ADAM_BETAS,
                     params=[p.data for p in self.g_params])
         return loss.detach()
 
@@ -306,7 +326,8 @@ class CcGANTrainer:
         eval-mode grid every visualize_freq, a milestone every
         save_niters_freq."""
         cfg = self.cfg
-        logger = TrainLogger(cfg.results_folder, cfg.niters)
+        main = self.mesh.is_main
+        logger = TrainLogger(cfg.results_folder, cfg.niters) if main else None
         while self.step < cfg.niters:
             gen = step_generator(cfg.seed, self.step, self.device)
             use_nda = self.uses_nda(self.step)
@@ -315,13 +336,13 @@ class CcGANTrainer:
             g_loss = self.g_step(gen)
             self.step += 1
             step = self.step
-            if step % cfg.log_every == 0 or step == 1:
+            if main and (step % cfg.log_every == 0 or step == 1):
                 logger.log_scalars({"step": step, "d_loss": float(d_loss),
                                     "g_loss": float(g_loss)})
                 if progress:
                     print(f"ccgan step {step}/{cfg.niters} d={float(d_loss):.4f} "
                           f"g={float(g_loss):.4f}", flush=True)
-            if step % cfg.visualize_freq == 0:
+            if main and step % cfg.visualize_freq == 0:
                 self._dump_visual_grid(step)
             if step % cfg.save_niters_freq == 0:
                 self.save(step)
@@ -377,8 +398,11 @@ class CcGANTrainer:
                 "d_opt": opt(self.d_opt)}
 
     def save(self, milestone) -> str:
-        return save_checkpoint(self.cfg.results_folder, f"ccgan-{milestone}",
-                               self.checkpoint_tree())
+        """Rank 0 writes the milestone (JAX ccgan.py:421), then the ranks meet."""
+        path = save_checkpoint(self.cfg.results_folder, f"ccgan-{milestone}",
+                               self.checkpoint_tree()) if self.mesh.is_main else ""
+        barrier(self.mesh)
+        return path
 
     def load(self, milestone) -> None:
         self.load_tree(load_checkpoint(self.cfg.results_folder, f"ccgan-{milestone}"))

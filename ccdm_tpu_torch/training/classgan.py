@@ -24,6 +24,12 @@ draws, training/diffaugment.py); `g_step(gen, draws)` takes "cls_fake",
 "z" and "aug"; what `draws` does not hold comes from `gen`. `train` gives
 step s the generator training/optim.step_generator(seed, s).
 
+With a data-parallel `mesh` (parallel/mesh.py; by default the process
+group's) every rank draws a step at the global batch, runs G and D on its
+own rows (`sharded_apply`), applies the head to the gathered features with
+its gradient counted once (`replicated_apply`) and sums the gradients over
+the ranks before Adam; milestones, logs and grids are written by rank 0.
+
 A milestone <results_folder>/model-classgan-<N>/state.pt holds
 `checkpoint_tree`: JAX's ClassGANTrainer.state layout with lists of
 tensors (parameters in parameters() order, statistics in buffers()
@@ -44,6 +50,14 @@ from torch import nn
 from ccdm_tpu_torch.models.layers import lecun_normal_
 from ccdm_tpu_torch.ops.image import normalize_images
 from ccdm_tpu_torch.training.diffaugment import diff_augment
+from ccdm_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    barrier,
+    create_mesh,
+    replicated,
+    replicated_apply,
+    sharded_apply,
+)
 from ccdm_tpu_torch.training.dmd import _grads, stats_of
 from ccdm_tpu_torch.training.optim import step_generator
 from ccdm_tpu_torch.training.state import AdamState, adam_init, adam_update
@@ -146,7 +160,7 @@ class ClassGANConfig:
 
 class ClassGANTrainer:
     def __init__(self, netG: nn.Module, netD: nn.Module, train_images: np.ndarray,
-                 train_classes: np.ndarray, config: ClassGANConfig, device=None):
+                 train_classes: np.ndarray, config: ClassGANConfig, device=None, mesh=None):
         """netG, netD: models/sngan.py nets with dim_embed num_classes, on
         `device`; train_images uint8 [N, H, W, C]; train_classes [N] ints."""
         cfg = self.cfg = config
@@ -172,6 +186,11 @@ class ClassGANTrainer:
                          if cfg.cond_loss == "d2dce"
                          else ADCHead(phi.shape[1], cfg.num_classes, seed)).to(self.device)
 
+        self.mesh = mesh if mesh is not None else create_mesh()
+        for net in (netG, netD, self.head):
+            if net is not None:
+                replicated(self.mesh, net)
+        self._mesh = self.mesh.over(cfg.batch_size)  # the steps' mesh
         self.step = 0
         self.g_params = list(netG.parameters())
         self.d_params = list(netD.parameters()) + self.head_params()
@@ -207,21 +226,23 @@ class ClassGANTrainer:
 
     def _cond_d(self, phi_real, phi_fake, cls_real, cls_fake) -> torch.Tensor:
         cfg = self.cfg
+        head = lambda phi: replicated_apply(self._mesh, self.head, phi)
         if cfg.cond_loss == "d2dce":
-            emb_r, proxies = self.head(phi_real)
+            emb_r, proxies = head(phi_real)
             return d2d_ce_loss(emb_r, proxies, cls_real)
         if cfg.cond_loss == "adc":
-            return adc_d_loss(self.head(phi_real), self.head(phi_fake), cls_real, cls_fake,
+            return adc_d_loss(head(phi_real), head(phi_fake), cls_real, cls_fake,
                               cfg.num_classes)
         return torch.zeros((), device=self.device)
 
     def _cond_g(self, phi_fake, cls_fake) -> torch.Tensor:
         cfg = self.cfg
+        head = lambda phi: replicated_apply(self._mesh, self.head, phi)
         if cfg.cond_loss == "d2dce":
-            emb_f, proxies = self.head(phi_fake)
+            emb_f, proxies = head(phi_fake)
             return d2d_ce_loss(emb_f, proxies, cls_fake)
         if cfg.cond_loss == "adc":
-            return adc_g_loss(self.head(phi_fake), cls_fake, cfg.num_classes)
+            return adc_g_loss(head(phi_fake), cls_fake, cfg.num_classes)
         return torch.zeros((), device=self.device)
 
     # ------------------------------------------------------------- steps
@@ -237,15 +258,17 @@ class ClassGANTrainer:
         cls_real = self.train_classes[idx]
         cls_fake = self._int(draws.get("cls_fake"), cfg.num_classes, b, gen)
         z = self._z(gen, draws)
+        mesh = self._mesh
         with torch.no_grad():  # netG in train mode: its statistics move here too
-            fake = self.netG(z, self._onehot(cls_fake), train=True)
-        out_r, phi_r = self.netD(self._aug(real, gen, draws.get("aug_real")),
-                                 self._onehot(cls_real), train=True, return_features=True)
-        out_f, phi_f = self.netD(self._aug(fake, gen, draws.get("aug_fake")),
-                                 self._onehot(cls_fake), train=True, return_features=True)
+            fake = sharded_apply(mesh, self.netG, z, self._onehot(cls_fake), train=True)
+        out_r, phi_r = sharded_apply(mesh, self.netD, self._aug(real, gen, draws.get("aug_real")),
+                                     self._onehot(cls_real), train=True, return_features=True)
+        out_f, phi_f = sharded_apply(mesh, self.netD, self._aug(fake, gen, draws.get("aug_fake")),
+                                     self._onehot(cls_fake), train=True, return_features=True)
         adv = torch.mean(F.relu(1.0 - out_r)) + torch.mean(F.relu(1.0 + out_f))
         loss = adv + cfg.lambda_cond * self._cond_d(phi_r, phi_f, cls_real, cls_fake)
-        adam_update(self.d_opt, _grads(loss, self.d_params), cfg.lr_d, *ADAM_BETAS,
+        grads = all_reduce_grads(mesh, _grads(loss, self.d_params))
+        adam_update(self.d_opt, grads, cfg.lr_d, *ADAM_BETAS,
                     params=[p.data for p in self.d_params])
         return loss.detach()
 
@@ -255,11 +278,13 @@ class ClassGANTrainer:
         cfg, draws = self.cfg, draws or {}
         cls_fake = self._int(draws.get("cls_fake"), cfg.num_classes, cfg.batch_size, gen)
         z = self._z(gen, draws)
-        fake = self.netG(z, self._onehot(cls_fake), train=True)
-        out_f, phi_f = self.netD(self._aug(fake, gen, draws.get("aug")),
-                                 self._onehot(cls_fake), train=False, return_features=True)
+        mesh = self._mesh
+        fake = sharded_apply(mesh, self.netG, z, self._onehot(cls_fake), train=True)
+        out_f, phi_f = sharded_apply(mesh, self.netD, self._aug(fake, gen, draws.get("aug")),
+                                     self._onehot(cls_fake), train=False, return_features=True)
         loss = -torch.mean(out_f) + cfg.lambda_cond * self._cond_g(phi_f, cls_fake)
-        adam_update(self.g_opt, _grads(loss, self.g_params), cfg.lr_g, *ADAM_BETAS,
+        grads = all_reduce_grads(mesh, _grads(loss, self.g_params))
+        adam_update(self.g_opt, grads, cfg.lr_g, *ADAM_BETAS,
                     params=[p.data for p in self.g_params])
         return loss.detach()
 
@@ -270,19 +295,20 @@ class ClassGANTrainer:
         each, a log line every log_every steps, a grid every
         visualize_freq, a milestone every save_niters_freq and at niters."""
         cfg = self.cfg
-        logger = TrainLogger(cfg.results_folder, cfg.niters)
+        main = self.mesh.is_main
+        logger = TrainLogger(cfg.results_folder, cfg.niters) if main else None
         for step in range(self.step + 1, cfg.niters + 1):
             gen = step_generator(cfg.seed, step, self.device)
             d_losses = [self.d_step(gen) for _ in range(cfg.num_D_steps)]
             g_loss = self.g_step(gen)
             self.step = step
-            if step % cfg.log_every == 0:
+            if main and step % cfg.log_every == 0:
                 d_loss = float(torch.stack(d_losses).mean())
                 logger.log_scalars({"step": step, "d_loss": d_loss, "g_loss": float(g_loss)})
                 if progress:
                     print(f"classgan step {step}/{cfg.niters} d={d_loss:.4f} "
                           f"g={float(g_loss):.4f}", flush=True)
-            if step % cfg.visualize_freq == 0:
+            if main and step % cfg.visualize_freq == 0:
                 self._dump_visual_grid(step)
             if step % cfg.save_niters_freq == 0:
                 self.save(step)
@@ -333,8 +359,11 @@ class ClassGANTrainer:
                 "g_opt": opt(self.g_opt), "d_opt": opt(self.d_opt)}
 
     def save(self, milestone) -> str:
-        return save_checkpoint(self.cfg.results_folder, f"classgan-{milestone}",
-                               self.checkpoint_tree())
+        """Rank 0 writes the milestone (JAX classgan.py:357), then the ranks meet."""
+        path = save_checkpoint(self.cfg.results_folder, f"classgan-{milestone}",
+                               self.checkpoint_tree()) if self.mesh.is_main else ""
+        barrier(self.mesh)
+        return path
 
     def load(self, milestone) -> None:
         self.load_tree(load_checkpoint(self.cfg.results_folder, f"classgan-{milestone}"))

@@ -40,6 +40,11 @@ Each step is a function of its draws. `g_step(gen, draws)` and
 "aug" holds DiffAugment's draws (training/diffaugment.py). `train` gives
 step s the generator training/optim.step_generator(seed, s).
 
+With a data-parallel `mesh` (parallel/mesh.py; by default the process
+group's) every rank draws a step at the global batch, runs each net on its
+own rows (`sharded_apply`) and sums the gradients over the ranks before the
+clip; milestones, logs and grids are written by rank 0.
+
 The trainer's state is its modules (the netG, netD and fake UNet weights
 and statistics), two AdamStates and `step`; a milestone
 <results_folder>/model-dmd-<N>/state.pt holds `checkpoint_tree`, the
@@ -62,6 +67,13 @@ from torch import nn
 from ccdm_tpu_torch.diffusion.gaussian import hy_from_y2cov
 from ccdm_tpu_torch.ops.image import augment_for_dataset, normalize_images, to_uint8
 from ccdm_tpu_torch.ops.schedule import make_schedule, q_sample
+from ccdm_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    barrier,
+    create_mesh,
+    replicated,
+    sharded_apply,
+)
 from ccdm_tpu_torch.training.diffaugment import diff_augment
 from ccdm_tpu_torch.training.hyperparams import compute_vicinal_hyperparams
 from ccdm_tpu_torch.training.optim import step_generator
@@ -125,7 +137,7 @@ class DMD2Trainer:
     def __init__(self, teacher: nn.Module, fake_unet: nn.Module, netG: nn.Module,
                  netD: nn.Module, train_images: np.ndarray, train_labels: np.ndarray,
                  fn_y2h: Callable, config: DMDConfig, fn_y2cov: Optional[Callable] = None,
-                 device=None):
+                 device=None, mesh=None):
         """teacher, fake_unet: Unets of one config on `device` (the fake UNet
         trainable, a copy of the teacher); netG, netD: models/sngan.py or
         models/sagan.py nets; train_images uint8 [N, H, W, C]; train_labels
@@ -158,6 +170,10 @@ class DMD2Trainer:
         self.min_step = int(cfg.min_step_percent * cfg.train_timesteps)
         self.max_step = int(cfg.max_step_percent * cfg.train_timesteps)
 
+        self.mesh = mesh if mesh is not None else create_mesh()
+        for net in (teacher, fake_unet, netG, netD):
+            replicated(self.mesh, net)
+        self._mesh = self.mesh.over(cfg.train_batch_size)  # the steps' mesh
         self.step = 0
         self.gen_params = list(netG.parameters())
         self.gui_params = list(netD.parameters()) + list(fake_unet.parameters())
@@ -188,7 +204,8 @@ class DMD2Trainer:
     def _unet(self, model: nn.Module, x: torch.Tensor, t: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
         """The denoiser in eval mode with the condition kept, NCHW in and out."""
-        out = model(x.permute(0, 2, 3, 1), t, self.fn_y2h(labels), train=False)
+        out = sharded_apply(self._mesh, model, x.permute(0, 2, 3, 1), t, self.fn_y2h(labels),
+                            train=False)
         return out.permute(0, 3, 1, 2)
 
     def _d_out(self, images, labels, train: bool, gen, draws: dict) -> torch.Tensor:
@@ -200,7 +217,7 @@ class DMD2Trainer:
         if cfg.gan_DiffAugment:
             images = diff_augment(images, cfg.gan_DiffAugment_policy, gen, draws.get("aug"))
         noisy = q_sample(self.schedule, images, t, noise)
-        return self.netD(noisy, self.fn_y2h(labels), train=train)
+        return sharded_apply(self._mesh, self.netD, noisy, self.fn_y2h(labels), train=train)
 
     # -------------------------------------------------------- loss pieces
 
@@ -295,11 +312,11 @@ class DMD2Trainer:
         cfg, draws = self.cfg, draws or {}
         targets = self._draw_target_labels(gen, draws)
         z = self._z(gen, draws)
-        fake = self.netG(z, self.fn_y2h(targets), train=True)
+        fake = sharded_apply(self._mesh, self.netG, z, self.fn_y2h(targets), train=True)
         dm = self._dm_loss(fake, targets, gen, draws.get("dm", {}))
         adv = self._adv_g(self._d_out(fake, targets, False, gen, draws.get("adv", {})))
         loss = dm + cfg.weight_generator_adv * adv
-        grads = _grads(loss, self.gen_params)
+        grads = all_reduce_grads(self._mesh, _grads(loss, self.gen_params))
         adam_update(self.gen_opt, clip_by_global_norm(grads, cfg.max_grad_norm),
                     cfg.train_lr_generator, *ADAM_BETAS, weight_decay=WEIGHT_DECAY,
                     params=[p.data for p in self.gen_params])
@@ -313,13 +330,13 @@ class DMD2Trainer:
         fake_labels = self._draw_fake_labels(targets, gen, draws)
         z = self._z(gen, draws)
         with torch.no_grad():  # netG in train mode: its statistics move here too
-            fake = self.netG(z, self.fn_y2h(fake_labels), train=True)
+            fake = sharded_apply(self._mesh, self.netG, z, self.fn_y2h(fake_labels), train=True)
         d_real = self._d_out(real, targets, True, gen, draws.get("adv_real", {}))
         d_fake = self._d_out(fake, targets, True, gen, draws.get("adv_fake", {}))
         adv = self._adv_d(d_real, d_fake)
         dn = self._denoising_loss(fake, targets, gen, draws.get("dn", {}))
         loss = dn + cfg.weight_guidance_adv * adv
-        grads = _grads(loss, self.gui_params)
+        grads = all_reduce_grads(self._mesh, _grads(loss, self.gui_params))
         adam_update(self.gui_opt, clip_by_global_norm(grads, cfg.max_grad_norm),
                     cfg.train_lr_guidance, *ADAM_BETAS, weight_decay=WEIGHT_DECAY,
                     params=[p.data for p in self.gui_params])
@@ -332,14 +349,15 @@ class DMD2Trainer:
         steps, a log line every log_every steps (and at step 1), an
         eval-mode grid every sample_every, a milestone every save_every."""
         cfg = self.cfg
-        logger = TrainLogger(cfg.results_folder, cfg.niters)
+        main = self.mesh.is_main
+        logger = TrainLogger(cfg.results_folder, cfg.niters) if main else None
         while self.step < cfg.niters:
             gen = step_generator(cfg.seed, self.step, self.device)
             g_loss, dm, g_adv = self.g_step(gen)
             d_losses = [self.d_step(gen)[0] for _ in range(cfg.num_D_steps)]
             self.step += 1
             step = self.step
-            if step % cfg.log_every == 0 or step == 1:
+            if main and (step % cfg.log_every == 0 or step == 1):
                 d_loss = float(torch.stack(d_losses).mean()) if d_losses else float("nan")
                 msg = {"step": step, "g_loss": float(g_loss), "dm_loss": float(dm),
                        "g_adv": float(g_adv), "d_loss": d_loss}
@@ -348,7 +366,7 @@ class DMD2Trainer:
                 if progress:
                     print(f"dmd step {step}/{cfg.niters} g={msg['g_loss']:.4f} d={d_loss:.4f}",
                           flush=True)
-            if step % cfg.sample_every == 0:
+            if main and step % cfg.sample_every == 0:
                 self._dump_visual_grid(step)
             if step % cfg.save_every == 0:
                 self.save(step)
@@ -409,8 +427,11 @@ class DMD2Trainer:
                 "gen_opt": opt(self.gen_opt), "gui_opt": opt(self.gui_opt)}
 
     def save(self, milestone) -> str:
-        return save_checkpoint(self.cfg.results_folder, f"dmd-{milestone}",
-                               self.checkpoint_tree())
+        """Rank 0 writes the milestone (JAX dmd.py:478), then the ranks meet."""
+        path = save_checkpoint(self.cfg.results_folder, f"dmd-{milestone}",
+                               self.checkpoint_tree()) if self.mesh.is_main else ""
+        barrier(self.mesh)
+        return path
 
     def load(self, milestone) -> None:
         self.load_tree(load_checkpoint(self.cfg.results_folder, f"dmd-{milestone}"))

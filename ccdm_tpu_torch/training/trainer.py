@@ -18,6 +18,14 @@ With `aux_info` ({apply, lambda_aux, aux_start_step}, from main.py's
 258-264): vicinity_radius defaults to kappa's first entry and current_step
 is the step's own; the logged steps carry the term's mean as "aux".
 
+With a data-parallel `mesh` (parallel/mesh.py; by default create_mesh(),
+the process group's, as JAX's trainer builds its mesh over every device)
+every rank draws the step at the global batch and runs the model on its
+own rows (`GaussianDiffusion.loss(mesh=...)`); the gradients are summed over
+the ranks before the clip, so Adam and the EMA move every rank's weights
+alike. Milestones, logs and grids are written by rank 0, after which the
+ranks meet at a barrier.
+
 `sample_given_labels` (trainer.py:444-514) samples a list of labels with
 the diffusion's model in chunks, by DDIM or the ancestral sampler, each
 chunk's labels passed on for H(y) (trainer.py:433, 482, 487); each
@@ -44,6 +52,7 @@ from ccdm_tpu_torch.ops.vicinal import (
     pairwise_distance,
     soft_weights_from_targets,
 )
+from ccdm_tpu_torch.parallel.mesh import all_reduce_grads, barrier, create_mesh, replicated
 from ccdm_tpu_torch.training.hyperparams import compute_vicinal_hyperparams
 from ccdm_tpu_torch.training.state import (
     EmaConfig,
@@ -102,9 +111,10 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, diffusion, train_images: np.ndarray, train_labels: np.ndarray,
-                 config: TrainerConfig, aux_info: Optional[dict] = None):
+                 config: TrainerConfig, aux_info: Optional[dict] = None, mesh=None):
         """diffusion: a GaussianDiffusion whose model is on its device;
-        train_images [N, H, W, C] uint8; train_labels [N] or [N, D] in [0, 1]."""
+        train_images [N, H, W, C] uint8; train_labels [N] or [N, D] in [0, 1];
+        mesh: a parallel.Mesh, by default the process group's."""
         cfg = config
         if train_images.dtype != np.uint8 or train_images.max() <= 1:
             raise ValueError("train_images must be raw uint8 (reference contract trainer.py:89)")
@@ -130,7 +140,8 @@ class Trainer:
             np.unique(labels2d, axis=0).astype(np.float32)).to(self.device)
         self.ema_cfg = EmaConfig(beta=cfg.ema_decay, update_after_step=cfg.ema_update_after_step,
                                  update_every=cfg.ema_update_every)
-        self.state: TrainState = create_train_state(diffusion.model)
+        self.mesh = mesh if mesh is not None else create_mesh()
+        self.state: TrainState = create_train_state(replicated(self.mesh, diffusion.model))
         # the trainer's own copy; current_step is set at every step
         self.aux_info = None if aux_info is None else {
             "vicinity_radius": float(np.atleast_1d(np.asarray(self.kappa))[0]), **aux_info}
@@ -196,8 +207,9 @@ class Trainer:
 
     # ---------------------------------------------------------- train step
 
-    def _micro_loss(self, fn_y2h: Callable, gen, draws):
-        """The loss of one micro-batch, or (loss, aux term) with aux_info."""
+    def _micro_loss(self, fn_y2h: Callable, gen, draws, mesh):
+        """The loss of one micro-batch, or (loss, aux term) with aux_info;
+        the batch is drawn whole and the model runs on `mesh`'s rows."""
         cfg = self.config
         aux_info = self.aux_info
         images01, _, loss_labels, labels_emb, weights, kappa = self._make_batch(
@@ -205,19 +217,22 @@ class Trainer:
         if cfg.vicinal_mode == "target":
             return self.diffusion.weighted_loss(images01, loss_labels, labels_emb, weights,
                                                 train=True, gen=gen, draws=draws,
-                                                aux_info=aux_info)
+                                                aux_info=aux_info, mesh=mesh)
         use_batch_weights = cfg.vicinity_type != "none"
         return self.diffusion.loss(images01, loss_labels, labels_emb,
                                    vicinal_weights=weights if use_batch_weights else None,
                                    kappa=kappa, train=True, gen=gen, draws=draws,
-                                   aux_info=aux_info)
+                                   aux_info=aux_info, mesh=mesh)
 
     def compute_grads(self, fn_y2h: Callable, gen: Optional[torch.Generator] = None,
                       draws: Optional[Sequence[dict]] = None):
         """(mean loss, gradients averaged over the micro-batches, in
         model.parameters() order). The BatchNorm running statistics move
-        once per micro-batch, as the JAX step carries them."""
+        once per micro-batch, as the JAX step carries them. On a mesh the
+        loss is the global batch's and the gradients are summed over the
+        ranks (where the batch divides by the mesh size)."""
         acc = self.config.gradient_accumulate_every
+        mesh = self.mesh.over(self.config.train_batch_size)
         model = self.state.model
         params = list(model.parameters())
         for p in params:
@@ -227,7 +242,7 @@ class Trainer:
         if self.aux_info is not None:
             self.aux_info["current_step"] = self.state.step
         for i in range(acc):
-            loss = self._micro_loss(fn_y2h, gen, draws[i] if draws else None)
+            loss = self._micro_loss(fn_y2h, gen, draws[i] if draws else None, mesh)
             if self.aux_info is not None:
                 loss, aux = loss
                 aux_total = aux_total + (aux.detach() if torch.is_tensor(aux) else aux)
@@ -237,7 +252,7 @@ class Trainer:
         grads = [p.grad / acc if p.grad is not None else torch.zeros_like(p) for p in params]
         for p in params:
             p.grad = None
-        return total / acc, grads
+        return total / acc, all_reduce_grads(mesh, grads)
 
     def apply_gradients(self, grads: list) -> None:
         """Clip, Adam, step + 1, EMA (trainer.py:318-329)."""
@@ -261,7 +276,9 @@ class Trainer:
         train_num_steps, logging every log_every steps and saving a
         milestone every save_every."""
         cfg = self.config
-        logger = TrainLogger(cfg.results_folder, cfg.train_num_steps, tb=cfg.tb_log)
+        main = self.mesh.is_main
+        logger = TrainLogger(cfg.results_folder, cfg.train_num_steps, tb=cfg.tb_log) \
+            if main else None
         timer = StepTimer()
         step = self.state.step
         window_t0, window_start = time.perf_counter(), step
@@ -271,7 +288,7 @@ class Trainer:
             loss = self.train_step(fn_y2h, gen)
             timer.stop()
             step += 1
-            if step % cfg.log_every == 0 or step == 1:
+            if main and (step % cfg.log_every == 0 or step == 1):
                 loss_val = float(loss)  # waits for the device, once per window
                 per_step = (time.perf_counter() - window_t0) / max(step - window_start, 1)
                 eff_batch = cfg.train_batch_size * cfg.gradient_accumulate_every
@@ -285,7 +302,7 @@ class Trainer:
                     print(f"step {step}/{cfg.train_num_steps} loss {loss_val:.4f} "
                           f"({per_step * 1e3:.0f} ms)", flush=True)
                 window_t0, window_start = time.perf_counter(), step
-            if cfg.y_visual is not None and step % cfg.sample_every == 0:
+            if main and cfg.y_visual is not None and step % cfg.sample_every == 0:
                 self._save_visual_grid(fn_y2h, step)
             if step % cfg.save_every == 0:
                 self.save(step)
@@ -320,8 +337,12 @@ class Trainer:
     # --------------------------------------------------------- checkpoints
 
     def save(self, milestone) -> str:
-        return save_checkpoint(self.config.results_folder, milestone,
-                               checkpoint_tree(self.state))
+        """Rank 0 writes the milestone (JAX trainer.py:519), then the ranks
+        meet; the others return ""."""
+        path = save_checkpoint(self.config.results_folder, milestone,
+                               checkpoint_tree(self.state)) if self.mesh.is_main else ""
+        barrier(self.mesh)
+        return path
 
     def load(self, milestone) -> None:
         load_train_state(self.state, load_checkpoint(self.config.results_folder, milestone))

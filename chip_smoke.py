@@ -275,10 +275,39 @@ Phases, each announced on a flushed line before it starts:
      level, then one JSON line {"kernels": [...]} with errors, times and
      bounds of all 12 kernels (#1 with its route per shape, #12 with the
      card's own time beside F.leaky_relu's);
-  25. the card's name and power limit, then the last line
-     {"ok": true, "device": {...}}.
+  25. the card's name and power limit;
+  26. data parallelism (data_parallel_path, build/smoke_dp, deleted
+     after): (a) `python -m ccdm_tpu_torch.main` at phase 8's width, batch
+     and dtype (the Gaussian-Fourier label embedding), 5 steps, in its own
+     process three times: twice without and once under the env triplet
+     (CCDM_COORD_ADDR, CCDM_NUM_PROCS 1, CCDM_PROC_ID 0), the first two at
+     once: the backend NCCL, and the milestone's parameters and BatchNorm
+     statistics within twice the spread of the two runs without it; (b) two
+     ranks on cuda:0 joined over gloo (NCCL refuses two ranks on one card)
+     pass their mesh to main.py's Trainer (build_trainer): 3 steps at 64
+     rows a rank against one process on the same 128 rows: the first loss
+     within 2^-7 relative and the later ones within 1e-2, the first step's
+     gradients summed over the ranks (before the clip and Adam) within
+     DP_GRAD_RTOL of each leaf's scale, the parameters by the CPU tests'
+     Adam rule (_adam_rule), losses, gradients, parameters and statistics
+     bit for bit across the ranks, launches exactly 8 of #1 and 2 each of
+     #2-#5 a step on each rank, every (B, N, C, dtype) among phase 3's (#1)
+     and phase 6's (#2-#5); (c) one CcGAN iteration (SNGAN 64/64/256,
+     batch 64, 2 D steps, the global ConditionalBatchNorm) on the same two
+     ranks against one process: the first loss within 1e-5 and the later
+     ones within 1e-3, each step's summed gradients within DP_GRAD_RTOL of
+     each leaf's scale, statistics within 1e-4, parameters by the Adam rule; (d) the
+     synthetic bundle written to a native cache (data/native_loader.py),
+     a batch of 128 gathered into pinned memory and copied to the card,
+     equal to the bank there (and, flipped, the bank's or its mirror), the
+     gather and the copy timed; (e) the flagship's Upsample levels of
+     source 32^2 and up, each fold variant against the reference route (f32
+     within 2e-5 and bf16 within 5e-2 of max(1, |y|)), both timed in bf16
+     (the UNet keeps the reference: the fold loses on the card); then one
+     JSON line {"data_parallel": ...}, the card's line
+     again and the last line {"ok": true, "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
-main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21, 22, 23) starts from
+main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21, 22, 23, 26) starts from
 launch counts set to 0 and reads them just after; the paths of phases 5,
 8, 11, 12, 18, 19, 20, 21 and 23 launch none of #6-#9 and #12, phase 22's
 and phase 23's GANs none of #1-#12. TF32 is off for the
@@ -296,7 +325,9 @@ import faulthandler
 import io
 import json
 import math
+import os
 import shutil
+import socket
 import struct
 import subprocess
 import sys
@@ -787,9 +818,12 @@ LARGE_SHAPES = [(4096, 64), (2048, 64), (16384, 64), (4096, 128), (36864, 64), (
 # versions' f32 intermediates ([B, N, 3F] and more) at B 128 would take tens of GB
 LARGE_BATCH = {(36864, 64): 32}
 # each shape at its batch in bf16 and f32, then the extra cases: the
-# Cell-200 teacher's top level in f32 at B 64, phase 23's class UNet training
+# Cell-200 teacher's top level in f32 at B 64, phase 23's class UNet
+# training, and the flagship's top level in bf16 at B 64, a rank's rows in
+# phase 26's two-rank training
 LARGE_CASES = ([(n, c, LARGE_BATCH.get((n, c), TRAIN_BATCH), (torch.bfloat16, torch.float32))
-                for n, c in LARGE_SHAPES] + [(4096, 32, 64, (torch.float32,))])
+                for n, c in LARGE_SHAPES] + [(4096, 32, 64, (torch.float32,)),
+                                             (4096, 64, 64, (torch.bfloat16,))])
 LARGE = ("attn_ctx_large", "attn_out_large", "attn_bwd_a", "attn_bwd_b")
 LARGE_OUTPUTS = {"attn_ctx_large": ("kmax", "a", "s"), "attn_out_large": ("y",),
                  "attn_bwd_a": ("do", "d_ctx", "d_wout", "d_bout", "d_gout"),
@@ -3509,6 +3543,475 @@ def slice4_kernel_rows(la_rows: dict, tp_rows: dict, ba_rows: dict, path: dict, 
     return out
 
 
+# ------------------------------------------------------ data parallelism
+
+DP_RUN = Path(__file__).resolve().parent / "build" / "smoke_dp"
+DP_WORLD1_STEPS = 5
+DP_STEPS = 3   # the two-rank steps, 64 rows a rank
+DP_LR = 1e-4   # TRAIN_ARGV's --train_lr
+# the Gaussian-Fourier label embedding (what --label_embed random selects):
+# with the sinusoidal one a batch's conditioning BatchNorm input varies so
+# little that mean(x^2) - mean(x)^2 is mostly rounding, and the weights
+# upstream of it move apart under any two reduction orders
+# (scripts/dp_grad_gap.py on the CPU at dim 8: their mean error 0.31 of
+# their movement after 3 steps, against 8.4e-03 with this embedding)
+DP_ARGV = [*TRAIN_ARGV, "--niters", str(DP_WORLD1_STEPS), "--save_every", str(DP_WORLD1_STEPS),
+           "--log_every", "1", "--y2h_embed_type", "gaussian"]
+# one CcGAN iteration at JAX's default SNGAN widths, batch 64 (32 a rank),
+# 2 D steps, the sinusoidal y2h (no ILI nets to train)
+DP_CCGAN_ARGV = [*BASE_COMMON, "--gan_arch", "sngan", "--gene_ch", "64", "--disc_ch", "64",
+                 "--dim_gan", "256", "--batch_size_disc", "64", "--batch_size_gene", "64",
+                 "--num_D_steps", "2", "--loss_type", "hinge", "--threshold_type", "hard",
+                 "--gan_DiffAugment", "--y2h_embed_type", "sinusoidal", "--niters", "1"]
+DP_CCGAN_LR = 1e-4  # ccgan_main's default --lr_g and --lr_d
+# the two ranks against one process: a rank runs its convs on half the
+# batch and the BatchNorm sums over the ranks, so they round apart.
+# - the losses: the first (no update yet) within 2^-7 relative in bf16 (two
+#   bf16 units) and 1e-5 in f32 (TF32 off); the later ones, after Adam's
+#   sign steps on the elements whose gradient lies within rounding of 0
+#   parted the weights, within DP_LATER_RTOL (about 3x and 10x the H100
+#   readings, 3.72e-03 in bf16 and 9.16e-05 in f32);
+# - the gradients summed over the ranks, before the clip and Adam: the
+#   UNet's first step, and each of CcGAN's three (its G step is the one
+#   through the ConditionalBatchNorm): each leaf within DP_GRAD_RTOL of
+#   max(its largest |g|, DP_GRAD_FLOOR of the step's largest). Both are
+#   ReLU nets: where a leaf's gradient sums few terms (a bias at 4x4), a
+#   unit that f32 rounding moves across 0 moves it by ~1e-3 of its scale,
+#   so two reductions of one batch part by 1e-2 (the readings: 1.55e-02
+#   bf16, 1.96e-02 f32 on an H100; 1.11e-02 for CcGAN on the CPU at these
+#   widths). 5e-2 lies below what a wrong reduction gives (H100 readings
+#   of scripts/dp_grad_gap.py, which puts each fault in at run time):
+#   gradients averaged where they are summed 0.5, the gather's backward on
+#   the other rank's rows 0.345 and up, BatchNorm sums whose backward is
+#   not all-reduced 51 and up;
+# - the parameters by tests/test_torch_parallel_trainers.py's Adam rule:
+#   every element within 2.006 lr a step (Adam's bias-corrected step is at
+#   most 1.003 lr at t <= 3), and each leaf's mean error within 0.1 of its
+#   mean movement where its first moment is at least 1e-4 of the largest;
+# - the f32 statistics within 1e-4 relative to max(1, |x|).
+DP_LOSS_RTOL = {"bf16": 2.0 ** -7, "f32": 1e-5}
+DP_LATER_RTOL = {"bf16": 1e-2, "f32": 1e-3}
+DP_GRAD_RTOL = 5e-2
+DP_GRAD_FLOOR = 1e-3
+DP_ADAM_CEILING = 2.006
+DP_PER_STEP = {"attn_block": 8, **{k: 2 for k in LARGE}}  # launches a train step, each rank
+FOLD_TOL = {"float32": 2e-5, "bfloat16": 5e-2}  # tests/test_upsample_fold.py's bounds
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _cuda_env() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _main_run(root: Path, env: dict, device) -> dict:
+    """`python -m ccdm_tpu_torch.main` with DP_ARGV in its own process; its
+    stdout and the milestone's parameters and statistics."""
+    repo = Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-m", "ccdm_tpu_torch.main", "--root_path", str(root),
+                           "--device", device.type, *DP_ARGV], cwd=repo, capture_output=True,
+                          text=True, timeout=300, env={**os.environ, **env})
+    if proc.returncode != 0:
+        raise AssertionError(f"main.py failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    from ccdm_tpu_torch import main as port_main
+
+    results = Path(port_main.results_folder(parse_opts(
+        ["--root_path", str(root), "--device", device.type, *DP_ARGV])))
+    tree = torch.load(results / f"model-{DP_WORLD1_STEPS}" / "state.pt", weights_only=False)
+    return {"stdout": proc.stdout, "tensors": [*tree["params"], *tree["batch_stats"]]}
+
+
+def _max_diff(a: list, b: list) -> float:
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def world1_nccl(device, card: str) -> dict:
+    """(a) main.py under the env triplet at world size 1 (NCCL), against the
+    same argv without it; the bound is twice the spread of two runs without
+    it (cuDNN's weight-gradient algorithms need not be deterministic), and
+    exact equality where that spread is 0."""
+    with ThreadPoolExecutor(2) as pool:  # the two runs without it share the card at once
+        plain = list(pool.map(lambda i: _main_run(DP_RUN / f"plain{i}", {}, device), range(2)))
+    triplet = _main_run(DP_RUN / "world1", {"CCDM_COORD_ADDR": f"localhost:{_free_port()}",
+                                           "CCDM_NUM_PROCS": "1", "CCDM_PROC_ID": "0"},
+                        device)
+    line = [ln for ln in triplet["stdout"].splitlines() if "torch.distributed:" in ln]
+    want = "nccl" if device.type == "cuda" else "gloo"
+    backend = want if line and f"({want})" in line[0] else (line[0] if line else "none")
+    spread = _max_diff(plain[0]["tensors"], plain[1]["tensors"])
+    diff = _max_diff(plain[0]["tensors"], triplet["tensors"])
+    bound = 2 * spread
+    print(f"   (a) {line[0].strip() if line else 'no bootstrap line'}; {DP_WORLD1_STEPS} steps, "
+          f"batch {TRAIN_BATCH}, bf16: parameters and BatchNorm statistics differ from the "
+          f"run without the triplet by {diff:.3e} (bound {bound:.3e}: twice the spread "
+          f"{spread:.3e} of two runs without it) on {card}", flush=True)
+    if backend != want or diff > bound:
+        raise AssertionError(f"world 1: backend {backend}, diff {diff} > bound {bound}")
+    return {"backend": backend, "max_abs_diff": diff, "spread": spread, "bound": bound}
+
+
+def _cpu(ts) -> list:
+    """f32 copies on the host (copies on the CPU too: the steps work in place)."""
+    return [t.detach().to("cpu", torch.float32, copy=True) for t in ts]
+
+
+@contextlib.contextmanager
+def summed_grads(module, first: int):
+    """The gradients that `module`'s steps take from all_reduce_grads
+    (summed over the ranks, before the clip and Adam): CPU f32 copies of
+    its first `first` calls."""
+    real, seen = module.all_reduce_grads, []
+
+    def spy(mesh, grads):
+        out = real(mesh, grads)
+        if len(seen) < first:
+            seen.append(_cpu(out))
+        return out
+
+    module.all_reduce_grads = spy
+    try:
+        yield seen
+    finally:
+        module.all_reduce_grads = real
+
+
+def dp_unet_steps(device, mesh, root: Path, argv: list) -> dict:
+    """DP_STEPS train steps of main.py's Trainer on `mesh`, each drawn from
+    the generator Trainer.train gives it; #1-#5 counted from 0 and their
+    launch shapes recorded; the first step's summed gradients."""
+    from ccdm_tpu_torch import main as port_main
+    from ccdm_tpu_torch.training import trainer as trainer_mod
+    from ccdm_tpu_torch.training.trainer import chunk_seed
+
+    args = parse_opts(["--root_path", str(root), "--device", str(device), *argv])
+    trainer, _, fn_y2h, _ = port_main.build_trainer(args, device, mesh)
+    losses, step_ms = [], []
+    init = _cpu(trainer.state.model.parameters())
+    _reset_counts()
+    with attn_shapes() as shapes, large_shapes() as big, summed_grads(trainer_mod, 1) as summed:
+        for step in range(DP_STEPS):
+            gen = torch.Generator(device=device).manual_seed(chunk_seed(args.seed, step))
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(fn_y2h, gen)))  # float() waits for the card
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v for k, v in _counts().items() if k in ("attn_block", *LARGE)}
+    s = trainer.state
+    out = {"losses": losses, "step_ms": step_ms}
+    if mesh.size > 1:  # the gradients' all-reduce alone, host clock, 3 calls after one
+        from ccdm_tpu_torch.parallel.mesh import all_reduce_grads
+
+        grads = [torch.zeros_like(p) for p in s.model.parameters()]
+        all_reduce_grads(mesh, grads)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            all_reduce_grads(mesh, grads)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out["all_reduce_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        out["all_reduce_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    return {**out, "params": _cpu(s.model.parameters()), "init": init, "mu": _cpu(s.mu),
+            "steps": [DP_STEPS] * len(init), "grads": summed,
+            "stats": _cpu(b for b in s.model.buffers() if b.is_floating_point()),
+            "counts": counts, "shapes": sorted(shapes), "large_shapes": sorted(big)}
+
+
+def dp_ccgan_iteration(device, mesh, root: Path, argv: list) -> dict:
+    """One CcGAN iteration (2 D steps, one G step) of ccgan_main's trainer on
+    `mesh`, drawn from step_generator(seed, 0) as CcGANTrainer.train does."""
+    from ccdm_tpu_torch import ccgan_main
+    from ccdm_tpu_torch.training import ccgan as ccgan_mod
+    from ccdm_tpu_torch.training.dmd import stats_of
+    from ccdm_tpu_torch.training.optim import step_generator
+
+    args = ccgan_main.parse_opts_ccgan(["--root_path", str(root), "--device", str(device),
+                                        *argv])
+    trainer = ccgan_main.build_trainer(args, device, mesh)[0]
+    gen = step_generator(args.seed, 0, device)
+    init = _cpu([*trainer.g_params, *trainer.d_params])
+    with summed_grads(ccgan_mod, args.num_D_steps + 1) as grads:
+        d = [float(trainer.d_step(trainer.uses_nda(0), gen)) for _ in range(args.num_D_steps)]
+        g = float(trainer.g_step(gen))
+    steps = [1] * len(trainer.g_params) + [args.num_D_steps] * len(trainer.d_params)
+    return {"losses": [*d, g], "params": _cpu([*trainer.g_params, *trainer.d_params]),
+            "init": init, "mu": _cpu([*trainer.g_opt.mu, *trainer.d_opt.mu]), "steps": steps,
+            "grads": grads, "stats": _cpu([*stats_of(trainer.netG), *stats_of(trainer.netD)])}
+
+
+def _dp_rank(rank: int, port: int, out: str, device: str, argv: list,
+             ccgan_argv: list) -> None:
+    """One of two ranks on `device` (cuda:0), joined over gloo (NCCL refuses
+    two ranks on one card): dp_unet_steps and dp_ccgan_iteration on their
+    mesh."""
+    import torch.distributed as dist
+    from ccdm_tpu_torch.parallel.mesh import create_mesh
+
+    _cuda_env()
+    device = torch.device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    try:
+        mesh = create_mesh(devices=[device, device])
+        result = {"unet": dp_unet_steps(device, mesh, Path(out) / f"unet_rank{rank}", argv),
+                  "ccgan": dp_ccgan_iteration(device, mesh, Path(out) / f"ccgan_rank{rank}",
+                                              ccgan_argv)}
+        torch.save(result, Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _two_ranks(out: Path, device) -> list:
+    """Spawn the two ranks and wait for them (at most 600 s); the ranks'
+    results."""
+    import torch.multiprocessing as mp
+
+    device = "cuda:0" if device.type == "cuda" else str(device)
+    ctx = mp.start_processes(_dp_rank, args=(_free_port(), str(out), device, DP_ARGV,
+                                             DP_CCGAN_ARGV), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + 600
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the two ranks did not finish within 600 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def _grad_errors(got: list, want: list) -> list:
+    """Each leaf's max |got - want| over max(its largest |want|,
+    DP_GRAD_FLOOR of the list's largest)."""
+    largest = max(float(w.abs().max()) for w in want)
+    return [float((g - w).abs().max()) / max(float(w.abs().max()), DP_GRAD_FLOOR * largest)
+            for g, w in zip(got, want)]
+
+
+def _adam_rule(got: dict, one: dict, lr: float) -> dict:
+    """tests/test_torch_parallel_trainers.py's Adam rule: each element
+    within DP_ADAM_CEILING lr a step, and each leaf's mean error within 0.1
+    of its mean movement where its first moment is at least 1e-4 of the
+    largest (elsewhere the gradient is ~0 and Adam's step is its sign)."""
+    largest = max(float(m.abs().max()) for m in one["mu"])
+    ceiling, mean_ratio, checked = 0.0, 0.0, 0
+    for g, w, p0, m, n in zip(got["params"], one["params"], one["init"], one["mu"],
+                              one["steps"]):
+        err = (g - w).abs()
+        ceiling = max(ceiling, float(err.max()) / (DP_ADAM_CEILING * lr * n))
+        if float(m.abs().max()) >= 1e-4 * largest:
+            mean_ratio = max(mean_ratio, float(err.mean()) / float((w - p0).abs().mean()))
+            checked += 1
+    return {"ceiling": ceiling, "mean_ratio": mean_ratio, "checked": checked,
+            "leaves": len(one["params"])}
+
+
+def _hold_ranks(what: str, ranks: list, one: dict, dtype: str, lr: float,
+                stat_tol: float | None, held_grads: int = 1) -> dict:
+    """The two ranks bit for bit against each other (losses, summed
+    gradients, parameters, statistics), and against the one process: the
+    first loss within DP_LOSS_RTOL, the later ones within DP_LATER_RTOL, the
+    first `held_grads` steps' summed gradients by leaf within DP_GRAD_RTOL,
+    the parameters by _adam_rule, the statistics within stat_tol (relative
+    to max(1, |x|)) where given."""
+    a, b = ranks
+    equal = (all(torch.equal(x, y) for key in ("params", "stats")
+                 for x, y in zip(a[key], b[key])) and a["losses"] == b["losses"]
+             and all(torch.equal(x, y) for ga, gb in zip(a["grads"], b["grads"])
+                     for x, y in zip(ga, gb)))
+    rel = [abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a["losses"], one["losses"])]
+    grads = [max(_grad_errors(ga, g1)) for ga, g1 in zip(a["grads"], one["grads"])]
+    adam = _adam_rule(a, one, lr)
+    stat_err = max(float(((x - y).abs() / y.abs().clamp_min(1.0)).max())
+                   for x, y in zip(a["stats"], one["stats"]))
+    print(f"   {what}: losses two ranks {[round(v, 6) for v in a['losses']]}, one process "
+          f"{[round(v, 6) for v in one['losses']]} (rel {[f'{v:.2e}' for v in rel]}; bounds "
+          f"{DP_LOSS_RTOL[dtype]:.2e} first, {DP_LATER_RTOL[dtype]:.0e} after an update); "
+          f"summed gradients, the worst leaf of each step {[f'{v:.2e}' for v in grads]} (bound "
+          f"{DP_GRAD_RTOL:.0e} on the first {held_grads}); parameters: the worst element "
+          f"{adam['ceiling']:.3f} of {DP_ADAM_CEILING} lr a step, the worst leaf's mean error "
+          f"{adam['mean_ratio']:.3e} of its movement (bound 0.1, {adam['checked']} of "
+          f"{adam['leaves']} leaves held); statistics max rel {stat_err:.2e}; ranks bit-equal: "
+          f"{equal}", flush=True)
+    if not equal:
+        raise AssertionError(f"{what}: the two ranks disagree")
+    if rel[0] > DP_LOSS_RTOL[dtype] or max(rel[1:]) > DP_LATER_RTOL[dtype]:
+        raise AssertionError(f"{what}: loss rel {rel}")
+    if max(grads[:held_grads]) > DP_GRAD_RTOL:
+        raise AssertionError(f"{what}: summed gradients {grads}")
+    if adam["ceiling"] > 1 or adam["mean_ratio"] > 0.1 or 2 * adam["checked"] < adam["leaves"]:
+        raise AssertionError(f"{what}: parameters {adam}")
+    if stat_tol is not None and stat_err > stat_tol:
+        raise AssertionError(f"{what}: statistics {stat_err} > {stat_tol}")
+    return {"ranks_equal": equal, "loss_rel": rel, "grad_rel": grads, "adam": adam,
+            "stat_max_rel": stat_err, "losses": a["losses"], "losses_one": one["losses"]}
+
+
+def two_ranks_and_ccgan(device, card: str, record: dict, parts) -> None:
+    """(b) two ranks on cuda:0 over gloo against one process: DP_STEPS train
+    steps at the flagship's width, 64 rows a rank; (c) one CcGAN iteration."""
+    from ccdm_tpu_torch.parallel.mesh import Mesh
+
+    ranks = _two_ranks(DP_RUN / "ranks", device)
+    one_mesh = Mesh(device=device)
+    if "two_ranks" in parts:
+        one = dp_unet_steps(device, one_mesh, DP_RUN / "unet_one", DP_ARGV)
+        got = _hold_ranks("(b) train steps", [r["unet"] for r in ranks], one, "bf16", DP_LR,
+                          None)
+        per_step = {k: v * DP_STEPS for k, v in DP_PER_STEP.items()}
+        for r, rank in enumerate(ranks):
+            counts = rank["unet"]["counts"]
+            if counts != per_step:
+                raise AssertionError(f"rank {r}: launches {counts}, expected {per_step}")
+        shapes = {tuple(s) for r in ranks for s in r["unet"]["shapes"]}
+        big = {tuple(s) for r in ranks for s in r["unet"]["large_shapes"]}
+        rank0 = ranks[0]["unet"]
+        got.update(launches_per_rank=rank0["counts"], attn_shapes=checked_in_phase_3(shapes),
+                   large_shapes=checked_in_phase_6(big), step_ms=rank0["step_ms"],
+                   step_ms_one=one["step_ms"], all_reduce_ms=rank0["all_reduce_ms"],
+                   all_reduce_bytes=rank0["all_reduce_bytes"])
+        print(f"   (b) launches per rank {got['launches_per_rank']} over {DP_STEPS} steps; #1 "
+              f"at {got['attn_shapes']} (phase 3), #2-#5 at {got['large_shapes']} (phase 6); "
+              f"steps {[round(v, 1) for v in rank0['step_ms']]} ms on two ranks, "
+              f"{[round(v, 1) for v in one['step_ms']]} on one (host clock); the gradients' "
+              f"all-reduce over gloo {rank0['all_reduce_ms']:.1f} ms for "
+              f"{rank0['all_reduce_bytes'] / 1e6:.1f} MB on {card}", flush=True)
+        record["two_ranks"] = got
+    if "ccgan" in parts:
+        one = dp_ccgan_iteration(device, one_mesh, DP_RUN / "ccgan_one", DP_CCGAN_ARGV)
+        record["ccgan"] = _hold_ranks("(c) CcGAN iteration", [r["ccgan"] for r in ranks], one,
+                                      "f32", DP_CCGAN_LR, 1e-4, held_grads=3)
+
+
+def native_gather_check(device, record: dict, folder: str) -> None:
+    """(d) the synthetic bundle written to a native cache, a batch of
+    TRAIN_BATCH gathered into pinned memory, copied to the card and held to
+    the bank there (exact; with the flip, each image the bank's or its
+    mirror)."""
+    from ccdm_tpu_torch.data.datasets import load_dataset
+    from ccdm_tpu_torch.data.native_loader import NativeDatasetCache
+
+    bundle = load_dataset("synthetic", None, image_size=64, channels=3)
+    path = str(Path(folder) / "bank.ccdmcache")
+    NativeDatasetCache.write(path, bundle.images, bundle.labels_norm)
+    cache = NativeDatasetCache(path)
+    bank = torch.from_numpy(bundle.images).to(device)
+    idx = np.random.default_rng(0).integers(0, len(bundle.images), TRAIN_BATCH)
+    pin = device.type == "cuda"
+    imgs = torch.empty((TRAIN_BATCH, *bundle.images.shape[1:]), dtype=torch.uint8,
+                       pin_memory=pin)
+    labs = torch.empty((TRAIN_BATCH, cache.ldim), dtype=torch.float32, pin_memory=pin)
+    gather_ms = host_ms(lambda: cache.gather(idx, out=(imgs, labs)), reps=10, warmup=2)
+    copy_ms = time_ms(lambda: imgs.to(device, non_blocking=True), reps=10, warmup=2)
+    on_card = imgs.to(device, non_blocking=True)
+    want = bank[torch.from_numpy(idx).to(device)]
+    exact = bool(torch.equal(on_card, want)) and bool(torch.equal(
+        labs, torch.from_numpy(np.asarray(bundle.labels_norm, np.float32).reshape(
+            len(bundle.images), -1)[idx])))
+    flipped = cache.gather(idx, hflip=True, seed=1, out=(imgs, labs))[0].to(device)
+    mirror = bool(((flipped == want).flatten(1).all(1) | (flipped == want.flip(2)).flatten(1)
+                   .all(1)).all())
+    nbytes = imgs.numel()
+    print(f"   (d) native cache of {len(bundle.images)} images: a batch of {TRAIN_BATCH} "
+          f"gathered into pinned memory in {gather_ms:.3f} ms (host clock), copied to the card "
+          f"in {copy_ms:.3f} ms ({nbytes / copy_ms / 1e6:.2f} GB/s); equal to the bank on the "
+          f"card: {exact}; flipped batch the bank's or its mirror: {mirror}", flush=True)
+    if not (exact and mirror):
+        raise AssertionError("the native gather disagrees with the bank")
+    record["native_gather"] = {"exact": exact, "mirror": mirror, "gather_ms": gather_ms,
+                               "copy_ms": copy_ms, "bytes": nbytes}
+
+
+def upsample_fold_check(device, record: dict, variants=("conv3", "conv2x3")) -> None:
+    """(e) the flagship UNet's Upsample levels with a source of 32^2 and up
+    (its B-64 forward's shapes): the fold of each variant against the
+    reference route, f32 (TF32 off) and bf16, both timed in bf16. The UNet
+    itself keeps the reference route (ops/upsample_fold.py)."""
+    from ccdm_tpu_torch.models.layers import Upsample
+    from ccdm_tpu_torch.ops import upsample_fold as uf
+
+    model = Unet(**UNET, seed=0).to(device, memory_format=torch.channels_last).eval()
+    levels, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, Upsample):
+            hooks.append(m.register_forward_hook(
+                lambda mod, inp, out: levels.append((mod, tuple(inp[0].shape)))))
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(BATCH, 64, 64, 3, device=device, generator=gen)
+    t = torch.randint(0, 1000, (BATCH,), device=device, generator=gen)
+    emb = torch.randn(BATCH, 128, device=device, generator=gen)
+    keep = torch.ones(BATCH, dtype=torch.bool, device=device)
+    with torch.no_grad():  # the levels' input shapes
+        model(x, t, emb, keep)
+    for h in hooks:
+        h.remove()
+    big = [(m, s) for m, s in levels if s[2] * s[3] >= 32 * 32]
+    rows, out = {}, {"bound": max(FOLD_TOL.values())}
+    for variant in variants:
+        for m, shape in big:
+            tag = f"{variant} B{shape[0]} C{shape[1]}->{m.conv.out_channels} {shape[2]}x{shape[3]}"
+            row = {}
+            for dt in (torch.float32, torch.bfloat16):
+                xin = torch.randn(shape, device=device, generator=gen).to(dt)
+                with torch.no_grad():
+                    got = uf.upsample_conv3x3_folded(xin, m.conv.weight, m.conv.bias, variant)
+                    ref = uf.upsample_conv3x3_reference(xin, m.conv.weight, m.conv.bias)
+                name = str(dt).removeprefix("torch.")
+                err = float((got.float() - ref.float()).abs().max() /
+                            max(1.0, float(ref.float().abs().max())))
+                row[f"err_{name}"] = err
+                if err > FOLD_TOL[name]:
+                    raise AssertionError(f"fold {tag} {name}: {err} > {FOLD_TOL[name]}")
+                if dt == torch.bfloat16:
+                    with torch.no_grad():
+                        row["ms"] = time_ms(lambda: uf.upsample_conv3x3_folded(
+                            xin, m.conv.weight, m.conv.bias, variant))
+                        row["reference_ms"] = time_ms(lambda: uf.upsample_conv3x3_reference(
+                            xin, m.conv.weight, m.conv.bias))
+            rows[tag] = row
+            print(f"   (e) {tag}: f32 err {row['err_float32']:.2e} (bound "
+                  f"{FOLD_TOL['float32']:.0e}), bf16 err {row['err_bfloat16']:.2e} (bound "
+                  f"{FOLD_TOL['bfloat16']:.0e}); bf16 fold {row['ms']:.4f} ms, reference "
+                  f"{row['reference_ms']:.4f} ms", flush=True)
+        out[variant] = {"levels": {k: v for k, v in rows.items() if k.startswith(variant)},
+                        "max_abs_err": max(v["err_bfloat16"] for k, v in rows.items()
+                                           if k.startswith(variant))}
+    record["upsample_fold"] = out
+
+
+def data_parallel_path(device, card: str, record: dict,
+                       parts=("world1", "two_ranks", "ccgan", "native", "fold")) -> dict:
+    """Phase 26 (module docstring); build/smoke_dp is deleted after."""
+    shutil.rmtree(DP_RUN, ignore_errors=True)
+    DP_RUN.mkdir(parents=True)
+    if device.type == "cuda":  # the earlier phases' cached blocks, for the phase's processes
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(device)
+        print(f"   this process holds {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB; "
+              f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card", flush=True)
+    t0 = time.perf_counter()
+    try:
+        if "world1" in parts:
+            record["world1"] = world1_nccl(device, card)
+        if "two_ranks" in parts or "ccgan" in parts:
+            two_ranks_and_ccgan(device, card, record, parts)
+        if "native" in parts:
+            native_gather_check(device, record, str(DP_RUN))
+        if "fold" in parts:
+            upsample_fold_check(device, record)
+    finally:
+        shutil.rmtree(DP_RUN, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - t0
+    print(f"   phase 26 took {record['seconds']:.1f} s", flush=True)
+    return record
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)
     if not torch.cuda.is_available():
@@ -3519,12 +4022,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/25 device")
+    phase("1/26 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/25 build")
+    phase("2/26 build")
     libraries = ("attn_block", "attn_block_large", "resnet_block", "linear_attention",
                  "style_ops")
     t0 = time.perf_counter()
@@ -3539,26 +4042,26 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/25 attn_block kernel against its plain version")
+    phase("3/26 attn_block kernel against its plain version")
     rows, rows_by_batch = kernel_vs_plain(device)
 
-    phase("4/25 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/26 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/25 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/26 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/25 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
+    phase("6/26 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
           "bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
     other_dim_head = dim_head_vs_plain(device)
 
-    phase("7/25 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/26 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
     grads_hy = grad_parity(device, use_hy=True)
 
-    phase(f"8/25 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/26 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
     trained = train_main_path(
         device, card, TRAIN_ARGV, TRAIN_STEPS,
@@ -3566,18 +4069,18 @@ def main() -> int:
          **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, train_checks(card))
 
-    phase("9/25 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+    phase("9/26 kernels #10 and #11 (the fused resnet block) against their plain versions, "
           "f32 and bf16")
     resnet_rows = resnet_vs_plain(device)
 
-    phase("10/25 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    phase("10/26 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
     fused_parity = fused_model_parity(device)
 
-    phase(f"11/25 main path with the switch on: SamplerService over HTTP, bf16, batch "
+    phase(f"11/26 main path with the switch on: SamplerService over HTTP, bf16, batch "
           f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
     fused_served = fused_serve_main_path(device, card)
 
-    phase(f"12/25 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+    phase(f"12/26 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
           f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
     fused_trained = train_main_path(
         device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
@@ -3588,24 +4091,24 @@ def main() -> int:
          **{k: 0 for k in NEW_KERNELS}},
         True, fused_train_checks(card))
 
-    phase("13/25 kernels #6 and #9 (standalone linear attention) against their plain versions")
+    phase("13/26 kernels #6 and #9 (standalone linear attention) against their plain versions")
     la_rows = la_vs_plain(device)
 
-    phase("14/25 kernels #7 + #8 (its two-pass form) against their plain versions")
+    phase("14/26 kernels #7 + #8 (its two-pass form) against their plain versions")
     tp_rows = twopass_vs_plain(device)
 
-    phase("15/25 kernel #12 (bias_act) against its plain version")
+    phase("15/26 kernel #12 (bias_act) against its plain version")
     ba_rows = bias_act_vs_plain(device)
 
-    phase("16/25 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
+    phase("16/26 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
           "the two-pass route, linear_attention_per_head, bias_act")
     la_path = la_main_path(device)
 
-    phase("17/25 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
+    phase("17/26 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
           "kernel forward against the plain route")
     la_grads = la_grad_parity(device)
 
-    phase(f"18/25 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
+    phase(f"18/26 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
           f"bf16, {RECIPE_STEPS} steps, then serving from its milestone")
     recipe = train_main_path(
         device, card, RECIPE_ARGV, RECIPE_STEPS,
@@ -3613,7 +4116,7 @@ def main() -> int:
          **{k: 2 * RECIPE_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, recipe_checks(card, trained["train_images_per_s"]))
 
-    phase(f"19/25 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
+    phase(f"19/26 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
           f"{MULTIDIM_DIMS} dims, shv, resnet ILI, cross_attention), batch {TRAIN_BATCH}, bf16, "
           f"{MULTIDIM_STEPS} steps; (a') the same with the sinusoidal y2h, {ANALYTIC_STEPS} "
           f"steps; (b) the elastic aux loss, the trajectory GIF and the interpolation, "
@@ -3643,7 +4146,7 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C, dtype) {multidim['attn_shapes']} in this phase, each "
           f"checked against its plain version in phase 3", flush=True)
 
-    phase(f"20/25 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
+    phase(f"20/26 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
           f"training, batch {TRAIN_BATCH}, bf16, {EVAL_STEPS} steps, {len(EVAL_ANGLES)} labels x "
           f"{EVAL_NFAKE} images at 10 DDIM steps, then --comp_FID with PRDC, NIQE, iFID and "
           f"the analyses")
@@ -3662,7 +4165,7 @@ def main() -> int:
         shutil.rmtree(EVAL_RUN, ignore_errors=True)
         raise
 
-    phase(f"21/25 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
+    phase(f"21/26 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
           f"backbones), SNGAN 64/64/256, batch {TRAIN_BATCH}, 2 D steps, DiffAugment, "
           f"{DMD_STEPS} iterations, {len(EVAL_ANGLES)} labels x {DMD_NFAKE} one-step images, "
           f"--comp_FID ({DMD_CENTERS} windows), --interpolation --sefa; SAGAN "
@@ -3671,13 +4174,13 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C, dtype) {dmd['attn_shapes']} in this phase, each checked "
           f"against its plain version in phase 3", flush=True)
 
-    phase(f"22/25 the ADM and ViT denoisers: main.py --architecture adm (64, 1_2_4_8, attention "
+    phase(f"22/26 the ADM and ViT denoisers: main.py --architecture adm (64, 1_2_4_8, attention "
           f"at 4_8), batch {TRAIN_BATCH}, {ADM_STEPS} steps, then --architecture vit (width 512, "
           f"8 blocks, 4096 tokens), batch {VIT_BATCH}, {VIT_STEPS} steps; each sampled, served "
           f"over HTTP and held against the CPU")
     denoisers = denoisers_main_path(device, card)
 
-    phase(f"23/25 the baselines: (a) ccgan_main SNGAN 64/64/256, batch 64, hard, Dual-NDA "
+    phase(f"23/26 the baselines: (a) ccgan_main SNGAN 64/64/256, batch 64, hard, Dual-NDA "
           f"from iteration 10, {BASE_GAN_STEPS} iterations in two calls, (a') SAGAN soft "
           f"vanilla, {BASE_SHORT_STEPS} iterations; (b) classgan_main studiogan D2D-CE "
           f"{BASE_GAN_STEPS} and ADC {BASE_SHORT_STEPS} iterations; (c) cfg and (d) admg: the "
@@ -3685,7 +4188,7 @@ def main() -> int:
           f"{BASE_FAKES} fakes at {BASE_SAMPLE_STEPS} steps")
     baselines = baselines_main_path(device, card)
 
-    phase("24/25 kernels")
+    phase("24/26 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -3771,7 +4274,15 @@ def main() -> int:
     kernels += slice4_kernel_rows(la_rows, tp_rows, ba_rows, la_path, la_grads, card)
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("25/25 done")
+    phase("25/26 the card")
+    print(card, flush=True)
+
+    phase(f"26/26 data parallelism: (a) main.py under the env triplet at world 1 over NCCL, "
+          f"{DP_WORLD1_STEPS} steps, against the same run without it; (b) two ranks on one card "
+          f"over gloo, {DP_STEPS} train steps at 64 rows a rank, against one process; (c) one "
+          f"CcGAN iteration on two ranks; (d) the native dataset cache; (e) the folded upsample")
+    parallel = data_parallel_path(device, card, {})
+    print(json.dumps({"data_parallel": parallel}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

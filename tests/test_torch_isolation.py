@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from ccdm_tpu_torch import ccgan_main, classgan_main, dmd_main, serve, serve_dmd
+from ccdm_tpu_torch import ccgan_main, classgan_main, dmd_main, main, serve, serve_dmd
 from ccdm_tpu_torch.opts import parse_opts
 from ccdm_tpu_torch.utils.device import resolve_device
 
@@ -62,7 +62,9 @@ def test_port_and_smoke_script_import_no_jax():
                  "training.diffaugment", "training.dmd", "models.unet_adm", "models.vit",
                  "diffusion.respace", "diffusion.guided", "training.resample",
                  "training.classgan", "training.ccgan", "training.gan_config",
-                 "utils.kvlogger", "ccgan_main", "classgan_main"):
+                 "utils.kvlogger", "ccgan_main", "classgan_main", "parallel",
+                 "parallel.mesh", "data.native_loader", "ops.upsample_fold",
+                 "utils.profiling"):
         assert f"ccdm_tpu_torch.{name}" in report["new"], name
     assert [m for m in report["new"] if _is_jax(m)] == []
 
@@ -135,6 +137,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         classgan_main.main(["--niters", "0"])
     assert resolve_device("cpu") == torch.device("cpu")
+    # the env triplet of a multi-process run: without a card and without
+    # --device cpu every entry point raises before it starts gloo on the CPU
+    monkeypatch.setenv("CCDM_COORD_ADDR", "localhost:1")
+    monkeypatch.setenv("CCDM_NUM_PROCS", "2")
+    monkeypatch.setenv("CCDM_PROC_ID", "0")
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda *a, **k: pytest.fail("a process group was started on the CPU"))
+    for entry in (main.main, dmd_main.main, ccgan_main.main, classgan_main.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(["--niters", "0"])
 
 
 @pytest.mark.parametrize("flags", [["--architecture", "vit"], ["--architecture", "adm"],
