@@ -30,8 +30,9 @@
 // exported as ccdm_attn_block_plan), never on failure:
 // - CUDA cores, for f32 and for the bf16 shapes the tensor-core routes do
 //   not take (H != 4, D != 32, C > 512, and C > 416 past 77 to 108 tokens,
-//   where neither route's shared memory fits; none on the path of the
-//   64x64, 128x128 or 192x192 UNet at their D of 32), at any D:
+//   where neither route's shared memory fits; at D 32 none on the path of
+//   the 64x64, 128x128 or 192x192 UNet at dim 64, but UK64's dim 72 gives
+//   its N 16 level C 576), at any D:
 //   the design of the first port, three launches per call: qkv_kernel writes
 //   the qkv projection [B, N, 3F] in f32 to the workspace, ctx_kernel the
 //   per-head context, out_kernel the rest. In f32 it serves the checks whose
@@ -860,7 +861,8 @@ struct Plan {
 // the CUDA cores for f32 and for bf16 shapes the tensor-core routes do not
 // take (H != 4, dim_head != 32, C > 512, or a shape whose blocks' shared
 // memory would not fit, as C 512 past N 77; none on the path of the 64x64,
-// 128x128 or 192x192 UNet at their dim_head), through an f32 qkv workspace.
+// 128x128 or 192x192 UNet at dim 64 and their dim_head, but UK64's N 16
+// level at C 576), through an f32 qkv workspace.
 Plan make_plan(int batch, int n, int c, int heads, int dim_head, int is_bf16) {
   Plan p{kRouteCores, 1, 0};
   if (batch < 1 || n < 1 || c < 1 || heads < 1 || dim_head < 1) return Plan{kRouteNone, 0, 0};

@@ -42,10 +42,11 @@
 // the tensor cores with few intermediates in device memory come near that.
 // Routes of #2-#5 (make_large_plan, exported as ccdm_attn_large_plan; a
 // function of the shape alone, never of a failure):
-//   - tensor cores, for bf16 at 4 heads of 32 and C a multiple of 32 up to 128
-//     (every two-pass shape of the 64x64, 128x128 and 192x192 UNets): the
-//     sections "bf16 forward: tensor cores" and "bf16 backward: tensor
-//     cores" below;
+//   - tensor cores, for bf16 at 4 heads of 32 and C up to 128, a multiple of
+//     32 for #2 and #3 and of 8 for #4 and #5 (every two-pass shape of the
+//     64x64, 128x128 and 192x192 UNets at dim 64; UK64's C 72 at dim 72
+//     takes it for #4 and #5 only): the sections "bf16 forward: tensor
+//     cores" and "bf16 backward: tensor cores" below;
 //   - CUDA cores, for f32 (the checks whose bounds TF32 would break) and
 //     every other shape, at any D: the first design, every product as f32 FMAs from
 //     shared memory in register tiles of 8 tokens, the weight products
@@ -55,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "ptx.cuh"
 #include "common.cuh"
@@ -767,10 +770,16 @@ sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out, int ou
 
 
 // ----------------------------------------- bf16 backward: tensor cores
-// #4 and #5 in bf16 at 4 heads and C a multiple of 32 up to 128 (every
-// two-pass shape of the 64x64, 128x128 and 192x192 UNets). Every product
-// runs as mma.sync m16n8k16 (bf16 operands, f32 sums) from ldmatrix; the
-// norms, softmaxes and their backward run in f32 on the accumulators.
+// #4 and #5 in bf16 at 4 heads and C a multiple of 8 up to 128 (every
+// two-pass shape of the 64x64, 128x128 and 192x192 UNets; C 72 of UK64's
+// dim 72). Every product runs as mma.sync m16n8k16 (bf16 operands, f32
+// sums) from ldmatrix; the norms, softmaxes and their backward run in f32
+// on the accumulators. In shared memory C is padded to whole 32-column
+// accumulator blocks (pad32: 72 -> 96): the x, xn and do tiles, Wq's and
+// Wqkv's rows, Wout's columns and the vectors are zero past C (copy_rows
+// zero-fills them), so every product and every sum of squares over the
+// padding adds exact zeros; the norms divide by the true C, the products
+// over C skip the K slices past it, and nothing past C is stored.
 // A block has 8 warps and walks 128-token tiles; a warp owns 16 rows of a
 // tile across its whole width, so that every sum over a row (the norms, a
 // head's softmax, the out-norm's backward) stays inside a quad of lanes.
@@ -812,6 +821,9 @@ static_assert(kThreads == 256 && kTM == 128, "8 warps of 16 rows");
 
 // bf16 per row of a [tokens][C] tile.
 __host__ __device__ constexpr int ldc(int c) { return c + 8; }
+// C rounded up to whole 32-column accumulator blocks: #4's and #5's width
+// in shared memory.
+__host__ __device__ constexpr int pad32(int c) { return (c + 31) / 32 * 32; }
 
 // Byte offsets of #4's shared memory: Wq [C][kLF], Wout [F][C + 8], ctx
 // [F][kLH], g_pre, bout, g_out [3][C] f32, the x tile (then xn, then do in
@@ -960,17 +972,19 @@ __device__ __forceinline__ void head_softmax(Acc& a, const Quad& q, int valid, f
   }
 }
 
-// The warp's 16 rows at src ([16][ld], C = c, c % 32 == 0) to dst (the same
-// layout; dst may be src): row <- bf16(row / rms(row) * g), rows past valid
-// zeros; 1 / rms to inv_out[r] where given. Two lanes a row, each summing
-// the squares of its half of the row (c / 16 chunks of 8) in order, then
-// the two halves; 1 / rms correctly rounded (__frsqrt_rn), so that a plain
-// version can form the same xn (ops/attn_block.tensor_route_prenorm).
-// #2-#5 all form xn here: the k whose column max #2 writes is the k that
-// #5 exponentiates.
+// The warp's 16 rows at src ([16][ld], cp columns, cp % 32 == 0, zeros from
+// column c on, as in g) to dst (the same layout; dst may be src): row <-
+// bf16(row / rms(row) * g) with the mean over the c true columns, rows past
+// valid zeros; 1 / rms to inv_out[r] where given. Two lanes a row, each
+// summing the squares of its half of the padded row (cp / 16 chunks of 8)
+// in order, then the two halves; 1 / rms correctly rounded (__frsqrt_rn),
+// so that a plain version can form the same xn
+// (ops/attn_block.tensor_route_prenorm). Where #2-#5 all take the tensor
+// route (C % 32 == 0) they all form xn here: the k whose column max #2
+// writes is the k that #5 exponentiates.
 __device__ void warp_norm16(bf16* dst, const bf16* src, int ld, const float* g, int valid, int c,
-                            float* inv_out, int lane) {
-  const int r = lane >> 1, off = (lane & 1) * (c / 2), chunks = c / 16;
+                            int cp, float* inv_out, int lane) {
+  const int r = lane >> 1, off = (lane & 1) * (cp / 2), chunks = cp / 16;
   const bf16* row = src + r * ld + off;
   float ss = 0.f;
   for (int k = 0; k < chunks; ++k) {
@@ -1000,19 +1014,20 @@ __device__ void warp_norm16(bf16* dst, const bf16* src, int ld, const float* g, 
 }
 
 // The attention of a warp's 16 rows of xn at xw (row stride C + 8, C = 32
-// NC): per head h, q' = softmax(xn . Wq_h) D^-1/2 (rows at or past valid
+// NC; the K slices of q = xn . Wq below kc, those that hold a column < the
+// true C): per head h, q' = softmax(xn . Wq_h) D^-1/2 (rows at or past valid
 // zeros) and out_h = q' . ctx_h, each rounded to bf16, and o[j] += out .
 // Wout[:, 32 j, 32 j + 32). q' and out also go to qs_w and out_w ([16][kLF])
 // where given (#4's sums over the tokens). #3's forward and #4's recompute of
 // it, so that #4 rebuilds exactly the o that #3 normalised.
 template <int NC>
-__device__ __forceinline__ void attn_rows(Acc (&o)[NC], const bf16* xw, const bf16* wq_s,
+__device__ __forceinline__ void attn_rows(Acc (&o)[NC], const bf16* xw, int kc, const bf16* wq_s,
                                           const bf16* ctx_s, const bf16* wo_s, const Quad& q,
                                           int valid, bf16* qs_w, bf16* out_w) {
   constexpr int C = 32 * NC, LC = ldc(C);
   for (int h = 0; h < kHeads; ++h) {
     float qa[4][4] = {};
-    mma_rows(qa, xw, LC, wq_s + h * kD, kLF, C, q.lane);
+    mma_rows(qa, xw, LC, wq_s + h * kD, kLF, kc, q.lane);
     head_softmax(qa, q, valid, rsqrtf((float)kD));
     if (qs_w) store_rows(qs_w + h * kD, kLF, qa, q, 16);
     uint32_t aq[2][4];
@@ -1124,7 +1139,7 @@ ctx_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
     __syncthreads();
     const int rows = min(kTM, n - tile * kTM);
     warp_norm16(cur + w * 16 * lc, cur + w * 16 * lc, lc, gs, max(0, min(16, rows - w * 16)), c,
-                nullptr, threadIdx.x & 31);
+                c, nullptr, threadIdx.x & 31);
     __syncthreads();
     for (int half = 0; half < 2; ++half) {
       float kv[2][2][4][4] = {};
@@ -1204,10 +1219,10 @@ out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
     cp_async_wait<1>();  // this tile's rows have landed
     __syncwarp();
     const int valid = rows_of(tile);
-    warp_norm16(xnw, cur, LC, vs, valid, C, nullptr, q.lane);
+    warp_norm16(xnw, cur, LC, vs, valid, C, C, nullptr, q.lane);
     __syncwarp();
     float o[NC][4][4] = {};
-    attn_rows<NC>(o, xnw, wq_s, ctx_s, wo_s, q, valid, nullptr, nullptr);
+    attn_rows<NC>(o, xnw, C, wq_s, ctx_s, wo_s, q, valid, nullptr, nullptr);
     // o += bout; y = x + o r2 g_out with r2 = 1 / rms(o), as #4 recomputes it
     float ss[2] = {0.f, 0.f};
 #pragma unroll
@@ -1255,9 +1270,10 @@ out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
 }
 
 // #4: block (z, b) walks the tiles of split z of batch row b and writes the
-// block's partials part = b * splits + z: d_ctx [F][D], dbout [C], dg_out
-// [C], dWout [F][C]; do (f32) for its tokens.
-template <int NC>
+// block's partials part = b * splits + z: d_ctx [F][D], dbout [c], dg_out
+// [c], dWout [F][c]; do (f32) for its tokens. C = 32 NC = pad32(c); kPad
+// where c < C (else c is C at compile time, the route's code at C % 32 == 0).
+template <int NC, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                 const float* __restrict__ g_pre, const bf16* __restrict__ wqkv,
@@ -1265,8 +1281,10 @@ bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                 const float* __restrict__ bout, const float* __restrict__ g_out,
                 float* __restrict__ do_g, float* __restrict__ dctx_part,
                 float* __restrict__ db_part, float* __restrict__ dg_part,
-                float* __restrict__ dwout_part, int n, int splits, int vec) {
+                float* __restrict__ dwout_part, int n, int c_in, int splits, int vec) {
   constexpr int C = 32 * NC, LC = ldc(C);
+  const int c = kPad ? c_in : C;
+  const int kc = kPad ? (c + 15) / 16 * 16 : C;  // the K slices over C that hold a column < c
   extern __shared__ __align__(16) float smem[];
   char* base = reinterpret_cast<char*>(smem);
   const BwdALayout l = bwd_a_layout(C);
@@ -1282,18 +1300,19 @@ bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   const Quad q;
   const int b = blockIdx.y, part = b * splits + blockIdx.x, r0 = q.w * 16;
   const TileRange tr(blockIdx.x, splits, (n + kTM - 1) / kTM);
-  const bf16* xb = x + (size_t)b * n * C;
-  const bf16* dyb = dy + (size_t)b * n * C;
-  float* dob = do_g + (size_t)b * n * C;
+  const bf16* xb = x + (size_t)b * n * c;
+  const bf16* dyb = dy + (size_t)b * n * c;
+  float* dob = do_g + (size_t)b * n * c;
 
-  copy_rows(wq_s, kLF, wqkv, 3 * kF, C, C, kF, vec, threadIdx.x, kThreads);
-  copy_rows(wo_s, LC, wout, C, kF, kF, C, vec, threadIdx.x, kThreads);
+  copy_rows(wq_s, kLF, wqkv, 3 * kF, C, c, kF, vec, threadIdx.x, kThreads);
+  copy_rows(wo_s, LC, wout, c, kF, kF, C, vec, threadIdx.x, kThreads, c);
   copy_rows(ctx_s, kLH, ctx + (size_t)b * kF * kD, kD, kF, kF, kD, vec, threadIdx.x, kThreads);
   cp_async_commit();
   for (int i = threadIdx.x; i < C; i += kThreads) {
-    vs[i] = g_pre[i];
-    vs[C + i] = bout[i];
-    vs[2 * C + i] = g_out[i];
+    const bool in = i < c;
+    vs[i] = in ? g_pre[i] : 0.f;
+    vs[C + i] = in ? bout[i] : 0.f;
+    vs[2 * C + i] = in ? g_out[i] : 0.f;
   }
   for (int i = threadIdx.x; i < kWarps * 2 * C; i += kThreads) red_s[i] = 0.f;
 
@@ -1306,17 +1325,18 @@ bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   for (int tile = tr.t0; tile < tr.t1; ++tile) {
     const int t0 = tile * kTM, rows = min(kTM, n - t0);
     const int valid = max(0, min(16, rows - r0));
-    copy_rows(xn_s, LC, xb + (size_t)t0 * C, C, kTM, rows, C, vec, threadIdx.x, kThreads);
+    copy_rows(xn_s, LC, xb + (size_t)t0 * c, c, kTM, rows, C, vec, threadIdx.x, kThreads, c);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    warp_norm16(xw, xw, LC, vs, valid, C, nullptr, q.lane);
+    warp_norm16(xw, xw, LC, vs, valid, c, C, nullptr, q.lane);
     __syncwarp();
     float o[NC][4][4] = {};
-    attn_rows<NC>(o, xw, wq_s, ctx_s, wo_s, q, valid, qs_s + r0 * kLF, out_s + r0 * kLF);
+    attn_rows<NC>(o, xw, kc, wq_s, ctx_s, wo_s, q, valid, qs_s + r0 * kLF, out_s + r0 * kLF);
     // o += bout; the out-norm's backward: do = r2 dy g_out - o r2^3 mean(o dy g_out)
+    // (o, dy and do are 0 past c)
     const bool ok[2] = {q.g < valid, q.g + 8 < valid};
-    const size_t row0 = (size_t)(t0 + r0 + q.g) * C, row1 = row0 + 8 * (size_t)C;
+    const size_t row0 = (size_t)(t0 + r0 + q.g) * c, row1 = row0 + 8 * (size_t)c;
     float dyv[NC][4][4];
     float ss[2] = {0.f, 0.f}, dot[2] = {0.f, 0.f};
 #pragma unroll
@@ -1327,7 +1347,7 @@ bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
         for (int e = 0; e < 4; ++e) {
           const int col = j * 32 + ni * 8 + 2 * q.t + (e & 1), h = e >> 1;
           const float ov = o[j][ni][e] + vs[C + col];
-          const float dv = ok[h] ? bf(dyb[(h ? row1 : row0) + col]) : 0.f;
+          const float dv = ok[h] && col < c ? bf(dyb[(h ? row1 : row0) + col]) : 0.f;
           o[j][ni][e] = ov;
           dyv[j][ni][e] = dv;
           ss[h] = fmaf(ov, ov, ss[h]);
@@ -1336,8 +1356,8 @@ bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     float r2[2], dm[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      r2[h] = rsqrtf(quad_sum(ss[h]) / (float)C + 1e-12f);
-      dm[h] = quad_sum(dot[h]) / (float)C;
+      r2[h] = rsqrtf(quad_sum(ss[h]) / (float)c + 1e-12f);
+      dm[h] = quad_sum(dot[h]) / (float)c;
     }
 #pragma unroll
     for (int j = 0; j < NC; ++j)
@@ -1351,7 +1371,7 @@ bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
           for (int h = 0; h < 2; ++h) {
             const float ov = o[j][ni][2 * h + e], dv = dyv[j][ni][2 * h + e];
             const float d = r2[h] * dv * vs[2 * C + col] - ov * (r2[h] * r2[h] * r2[h]) * dm[h];
-            if (ok[h]) dob[(h ? row1 : row0) + col] = d;
+            if (ok[h] && col < c) dob[(h ? row1 : row0) + col] = d;
             db += d;
             dg = fmaf(dv * ov, r2[h], dg);
             o[j][ni][2 * h + e] = d;
@@ -1378,6 +1398,7 @@ bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       for (int j = 0; j < NC; ++j)
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
+          if (j * 32 + kk * 16 >= kc) continue;
           uint32_t bfr[2][4];
           b_nk(bfr, wo_s + h * kD * LC + j * 32 + kk * 16, LC, q.lane);
           mma_n32(da, ado[j][kk], bfr);
@@ -1403,7 +1424,7 @@ bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   cp_async_wait<0>();
   __syncthreads();
   float* dcp = dctx_part + (size_t)part * kF * kD;
-  float* dwp = dwout_part + (size_t)part * kF * C;
+  float* dwp = dwout_part + (size_t)part * kF * c;
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -1411,22 +1432,24 @@ bwd_a_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       const int r = q.g + 8 * (e >> 1), col = ni * 8 + 2 * q.t + (e & 1);
       dcp[(hh * kD + d0 + r) * kD + col] = dctx[ni][e];
 #pragma unroll
-      for (int j = 0; j < NC; ++j) dwp[(r0 + r) * C + j * 32 + col] = dwo[j][ni][e];
+      for (int j = 0; j < NC; ++j)
+        if (j * 32 + col < c) dwp[(r0 + r) * c + j * 32 + col] = dwo[j][ni][e];
     }
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+  for (int i = threadIdx.x; i < c; i += kThreads) {
     float db = 0.f, dg = 0.f;
     for (int w = 0; w < kWarps; ++w) {
-      db += red_s[(2 * w) * C + c];
-      dg += red_s[(2 * w + 1) * C + c];
+      db += red_s[(2 * w) * C + i];
+      dg += red_s[(2 * w + 1) * C + i];
     }
-    db_part[(size_t)part * C + c] = db;
-    dg_part[(size_t)part * C + c] = dg;
+    db_part[(size_t)part * c + i] = db;
+    dg_part[(size_t)part * c + i] = dg;
   }
 }
 
 // #5: block (z, b) walks the tiles of split z of batch row b: dx, xn and
-// d_qkv (bf16) of its tokens, and the block's partial of dg_pre [C].
-template <int NC>
+// d_qkv (bf16) of its tokens, and the block's partial of dg_pre [c]. C = 32
+// NC = pad32(c); kPad as for #4.
+template <int NC, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                 const float* __restrict__ do_g, const float* __restrict__ g_pre,
@@ -1434,8 +1457,10 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                 const bf16* __restrict__ wout, const float* __restrict__ kmax,
                 const float* __restrict__ d_a, const float* __restrict__ d_s,
                 bf16* __restrict__ dx, bf16* __restrict__ xn_g, bf16* __restrict__ dqkv_g,
-                float* __restrict__ dg_part, int n, int splits, int vec) {
+                float* __restrict__ dg_part, int n, int c_in, int splits, int vec) {
   constexpr int C = 32 * NC, LC = ldc(C), F3 = 3 * kF;
+  const int c = kPad ? c_in : C;
+  const int kc = kPad ? (c + 15) / 16 * 16 : C;  // the K slices over C that hold a column < c
   extern __shared__ __align__(16) float smem[];
   char* base = reinterpret_cast<char*>(smem);
   const BwdBLayout l = bwd_b_layout(C);
@@ -1456,8 +1481,8 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   const size_t tok0 = (size_t)b * n;  // the batch row's first token
   const float scale = rsqrtf((float)kD);
 
-  copy_rows(w_s, kLW, wqkv, F3, C, C, F3, vec, threadIdx.x, kThreads);
-  copy_rows(wo_s, LC, wout, C, kF, kF, C, vec, threadIdx.x, kThreads);
+  copy_rows(w_s, kLW, wqkv, F3, C, c, F3, vec, threadIdx.x, kThreads);
+  copy_rows(wo_s, LC, wout, c, kF, kF, C, vec, threadIdx.x, kThreads, c);
   copy_rows(ctx_s, kLH, ctx + (size_t)b * kF * kD, kD, kF, kF, kD, vec, threadIdx.x, kThreads);
   cp_async_commit();
   for (int i = threadIdx.x; i < kF * kD; i += kThreads) {
@@ -1470,7 +1495,7 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     kmax_s[i] = kmax[(size_t)b * kF + i];
     ds_s[i] = d_s[(size_t)b * kF + i];
   }
-  for (int i = threadIdx.x; i < C; i += kThreads) gp_s[i] = g_pre[i];
+  for (int i = threadIdx.x; i < C; i += kThreads) gp_s[i] = i < c ? g_pre[i] : 0.f;
   for (int i = threadIdx.x; i < kWarps * C; i += kThreads) red_s[i] = 0.f;
   cp_async_wait<0>();
   __syncthreads();
@@ -1479,28 +1504,28 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   bf16* xw = xn_s + r0 * LC;
   auto rows_of = [&](int tile) { return max(0, min(16, min(kTM, n - tile * kTM) - r0)); };
   if (tr.t0 < tr.t1)
-    copy_rows(xw, LC, x + (tok0 + tr.t0 * kTM + r0) * C, C, 16, rows_of(tr.t0), C, vec, q.lane,
-              32);
+    copy_rows(xw, LC, x + (tok0 + tr.t0 * kTM + r0) * c, c, 16, rows_of(tr.t0), C, vec, q.lane,
+              32, c);
   cp_async_commit();
   for (int tile = tr.t0; tile < tr.t1; ++tile) {
     const int valid = rows_of(tile);
     const size_t trow = tok0 + (size_t)tile * kTM + r0;  // token of the warp's row 0
     cp_async_wait<0>();
     __syncwarp();
-    warp_norm16(xw, xw, LC, gp_s, valid, C, inv_s + r0, q.lane);
+    warp_norm16(xw, xw, LC, gp_s, valid, c, C, inv_s + r0, q.lane);
     __syncwarp();
-    for (int i = q.lane; i < valid * (C / 8); i += 32) {
-      const int r = i / (C / 8), ch = (i % (C / 8)) * 8;
-      *reinterpret_cast<uint4*>(xn_g + (trow + r) * C + ch) =
+    for (int i = q.lane; i < valid * (c / 8); i += 32) {  // xn [B N, c]: 16-byte rows
+      const int r = i / (c / 8), ch = (i % (c / 8)) * 8;
+      *reinterpret_cast<uint4*>(xn_g + (trow + r) * c + ch) =
           *reinterpret_cast<const uint4*>(xw + r * LC + ch);
     }
     const bool ok[2] = {q.g < valid, q.g + 8 < valid};
     // do, rounded, as the A fragments of d_out = do . Wout^T
     uint32_t ado[NC][2][4];
     {
-      const float* d0 = do_g + (trow + q.g) * C;
-      const float* d1 = d0 + 8 * (size_t)C;
-      auto ld = [&](const float* row, int h, int col) { return ok[h] ? row[col] : 0.f; };
+      const float* d0 = do_g + (trow + q.g) * c;
+      const float* d1 = d0 + 8 * (size_t)c;
+      auto ld = [&](const float* row, int h, int col) { return ok[h] && col < c ? row[col] : 0.f; };
 #pragma unroll
       for (int j = 0; j < NC; ++j)
 #pragma unroll
@@ -1537,6 +1562,7 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
         for (int j = 0; j < NC; ++j)
 #pragma unroll
           for (int kk = 0; kk < 2; ++kk) {
+            if (j * 32 + kk * 16 >= kc) continue;
             uint32_t bfr[2][4];
             b_nk(bfr, wo_s + h * kD * LC + j * 32 + kk * 16, LC, q.lane);
             mma_n32(da, ado[j][kk], bfr);
@@ -1553,7 +1579,7 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       // p = softmax(q_h); d_q = p (d_p - sum_d d_p p)
       {
         float pa[4][4] = {};
-        mma_rows(pa, xw, LC, w_s + h * kD, kLW, C, q.lane);
+        mma_rows(pa, xw, LC, w_s + h * kD, kLW, kc, q.lane);
         head_softmax(pa, q, valid, 1.f);
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
@@ -1577,7 +1603,7 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       float de[4][4] = {};
       {
         float va[4][4] = {};
-        mma_rows(va, xw, LC, w_s + 2 * kF + h * kD, kLW, C, q.lane);
+        mma_rows(va, xw, LC, w_s + 2 * kF + h * kD, kLW, kc, q.lane);
         uint32_t av[2][4];
         as_a(av, va);
 #pragma unroll
@@ -1591,11 +1617,12 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       }
       // e = exp(k_h - kmax); d_k = e (d_e + d_s); d_v = e_h . d_a_h (e rounded)
       float ea[4][4] = {};
-      mma_rows(ea, xw, LC, w_s + kF + h * kD, kLW, C, q.lane);
+      mma_rows(ea, xw, LC, w_s + kF + h * kD, kLW, kc, q.lane);
       if (h == kHeads - 1) {  // the last read of this warp's rows: load the next tile's
         __syncwarp();
         if (tile + 1 < tr.t1)
-          copy_rows(xw, LC, x + (trow + kTM) * C, C, 16, rows_of(tile + 1), C, vec, q.lane, 32);
+          copy_rows(xw, LC, x + (trow + kTM) * c, c, 16, rows_of(tile + 1), C, vec, q.lane, 32,
+                    c);
         cp_async_commit();
       }
 #pragma unroll
@@ -1624,11 +1651,11 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       emit(dv, 2 * kF + h * kD);
     }
     // the pre-norm's backward, dx = dy + inv du - x inv^3 mean(x du) with
-    // du = d_xn g_pre; dg_pre += d_xn x inv
+    // du = d_xn g_pre; dg_pre += d_xn x inv (d_xn, x and g_pre are 0 past c)
     float dg[NC][4][2] = {};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // rows past the tokens: zeros (the shuffles take every lane)
-      const size_t row = (trow + q.g + 8 * h) * C;
+      const size_t row = (trow + q.g + 8 * h) * c;
       const float inv = inv_s[r0 + q.g + 8 * h];
       float xv[NC][4][2];
       float dot = 0.f;
@@ -1639,10 +1666,10 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = j * 32 + ni * 8 + 2 * q.t + e;
-            xv[j][ni][e] = ok[h] ? bf(x[row + col]) : 0.f;
+            xv[j][ni][e] = ok[h] && col < c ? bf(x[row + col]) : 0.f;
             dot = fmaf(xv[j][ni][e], dxn[j][ni][2 * h + e] * gp_s[col], dot);
           }
-      dot = quad_sum(dot) / (float)C;
+      dot = quad_sum(dot) / (float)c;
 #pragma unroll
       for (int j = 0; j < NC; ++j)
 #pragma unroll
@@ -1652,7 +1679,7 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
             const int col = j * 32 + ni * 8 + 2 * q.t + e;
             const float g = dxn[j][ni][2 * h + e], xf = xv[j][ni][e];
             const float d = inv * g * gp_s[col] - xf * (inv * inv * inv) * dot;
-            if (ok[h]) dx[row + col] = __float2bfloat16(bf(dy[row + col]) + d);
+            if (ok[h] && col < c) dx[row + col] = __float2bfloat16(bf(dy[row + col]) + d);
             dg[j][ni][e] = fmaf(g * xf, inv, dg[j][ni][e]);
           }
     }
@@ -1668,10 +1695,10 @@ bwd_b_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   }
   cp_async_wait<0>();
   __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+  for (int i = threadIdx.x; i < c; i += kThreads) {
     float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red_s[w * C + c];
-    dg_part[(size_t)part * C + c] = s;
+    for (int w = 0; w < kWarps; ++w) s += red_s[w * C + i];
+    dg_part[(size_t)part * c + i] = s;
   }
 }
 
@@ -1836,13 +1863,14 @@ inline int clampi(long long v, int lo, long long hi) {
   return (int)(v < lo ? lo : v > hi ? hi : v);
 }
 
-// Shared-memory bytes of a block of kernel 2-5's tensor-core route at C.
+// Shared-memory bytes of a block of kernel 2-5's tensor-core route at C
+// (#4 and #5 at C padded to pad32).
 inline int tc_smem(int kernel, int c) {
   switch (kernel) {
     case 2: return ctx_layout(c).total;
     case 3: return out_layout(c).total;
-    case 4: return bwd_a_layout(c).total;
-    default: return bwd_b_layout(c).total;
+    case 4: return bwd_a_layout(pad32(c)).total;
+    default: return bwd_b_layout(pad32(c)).total;
   }
 }
 
@@ -1855,7 +1883,10 @@ LargePlan make_large_plan(int kernel, int batch, int n, int c, int heads, int di
   }
   const long long dh = dim_head, f = (long long)heads * dh, m = (long long)batch * n;
   const int esz = is_bf16 ? 2 : 4;
-  const bool tensor = is_bf16 && heads == kHeads && dim_head == kD && c % 32 == 0 &&
+  // #4 and #5 pad C to whole 32-column blocks in shared memory and need
+  // 16-byte rows (C % 8 == 0); #2 and #3 take C a multiple of 32
+  const int c_step = kernel >= 4 ? 8 : 32;
+  const bool tensor = is_bf16 && heads == kHeads && dim_head == kD && c % c_step == 0 &&
                       c <= kMaxC && tc_smem(kernel, c) <= kMaxSmem;
   if (tensor) {
     // splits a row: as many as fill one wave of the blocks an SM holds (two
@@ -1971,52 +2002,54 @@ int bwd_b_cores(const LargePlan& p, const void* x, const void* dy, const float* 
   return wgrad<T, T, T>(xn_g, dqkv_g, wg_part, dwqkv, batch * n_tok, c_dim, 3 * f, p.wsplits, st);
 }
 
-template <int NC>
+template <int NC, bool kPad>
 int bwd_a_tc(const LargePlan& p, const bf16* x, const bf16* dy, const float* g_pre,
              const bf16* wqkv, const bf16* ctx, const bf16* wout, const float* bout,
              const float* g_out, float* do_g, float* dctx, float* dwout, float* dbout,
-             float* dgout, void* ws, int batch, int n_tok, int vec, cudaStream_t st) {
+             float* dgout, void* ws, int batch, int n_tok, int c, int vec, cudaStream_t st) {
   constexpr int C = 32 * NC;
   char* r[5];
   carve(p, ws, r);
   float *dctx_part = reinterpret_cast<float*>(r[0]), *db_part = reinterpret_cast<float*>(r[1]),
         *dg_part = reinterpret_cast<float*>(r[2]), *dwout_part = reinterpret_cast<float*>(r[3]);
-  int err = allow_smem<bwd_a_tc_kernel<NC>>(kMaxSmem);
+  int err = allow_smem<bwd_a_tc_kernel<NC, kPad>>(kMaxSmem);
   if (err) return err;
-  bwd_a_tc_kernel<NC><<<dim3(p.splits, batch), kThreads, bwd_a_layout(C).total, st>>>(
+  bwd_a_tc_kernel<NC, kPad><<<dim3(p.splits, batch), kThreads, bwd_a_layout(C).total, st>>>(
       x, dy, g_pre, wqkv, ctx, wout, bout, g_out, do_g, dctx_part, db_part, dg_part, dwout_part,
-      n_tok, p.splits, vec);
+      n_tok, c, p.splits, vec);
   if ((err = check_last())) return err;
   const int parts = batch * p.splits;
   if ((err = sum_parts(dctx_part, dctx, batch, p.splits, kF * kD, st))) return err;
-  if ((err = sum_parts(db_part, dbout, 1, parts, C, st))) return err;
-  if ((err = sum_parts(dg_part, dgout, 1, parts, C, st))) return err;
-  return sum_parts(dwout_part, dwout, 1, parts, kF * C, st);
+  if ((err = sum_parts(db_part, dbout, 1, parts, c, st))) return err;
+  if ((err = sum_parts(dg_part, dgout, 1, parts, c, st))) return err;
+  return sum_parts(dwout_part, dwout, 1, parts, kF * c, st);
 }
 
-template <int NC>
+template <int NC, bool kPad>
 int bwd_b_tc(const LargePlan& p, const bf16* x, const bf16* dy, const float* do_g,
              const float* g_pre, const bf16* wqkv, const bf16* ctx, const bf16* wout,
              const float* kmax, const float* d_a, const float* d_s, bf16* dx, float* dwqkv,
-             float* dgpre, void* ws, int batch, int n_tok, int vec, cudaStream_t st) {
+             float* dgpre, void* ws, int batch, int n_tok, int c, int vec, cudaStream_t st) {
   constexpr int C = 32 * NC;
   char* r[5];
   carve(p, ws, r);
   bf16 *xn_g = reinterpret_cast<bf16*>(r[0]), *dqkv_g = reinterpret_cast<bf16*>(r[1]);
   float *dg_part = reinterpret_cast<float*>(r[2]), *wg_part = reinterpret_cast<float*>(r[3]);
-  int err = allow_smem<bwd_b_tc_kernel<NC>>(kMaxSmem);
+  int err = allow_smem<bwd_b_tc_kernel<NC, kPad>>(kMaxSmem);
   if (err) return err;
-  bwd_b_tc_kernel<NC><<<dim3(p.splits, batch), kThreads, bwd_b_layout(C).total, st>>>(
-      x, dy, do_g, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, dx, xn_g, dqkv_g, dg_part, n_tok,
+  bwd_b_tc_kernel<NC, kPad><<<dim3(p.splits, batch), kThreads, bwd_b_layout(C).total, st>>>(
+      x, dy, do_g, g_pre, wqkv, ctx, wout, kmax, d_a, d_s, dx, xn_g, dqkv_g, dg_part, n_tok, c,
       p.splits, vec);
   if ((err = check_last())) return err;
-  if ((err = sum_parts(dg_part, dgpre, 1, batch * p.splits, C, st))) return err;
+  if ((err = sum_parts(dg_part, dgpre, 1, batch * p.splits, c, st))) return err;
+  // dWqkv [c, 3F] from xn [B N, c] (16-byte rows: c % 8 == 0) and d_qkv;
+  // its loads zero-fill and its stores skip the rows past c
   const int m = batch * n_tok;
-  const dim3 grid((C + kGI - 1) / kGI, (3 * kF + kGJ - 1) / kGJ, p.wsplits);
-  wgrad_tc_kernel<<<grid, kThreads, kGStages * kGStage * 2, st>>>(xn_g, dqkv_g, wg_part, m, C,
+  const dim3 grid((c + kGI - 1) / kGI, (3 * kF + kGJ - 1) / kGJ, p.wsplits);
+  wgrad_tc_kernel<<<grid, kThreads, kGStages * kGStage * 2, st>>>(xn_g, dqkv_g, wg_part, m, c,
                                                                   3 * kF);
   if ((err = check_last())) return err;
-  return sum_parts(wg_part, dwqkv, 1, p.wsplits, C * 3 * kF, st);
+  return sum_parts(wg_part, dwqkv, 1, p.wsplits, c * 3 * kF, st);
 }
 
 template <typename T>
@@ -2078,6 +2111,25 @@ int out_tc(const LargePlan& p, const bf16* x, const float* g_pre, const bf16* wq
   out_tc_kernel<NC><<<dim3(p.splits, batch), kThreads, out_layout(32 * NC).total, st>>>(
       x, g_pre, wqkv, ctx, wout, bout, g_out, y, n_tok, p.splits, vec);
   return check_last();
+}
+
+// f(NC, kPad), each a std::integral_constant: C's 32-column blocks and
+// whether C pads (#4's and #5's tensor route).
+template <int NC, typename F>
+int with_pad(bool pad, F& f) {
+  return pad ? f(std::integral_constant<int, NC>{}, std::true_type{})
+             : f(std::integral_constant<int, NC>{}, std::false_type{});
+}
+
+template <typename F>
+int by_blocks(int c, F&& f) {
+  const bool pad = c % 32 != 0;
+  switch (pad32(c) / 32) {
+    case 1: return with_pad<1>(pad, f);
+    case 2: return with_pad<2>(pad, f);
+    case 3: return with_pad<3>(pad, f);
+    default: return with_pad<4>(pad, f);
+  }
 }
 
 }  // namespace
@@ -2173,16 +2225,11 @@ extern "C" int ccdm_attn_bwd_a(const void* x, const void* dy, const float* g_pre
   const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
              *wq = static_cast<const bf16*>(wqkv), *cb = static_cast<const bf16*>(ctx),
              *wo = static_cast<const bf16*>(wout);
-  switch (c_dim / 32) {
-    case 1: return bwd_a_tc<1>(p, xb, dyb, g_pre, wq, cb, wo, bout, g_out, do_g, dctx, dwout,
-                               dbout, dgout, ws, batch, n_tok, vec, st);
-    case 2: return bwd_a_tc<2>(p, xb, dyb, g_pre, wq, cb, wo, bout, g_out, do_g, dctx, dwout,
-                               dbout, dgout, ws, batch, n_tok, vec, st);
-    case 3: return bwd_a_tc<3>(p, xb, dyb, g_pre, wq, cb, wo, bout, g_out, do_g, dctx, dwout,
-                               dbout, dgout, ws, batch, n_tok, vec, st);
-    default: return bwd_a_tc<4>(p, xb, dyb, g_pre, wq, cb, wo, bout, g_out, do_g, dctx, dwout,
-                                dbout, dgout, ws, batch, n_tok, vec, st);
-  }
+  return by_blocks(c_dim, [&](auto nc, auto pad) {
+    return bwd_a_tc<decltype(nc)::value, decltype(pad)::value>(
+        p, xb, dyb, g_pre, wq, cb, wo, bout, g_out, do_g, dctx, dwout, dbout, dgout, ws, batch,
+        n_tok, c_dim, vec, st);
+  });
 }
 
 // #5: dx [B, N, C] in the activation type, dwqkv [C, 3F], dgpre [C] f32.
@@ -2207,16 +2254,11 @@ extern "C" int ccdm_attn_bwd_b(const void* x, const void* dy, const float* do_g,
              *wq = static_cast<const bf16*>(wqkv), *cb = static_cast<const bf16*>(ctx),
              *wo = static_cast<const bf16*>(wout);
   bf16* dxb = static_cast<bf16*>(dx);
-  switch (c_dim / 32) {
-    case 1: return bwd_b_tc<1>(p, xb, dyb, do_g, g_pre, wq, cb, wo, kmax, d_a, d_s, dxb, dwqkv,
-                               dgpre, ws, batch, n_tok, vec, st);
-    case 2: return bwd_b_tc<2>(p, xb, dyb, do_g, g_pre, wq, cb, wo, kmax, d_a, d_s, dxb, dwqkv,
-                               dgpre, ws, batch, n_tok, vec, st);
-    case 3: return bwd_b_tc<3>(p, xb, dyb, do_g, g_pre, wq, cb, wo, kmax, d_a, d_s, dxb, dwqkv,
-                               dgpre, ws, batch, n_tok, vec, st);
-    default: return bwd_b_tc<4>(p, xb, dyb, do_g, g_pre, wq, cb, wo, kmax, d_a, d_s, dxb, dwqkv,
-                                dgpre, ws, batch, n_tok, vec, st);
-  }
+  return by_blocks(c_dim, [&](auto nc, auto pad) {
+    return bwd_b_tc<decltype(nc)::value, decltype(pad)::value>(
+        p, xb, dyb, do_g, g_pre, wq, cb, wo, kmax, d_a, d_s, dxb, dwqkv, dgpre, ws, batch, n_tok,
+        c_dim, vec, st);
+  });
 }
 
 extern "C" const char* ccdm_cuda_error_string(int err) {

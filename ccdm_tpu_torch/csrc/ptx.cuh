@@ -66,16 +66,18 @@ __device__ __forceinline__ void b_kn16(uint32_t (&b)[4], const __nv_bfloat16* p,
 }
 
 // Rows [0, rows) x columns [0, cols) of src (row stride lds) to dst [rows][ldd]
-// in 16-byte chunks, zeros past rows_valid; cp.async (vec) or element loads,
-// by threads tid of nthr. cols % 8 == 0. The caller commits and waits.
+// in 16-byte chunks, zeros past rows_valid and from column cols_valid on;
+// cp.async (vec) or element loads, by threads tid of nthr. cols % 8 == 0 and
+// cols_valid % 8 == 0. The caller commits and waits.
 __device__ inline void copy_rows(__nv_bfloat16* dst, int ldd,
                                  const __nv_bfloat16* __restrict__ src, int lds, int rows,
-                                 int rows_valid, int cols, int vec, int tid, int nthr) {
+                                 int rows_valid, int cols, int vec, int tid, int nthr,
+                                 int cols_valid = 1 << 30) {
   const int per_row = cols / 8;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
   for (int i = tid; i < rows * per_row; i += nthr) {
     const int r = i / per_row, col = (i % per_row) * 8;
-    const bool ok = r < rows_valid;
+    const bool ok = r < rows_valid && col < cols_valid;
     const __nv_bfloat16* s = ok ? src + (size_t)r * lds + col : src;
     __nv_bfloat16* d = dst + r * ldd + col;
     if (vec) {

@@ -9,16 +9,18 @@ Phases, each announced on a flushed line before it starts:
      (seconds, ptxas report);
   3. kernel #1 (the single-pass attention block) against its plain PyTorch
      version at every shape of the attention blocks of the RC-49 64x64, the
-     128x128 and the 192x192 UNet (N 9 to 36864, C 64 to 512) and of the
-     Cell-200 teacher (64x64, dim 32, mults 1_2_2_4: C 32 to 128), B 64:
+     128x128 and the 192x192 UNet (N 9 to 36864, C 64 to 512), of the
+     Cell-200 teacher (64x64, dim 32, mults 1_2_2_4: C 32 to 128) and of
+     UK64 (dim 72, 1_2_4_4_8: C 72 to 576), B 64:
      bf16 against the plain version in f32 on the same bf16-rounded inputs
      (rtol = atol = 3e-2, rtol relative to max(|y|, |y - x|), x ~ N(0, 1);
      at C <= 256 and at the 64x64 UNet's shapes) and against the plain
      version at the kernel's bf16 rounding points (same bound, every
      shape), and f32 with TF32 off (rtol 2e-3, atol 2e-4, x ~ N(0, 2)), the
      bounds and inputs of the JAX kernel's tests; each shape timed in bf16
-     with CUDA events, with the route the plan took (asserted: fused at
-     N <= 128, else split with its splits), the wrapper's host time,
+     with CUDA events, with the route the plan took (asserted: the CUDA
+     cores above C 512, UK64's N 16 level at C 576; else fused at N <= 128,
+     else split with its splits), the wrapper's host time,
      TFLOP/s and the share of the bound; then the same per attention level
      of one B-64 forward of the 64x64 UNet; then bf16 at every shape again
      at the other batches the main paths give #1 (128, 72, 8, 1, 4), the
@@ -40,7 +42,8 @@ Phases, each announced on a flushed line before it starts:
      versions at every two-pass shape of the three UNets and the Cell-200
      teacher's top level, B 128: (N, C) (4096, 64), (2048, 64), (16384, 64),
      (4096, 128), (36864, 64) at B 32, and (4096, 32), in bf16 and in f32,
-     and (4096, 32) in f32 at B 64 (phase 23's class UNet training):
+     (4096, 32) in f32 at B 64 (phase 23's class UNet training), and
+     UK64's (4096, 72) in bf16 and f32 (phase 27's training):
      forward bounds as phase 3 (a and s relative
      to their largest value), kmax within 1e-5 of its largest value (in
      bf16 against the plain version at the tensor route's rounding points,
@@ -50,8 +53,10 @@ Phases, each announced on a flushed line before it starts:
      1e-1, atol 0.02 max(|g|, 1)); in f32 also #4 + #5 through the autograd
      Function against autograd through the plain block; in bf16 #5 nearer
      its plain version than one with d_a rounded to bf16 (check_rounding),
-     and #2-#5 on their tensor-core route (asserted, with tile and
-     splits); each timed in bf16 (event and host time, TFLOP/s, share of
+     and #2-#5 on their tensor-core route but #2 and #3 at C 72 on the CUDA
+     cores (asserted, large_route, with tile and splits; kmax against the
+     tensor route's rounding points only where #2 takes it); each timed in
+     bf16 (event and host time, TFLOP/s, share of
      the bound); then #2 + #3 against #1 at sampling time (B 64, bf16, N
      4096 and 16384); then the block at dim_head 64 (2 heads; B 8, N 4096,
      C 64; bf16 and f32) through its kernels' CUDA-core routes (asserted,
@@ -177,7 +182,8 @@ Phases, each announced on a flushed line before it starts:
      some step, the GIF a GIF89a of 10 frames (100 ms, looping), the
      interpolation PNG 8 panels that are not constant, exactly 10 launches
      of #1 per forward of the GIF pass (10 forwards) and of the
-     interpolation pass (8 x 250 unguided forwards of B 1), and the whole run's
+     interpolation pass (8 x 50 unguided forwards of B 1: the run's
+     --train_timesteps cut to 200, min(T // 4, 250) = 50), and the whole run's
      counts as phase 8's plus those; seconds per aux epoch, seconds of
      each pass; every (B, N, C) at which #1 launched in (a), (a') and (b)
      among those phase 3 checked;
@@ -304,16 +310,31 @@ Phases, each announced on a flushed line before it starts:
      source 32^2 and up, each fold variant against the reference route (f32
      within 2e-5 and bf16 within 5e-2 of max(1, |y|)), both timed in bf16
      (the UNet keeps the reference: the fold loses on the card); then one
-     JSON line {"data_parallel": ...}, the card's line
-     again and the last line {"ok": true, "device": {...}}.
+     JSON line {"data_parallel": ...};
+  27. UK64 (uk64_main_path): `python -m ccdm_tpu_torch.main` with
+     scripts/UK64/run_ccdm.sh's flags as they are (UK64_ARGV: dim 72,
+     1_2_4_4_8, bf16, batch 128, resnet ILI + H(y), the hard vicinity,
+     kernel_sigma and kappa from the data, DDIM at 1.5), cut in the data
+     (make_synthetic), the steps (20), the ILI epochs (phase 18's) and the
+     sampling after training (2 labels x 4 images at 10 DDIM steps), no
+     width cut: losses finite, parameters moved, launches exactly 8 of #1
+     and 2 each of #2-#5 per step and 10 of #1 per sampling forward, none of
+     the rest, every (B, N, C, dtype) of #1 among phase 3's and of #2-#5
+     among phase 6's, the routes at (128, 4096, 72) asserted (#4 and #5 the
+     tensor cores, #2 and #3 the CUDA cores), warm train images/s beside
+     phase 8's, and warm step 18 under torch.profiler: the card's time by
+     kernel, #2-#5 apart, the card's idle share; then one JSON line
+     {"uk64": ...}, the card's line again and the last line {"ok": true,
+     "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
-main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21, 22, 23, 26) starts from
-launch counts set to 0 and reads them just after; the paths of phases 5,
-8, 11, 12, 18, 19, 20, 21 and 23 launch none of #6-#9 and #12, phase 22's
-and phase 23's GANs none of #1-#12. TF32 is off for the
-whole run (it only touches the f32 checks and the f32 convolutions). Any failed phase raises and the script
-exits non-zero; a hang becomes a stack dump and a non-zero exit after
-1100 s. It writes nothing outside build/.
+main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21, 22, 23, 26, 27) starts
+from launch counts set to 0 and reads them just after; the paths of phases
+5, 8, 11, 12, 18, 19, 20, 21, 23 and 27 launch none of #6-#9 and #12, phase
+22's and phase 23's GANs none of #1-#12. TF32 is off for the whole run (it
+only touches the f32 checks and the f32 convolutions). Each phase's seconds
+are printed after it. Any failed phase raises and the script exits
+non-zero; a hang becomes a stack dump and a non-zero exit after 1100 s. It
+writes nothing outside build/.
 """
 
 from __future__ import annotations
@@ -326,6 +347,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import struct
@@ -393,6 +415,11 @@ CHECK_SHAPES += sorted(set(unet_attn_shapes(128, (1, 2, 4, 4, 8, 8)) +
 # 128) that the three UNets lack
 CELL200_SHAPES = unet_attn_shapes(64, (1, 2, 2, 4), dim=32)
 CHECK_SHAPES += sorted(set(CELL200_SHAPES) - set(CHECK_SHAPES), reverse=True)
+# then UK64's (scripts/UK64/run_ccdm.sh: dim 72, mults 1_2_4_4_8; C 72 to
+# 576, its N 16 up level at C 576 on #1's CUDA-core route)
+UK64_MULTS = (1, 2, 4, 4, 8)
+UK64_SHAPES = unet_attn_shapes(64, UK64_MULTS, dim=72)
+CHECK_SHAPES += sorted(set(UK64_SHAPES) - set(CHECK_SHAPES), reverse=True)
 # blocks of the split route's passes: two an SM on the H100's 132 SMs
 ATTN_SPLIT_BLOCKS = 2 * 132
 SERVE_ARGV = ["--image_size", "64", "--model_channels", "64",
@@ -401,8 +428,20 @@ SERVE_ARGV = ["--image_size", "64", "--model_channels", "64",
               "--seed", "0"]
 
 
-def phase(text: str) -> None:
-    print(f"== {text}", flush=True)
+PHASE_CLOCK = {}  # the phase under way and its start (host clock)
+
+
+def phase(text: str | None) -> None:
+    """Announces a phase (None: the end of the last one), after the seconds
+    of the one before it."""
+    now = time.perf_counter()
+    if PHASE_CLOCK:
+        print(f"   phase {PHASE_CLOCK['name']} took {now - PHASE_CLOCK['start']:.1f} s "
+              f"({now - PHASE_CLOCK['first']:.1f} s since phase 1)", flush=True)
+    PHASE_CLOCK.setdefault("first", now)
+    if text is not None:
+        PHASE_CLOCK.update(name=text.split(" ", 1)[0], start=now)
+        print(f"== {text}", flush=True)
 
 
 def card_line() -> str:
@@ -490,11 +529,12 @@ def check_close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
 
 def attn_route_of(batch: int, n: int, c: int) -> tuple[str, int]:
     """The route and splits that #1's plan must give a UNet shape in bf16:
-    fused where a block holds the row (N <= 128), else split, with as many
-    blocks a row as fill ATTN_SPLIT_BLOCKS in one wave, at most one a tile
-    of 64 tokens."""
+    the CUDA cores above C 512 (UK64's N 16 level at C 576), else fused
+    where a block holds the row (N <= 128), else split, with as many blocks
+    a row as fill ATTN_SPLIT_BLOCKS in one wave, at most one a tile of 64
+    tokens."""
     pl = attn_block.plan(batch, n, c, HEADS, torch.bfloat16)
-    want = ("fused", 1) if n <= 128 else \
+    want = ("cores", 1) if c > 512 else ("fused", 1) if n <= 128 else \
         ("split", min(-(-n // 64), max(1, ATTN_SPLIT_BLOCKS // batch)))
     if (pl.route, pl.splits) != want:
         raise AssertionError(f"#1's plan at B {batch}, N {n}, C {c}: {pl.route} x{pl.splits}, "
@@ -820,10 +860,15 @@ LARGE_BATCH = {(36864, 64): 32}
 # each shape at its batch in bf16 and f32, then the extra cases: the
 # Cell-200 teacher's top level in f32 at B 64, phase 23's class UNet
 # training, and the flagship's top level in bf16 at B 64, a rank's rows in
-# phase 26's two-rank training
+# phase 26's two-rank training; then UK64's two-pass level (dim 72) at B
+# 128 in bf16 and f32, phase 27's training, where #4 and #5 take the tensor
+# cores at C 72 (padded to 96) and #2 and #3 the CUDA cores
+UK64_LARGE = (4096, 72)
 LARGE_CASES = ([(n, c, LARGE_BATCH.get((n, c), TRAIN_BATCH), (torch.bfloat16, torch.float32))
                 for n, c in LARGE_SHAPES] + [(4096, 32, 64, (torch.float32,)),
-                                             (4096, 64, 64, (torch.bfloat16,))])
+                                             (4096, 64, 64, (torch.bfloat16,)),
+                                             (*UK64_LARGE, TRAIN_BATCH,
+                                              (torch.bfloat16, torch.float32))])
 LARGE = ("attn_ctx_large", "attn_out_large", "attn_bwd_a", "attn_bwd_b")
 LARGE_OUTPUTS = {"attn_ctx_large": ("kmax", "a", "s"), "attn_out_large": ("y",),
                  "attn_bwd_a": ("do", "d_ctx", "d_wout", "d_bout", "d_gout"),
@@ -842,6 +887,13 @@ TRAIN_ARGV = ["--data_name", "synthetic", "--image_size", "64", "--model_channel
               "--eval_mode", "4", "--FID_num_centers", "2", "--nfake_per_label", "4",
               "--sample_timesteps", "10"]
 EVAL_FORWARDS = 2 * 10  # UNet forwards of that sampling
+
+
+def large_route(name: str, c: int) -> str:
+    """The route kernel `name`'s plan must take in bf16 at 4 heads of 32
+    (C <= 128): the tensor cores, but for #2 and #3 at C not a multiple
+    of 32 (UK64's C 72), which keep the CUDA cores."""
+    return "cores" if name in LARGE[:2] and c % 32 else "tensor"
 
 
 def large_bound_parts(name: str, n: int, c: int, batch: int = TRAIN_BATCH,
@@ -914,12 +966,13 @@ def _check_grad(got, want, dtype, what) -> float:
 
 def large_vs_plain(device) -> dict:
     """Kernels #2-#5 against their plain versions at LARGE_CASES (each of
-    LARGE_SHAPES in bf16 and f32, TF32 off, then the extra f32 batches),
-    timed in bf16 (event and host time, TFLOP/s and share of
-    the bound; each kernel's route, asserted the tensor cores, tile and
-    splits from its plan); #2's bf16 kmax against the plain version at the
-    route's rounding points and against ctx_large_reference (kmax_check);
-    #4 + #5 in f32 also
+    LARGE_SHAPES in bf16 and f32, TF32 off, then the extra batches and
+    UK64's C 72), timed in bf16 (event and host time, TFLOP/s and share of
+    the bound; each kernel's route, asserted as large_route says: the
+    tensor cores, but #2 and #3 at C 72; tile and splits from its plan);
+    #2's bf16 kmax on the tensor route against the plain version at the
+    route's rounding points, and at every shape against
+    ctx_large_reference (kmax_check); #4 + #5 in f32 also
     against autograd through attn_block_reference; #5 in bf16 nearer its
     plain version than one with d_a rounded to bf16 (check_rounding)."""
     rows = {}
@@ -931,21 +984,23 @@ def large_vs_plain(device) -> dict:
             dy = torch.randn(batch, n, c, generator=g).to(device).to(dt)
             g_pre, wqkv, wout, bout, g_out = w
             tag = f"N={n} C={c} {str(dt)[6:]}"
-            if i >= len(LARGE_SHAPES):  # an extra case: its batch in the tag
+            if i >= len(LARGE_SHAPES) and batch != TRAIN_BATCH:  # an extra batch: in the tag
                 tag += f" B={batch}"
             err = {}
             a, s, kmax = attn_block.attn_ctx_large(x, g_pre, wqkv, HEADS)
             ra, rs, rkmax = attn_block.ctx_large_reference(x, g_pre, wqkv, HEADS)
             fwd = (2e-3, 2e-4) if dt == torch.float32 else (3e-2, 3e-2)
             if dt == torch.bfloat16:
-                # the plain version at the tensor route's rounding points (its
-                # xn as warp_norm16 forms it), then ctx_large_reference
-                own = attn_block.ctx_large_tensor_reference(x, g_pre, wqkv, HEADS)[2]
-                err["kmax"] = check_close(kmax, own, 1e-5, 1e-5 * float(own.abs().max()),
-                                          f"#2 kmax {tag}")
-                del own
+                # on the tensor route the plain version at its rounding points
+                # (xn as warp_norm16 forms it), then ctx_large_reference
+                if large_route("attn_ctx_large", c) == "tensor":
+                    own = attn_block.ctx_large_tensor_reference(x, g_pre, wqkv, HEADS)[2]
+                    err["kmax"] = check_close(kmax, own, 1e-5, 1e-5 * float(own.abs().max()),
+                                              f"#2 kmax {tag}")
+                    del own
                 err["kmax_plain"], row_flips = kmax_check(kmax, rkmax, x, g_pre, wqkv,
                                                           f"#2 kmax against the plain #2 {tag}")
+                err.setdefault("kmax", err["kmax_plain"])
             else:
                 err["kmax"] = check_close(kmax, rkmax, 1e-5, 1e-5 * float(rkmax.abs().max()),
                                           f"#2 kmax {tag}")
@@ -997,8 +1052,9 @@ def large_vs_plain(device) -> dict:
                     t["tflops"] = large_flops(name, n, c, batch) / t["ms"] / 1e9
                     t["share_of_bound"] = t["bound_ms"] / t["ms"]
                     pl = attn_block.large_plan(2 + LARGE.index(name), batch, n, c, HEADS, dt)
-                    if pl.route != "tensor":
-                        raise AssertionError(f"{name} {tag} took the {pl.route} route")
+                    if pl.route != large_route(name, c):
+                        raise AssertionError(f"{name} {tag} took the {pl.route} route, not "
+                                             f"the {large_route(name, c)} route")
                     t.update(route=pl.route, tile=pl.tile, splits=pl.splits)
                     if name == "attn_bwd_b":
                         t["wgrad_splits"] = pl.wgrad_splits
@@ -1333,6 +1389,149 @@ def recipe_checks(card: str, phase8_ips: float):
     return checks
 
 
+# ------------------------------------------- UK64: the shipped dim 72
+
+UK64_STEPS = 20
+UK64_PROFILE_STEP = 18  # the warm step phase 27 traces
+# scripts/UK64/run_ccdm.sh's flags as they are (UTKFace 64x64: dim 72,
+# 1_2_4_4_8, bf16, batch 128, H(y) with resnet ILI, the hard vicinity with
+# kernel_sigma and kappa from the data, DDIM at cond_scale 1.5). Cut: the
+# data (make_synthetic's 512 images for UTKFace's), the steps (20 of
+# 100000, a milestone at the last), the ILI epochs (phase 18's: 2 CNN and
+# 20 MLP epochs for y2h, 1 and 20 for y2cov), and the sampling after
+# training (2 eval labels x 4 images at 10 DDIM steps for 200 a label at
+# 250). No width is cut.
+UK64_ARGV = ["--data_name", "synthetic", "--image_size", "64", "--train_amp",
+             "--pred_objective", "pred_x0", "--model_channels", "72", "--cond_drop_prob", "0.1",
+             "--channel_mult", "1_2_4_4_8", "--use_Hy", "--y2h_embed_type", "resnet",
+             "--y2cov_embed_type", "resnet", "--train_lr", "1e-4", "--train_timesteps", "1000",
+             "--train_batch_size", str(TRAIN_BATCH), "--gradient_accumulate_every", "1",
+             "--kernel_sigma", "-1.0", "--threshold_type", "hard", "--kappa", "-1.0",
+             "--sample_cond_scale", "1.5", "--sampler", "ddim", "--seed", "0",
+             "--log_every", "5", "--niters", str(UK64_STEPS), "--save_every", str(UK64_STEPS),
+             "--epoch_cnn_embed", "2", "--epoch_net_y2h", "20", "--epoch_cnn_embed_y2cov", "1",
+             "--epoch_net_y2cov", "20",
+             "--eval_mode", "4", "--FID_num_centers", "2", "--nfake_per_label", "4",
+             "--sample_timesteps", "10"]
+# the kernels of csrc/attn_block_large.cu, by the TPU kernel they serve
+LARGE_GROUPS = {"#2": ("ctx_partial_kernel", "ctx_reduce_kernel", "ctx_tc_kernel",
+                       "ctx_merge_kernel"),
+                "#3": ("out_large_kernel", "out_tc_kernel"),
+                "#4": ("bwd_a_kernel", "bwd_a_tc_kernel"),
+                "#5": ("bwd_b_kernel", "bwd_b_tc_kernel", "wgrad_kernel", "wgrad_tc_kernel"),
+                "#4/#5 sums": ("sum_parts_kernel",)}
+
+
+@contextlib.contextmanager
+def profiled_step(step: int, record: dict):
+    """Trainer.train_step number `step` under torch.profiler (the card's
+    activity only): its host time to a synchronize (step_ms) and the card's
+    time by kernel name (by_kernel, ms), into record."""
+    from ccdm_tpu_torch.training.trainer import Trainer
+
+    step_of = Trainer.train_step
+
+    def train_step(self, *args, **kwargs):
+        if self.state.step + 1 != step:
+            return step_of(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = step_of(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            record["step_ms"] = (time.perf_counter() - t0) * 1e3
+        record["by_kernel"] = {e.key: e.self_device_time_total / 1e3
+                               for e in prof.key_averages() if e.self_device_time_total > 0}
+        return out
+
+    Trainer.train_step = train_step
+    try:
+        yield record
+    finally:
+        Trainer.train_step = step_of
+
+
+def device_split(by_kernel: dict, batch: int, warm_images_per_s: float) -> dict:
+    """A profiled step's card time split into #2-#5 (LARGE_GROUPS) and the
+    rest, and the card's idle share of a warm step (batch / warm images/s)."""
+    groups = {g: 0.0 for g in LARGE_GROUPS}
+    for key, ms in by_kernel.items():
+        for g, names in LARGE_GROUPS.items():
+            if any(re.search(rf"::{k}[<(]", key) for k in names):
+                groups[g] += ms
+    device = sum(by_kernel.values())
+    warm_step_ms = batch / warm_images_per_s * 1e3
+    return {"device_ms": device, "device_ms_by_group": groups,
+            "large_device_ms": sum(groups.values()), "rest_device_ms": device - sum(groups.values()),
+            "warm_step_ms": warm_step_ms, "device_idle_share_of_warm_step": 1 - device / warm_step_ms,
+            "top_kernels": [[k[:120], ms] for k, ms in
+                            sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]]}
+
+
+def uk64_checks(card: str, profiled: dict, phase8_ips: float):
+    """Phase 27's own checks: the parameters moved from the seed-0 dim-72
+    UNet, the routes #2-#5 planned at UK64's two-pass shape (the tensor
+    cores for #4 and #5, the CUDA cores for #2 and #3), the warm rate and
+    the profiled warm step's card time by kernel."""
+    initial = Unet(dim=72, dim_mults=UK64_MULTS, in_channels=3, dtype=torch.bfloat16,
+                   seed=0).state_dict()
+
+    def checks(trainer, argv, log) -> dict:
+        state = trainer.state
+        moved = max(float((p.detach().cpu() - initial[name]).abs().max())
+                    for name, p in state.model.named_parameters())
+        if not moved > 0 or state.step != UK64_STEPS or state.ema_step != UK64_STEPS:
+            raise AssertionError(f"params moved {moved}, step {state.step}, "
+                                 f"ema_step {state.ema_step}")
+        routes = {name: attn_block.large_plan(2 + LARGE.index(name), TRAIN_BATCH, *UK64_LARGE,
+                                              HEADS, torch.bfloat16).route for name in LARGE}
+        want = {name: large_route(name, UK64_LARGE[1]) for name in LARGE}
+        if routes != want:
+            raise AssertionError(f"routes at (B {TRAIN_BATCH}, N {UK64_LARGE[0]}, C "
+                                 f"{UK64_LARGE[1]}): {routes}, expected {want}")
+        # the logged windows after step 6 that end before the profiled step
+        warm = [r["imgs_per_sec"] for r in log
+                if UK64_STEPS // 3 < r["step"] < UK64_PROFILE_STEP]
+        ips = sum(warm) / len(warm)
+        split = device_split(profiled["by_kernel"], TRAIN_BATCH, ips)
+        print(f"   params moved by up to {moved:.3e}; ema_step {state.ema_step}; routes at (B "
+              f"{TRAIN_BATCH}, N {UK64_LARGE[0]}, C {UK64_LARGE[1]}, bf16) {routes}", flush=True)
+        print(f"   warm train {ips:.2f} images/s (the logged windows ending after step "
+              f"{UK64_STEPS // 3} and before step {UK64_PROFILE_STEP}, batch {TRAIN_BATCH}, "
+              f"bf16, dim 72) against {phase8_ips:.2f} in phase 8 (dim 64) on {card}",
+              flush=True)
+        print(f"   step {UK64_PROFILE_STEP} (torch.profiler): host {profiled['step_ms']:.2f} ms, "
+              f"card {split['device_ms']:.2f} ms, #2-#5 {split['large_device_ms']:.3f} ms "
+              f"{json.dumps(split['device_ms_by_group'])}, the rest "
+              f"{split['rest_device_ms']:.2f} ms; idle {100 * split['device_idle_share_of_warm_step']:.1f}% "
+              f"of a warm step on {card}", flush=True)
+        return {"params_moved": moved, "routes": routes, "train_images_per_s": ips,
+                "phase8_train_images_per_s": phase8_ips, "profiled_step": UK64_PROFILE_STEP,
+                "profiled_step_ms": profiled["step_ms"], **split, "card": card}
+
+    return checks
+
+
+def uk64_main_path(device, card: str, phase8_ips: float) -> dict:
+    """Phase 27: UK64's training through `python -m ccdm_tpu_torch.main`
+    (UK64_ARGV), then the sampling after training: exact launches (8 of #1
+    and 2 each of #2-#5 a step, 10 of #1 a sampling forward, none of the
+    rest), every (B, N, C, dtype) of #1 among phase 3's and of #2-#5 among
+    phase 6's, and uk64_checks."""
+    expected = {"attn_block": 8 * UK64_STEPS + ATTN_BLOCKS * EVAL_FORWARDS,
+                **{k: 2 * UK64_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}}
+    with attn_shapes() as shapes, large_shapes() as two_pass, \
+            profiled_step(UK64_PROFILE_STEP, {}) as profiled:
+        out = train_main_path(device, card, UK64_ARGV, UK64_STEPS, expected, False,
+                              uk64_checks(card, profiled, phase8_ips))
+    out["attn_shapes"] = checked_in_phase_3(shapes)
+    out["large_shapes"] = checked_in_phase_6(two_pass)
+    print(f"   #1 launched at (B, N, C, dtype) {out['attn_shapes']}, #2-#5 at "
+          f"{out['large_shapes']}, each checked against its plain version in phase 3 or 6",
+          flush=True)
+    return out
+
+
 # ------------------------------ the rest of main.py's training entry
 
 MULTIDIM_STEPS = 20
@@ -1366,10 +1565,12 @@ EMBED_TOL = 1e-4  # fn_y2h on the card against the CPU, f32 with TF32 off: rtol 
 AUX_STEPS = 10
 GIF_STEPS = 10           # min(--sample_timesteps, 50) DDIM steps of the trajectory
 INTERP_LAMBDAS = 8
-INTERP_T = 250           # min(T // 4, 250) at T 1000
+AUX_T = 200              # the run's --train_timesteps, cut from 1000 to pay for phase 27
+INTERP_T = min(AUX_T // 4, 250)  # main.save_interpolation's step: 50 forwards a lambda
 # phase 8's run with the elastic aux loss (pred_noise) and both artifacts
 AUX_ARGV = [*TRAIN_ARGV, "--pred_objective", "pred_noise", "--lambda_aux", "0.1",
             "--net_aux", "ResNet18", "--epoch_aux", "1", "--gif_trajectory", "--interpolation",
+            "--train_timesteps", str(AUX_T),
             "--niters", str(AUX_STEPS), "--save_every", str(AUX_STEPS), "--log_every", "1"]
 AUX_FORWARDS = GIF_STEPS + INTERP_LAMBDAS * INTERP_T + EVAL_FORWARDS
 
@@ -4022,12 +4223,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/26 device")
+    phase("1/27 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/26 build")
+    phase("2/27 build")
     libraries = ("attn_block", "attn_block_large", "resnet_block", "linear_attention",
                  "style_ops")
     t0 = time.perf_counter()
@@ -4042,26 +4243,26 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/26 attn_block kernel against its plain version")
+    phase("3/27 attn_block kernel against its plain version")
     rows, rows_by_batch = kernel_vs_plain(device)
 
-    phase("4/26 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/27 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/26 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/27 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/26 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
+    phase("6/27 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
           "bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
     other_dim_head = dim_head_vs_plain(device)
 
-    phase("7/26 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/27 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
     grads_hy = grad_parity(device, use_hy=True)
 
-    phase(f"8/26 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/27 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
     trained = train_main_path(
         device, card, TRAIN_ARGV, TRAIN_STEPS,
@@ -4069,18 +4270,18 @@ def main() -> int:
          **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, train_checks(card))
 
-    phase("9/26 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+    phase("9/27 kernels #10 and #11 (the fused resnet block) against their plain versions, "
           "f32 and bf16")
     resnet_rows = resnet_vs_plain(device)
 
-    phase("10/26 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    phase("10/27 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
     fused_parity = fused_model_parity(device)
 
-    phase(f"11/26 main path with the switch on: SamplerService over HTTP, bf16, batch "
+    phase(f"11/27 main path with the switch on: SamplerService over HTTP, bf16, batch "
           f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
     fused_served = fused_serve_main_path(device, card)
 
-    phase(f"12/26 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+    phase(f"12/27 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
           f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
     fused_trained = train_main_path(
         device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
@@ -4091,24 +4292,24 @@ def main() -> int:
          **{k: 0 for k in NEW_KERNELS}},
         True, fused_train_checks(card))
 
-    phase("13/26 kernels #6 and #9 (standalone linear attention) against their plain versions")
+    phase("13/27 kernels #6 and #9 (standalone linear attention) against their plain versions")
     la_rows = la_vs_plain(device)
 
-    phase("14/26 kernels #7 + #8 (its two-pass form) against their plain versions")
+    phase("14/27 kernels #7 + #8 (its two-pass form) against their plain versions")
     tp_rows = twopass_vs_plain(device)
 
-    phase("15/26 kernel #12 (bias_act) against its plain version")
+    phase("15/27 kernel #12 (bias_act) against its plain version")
     ba_rows = bias_act_vs_plain(device)
 
-    phase("16/26 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
+    phase("16/27 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
           "the two-pass route, linear_attention_per_head, bias_act")
     la_path = la_main_path(device)
 
-    phase("17/26 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
+    phase("17/27 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
           "kernel forward against the plain route")
     la_grads = la_grad_parity(device)
 
-    phase(f"18/26 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
+    phase(f"18/27 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
           f"bf16, {RECIPE_STEPS} steps, then serving from its milestone")
     recipe = train_main_path(
         device, card, RECIPE_ARGV, RECIPE_STEPS,
@@ -4116,7 +4317,7 @@ def main() -> int:
          **{k: 2 * RECIPE_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, recipe_checks(card, trained["train_images_per_s"]))
 
-    phase(f"19/26 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
+    phase(f"19/27 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
           f"{MULTIDIM_DIMS} dims, shv, resnet ILI, cross_attention), batch {TRAIN_BATCH}, bf16, "
           f"{MULTIDIM_STEPS} steps; (a') the same with the sinusoidal y2h, {ANALYTIC_STEPS} "
           f"steps; (b) the elastic aux loss, the trajectory GIF and the interpolation, "
@@ -4146,7 +4347,7 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C, dtype) {multidim['attn_shapes']} in this phase, each "
           f"checked against its plain version in phase 3", flush=True)
 
-    phase(f"20/26 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
+    phase(f"20/27 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
           f"training, batch {TRAIN_BATCH}, bf16, {EVAL_STEPS} steps, {len(EVAL_ANGLES)} labels x "
           f"{EVAL_NFAKE} images at 10 DDIM steps, then --comp_FID with PRDC, NIQE, iFID and "
           f"the analyses")
@@ -4165,7 +4366,7 @@ def main() -> int:
         shutil.rmtree(EVAL_RUN, ignore_errors=True)
         raise
 
-    phase(f"21/26 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
+    phase(f"21/27 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
           f"backbones), SNGAN 64/64/256, batch {TRAIN_BATCH}, 2 D steps, DiffAugment, "
           f"{DMD_STEPS} iterations, {len(EVAL_ANGLES)} labels x {DMD_NFAKE} one-step images, "
           f"--comp_FID ({DMD_CENTERS} windows), --interpolation --sefa; SAGAN "
@@ -4174,13 +4375,13 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C, dtype) {dmd['attn_shapes']} in this phase, each checked "
           f"against its plain version in phase 3", flush=True)
 
-    phase(f"22/26 the ADM and ViT denoisers: main.py --architecture adm (64, 1_2_4_8, attention "
+    phase(f"22/27 the ADM and ViT denoisers: main.py --architecture adm (64, 1_2_4_8, attention "
           f"at 4_8), batch {TRAIN_BATCH}, {ADM_STEPS} steps, then --architecture vit (width 512, "
           f"8 blocks, 4096 tokens), batch {VIT_BATCH}, {VIT_STEPS} steps; each sampled, served "
           f"over HTTP and held against the CPU")
     denoisers = denoisers_main_path(device, card)
 
-    phase(f"23/26 the baselines: (a) ccgan_main SNGAN 64/64/256, batch 64, hard, Dual-NDA "
+    phase(f"23/27 the baselines: (a) ccgan_main SNGAN 64/64/256, batch 64, hard, Dual-NDA "
           f"from iteration 10, {BASE_GAN_STEPS} iterations in two calls, (a') SAGAN soft "
           f"vanilla, {BASE_SHORT_STEPS} iterations; (b) classgan_main studiogan D2D-CE "
           f"{BASE_GAN_STEPS} and ADC {BASE_SHORT_STEPS} iterations; (c) cfg and (d) admg: the "
@@ -4188,7 +4389,7 @@ def main() -> int:
           f"{BASE_FAKES} fakes at {BASE_SAMPLE_STEPS} steps")
     baselines = baselines_main_path(device, card)
 
-    phase("24/26 kernels")
+    phase("24/27 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -4274,15 +4475,22 @@ def main() -> int:
     kernels += slice4_kernel_rows(la_rows, tp_rows, ba_rows, la_path, la_grads, card)
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("25/26 the card")
+    phase("25/27 the card")
     print(card, flush=True)
 
-    phase(f"26/26 data parallelism: (a) main.py under the env triplet at world 1 over NCCL, "
+    phase(f"26/27 data parallelism: (a) main.py under the env triplet at world 1 over NCCL, "
           f"{DP_WORLD1_STEPS} steps, against the same run without it; (b) two ranks on one card "
           f"over gloo, {DP_STEPS} train steps at 64 rows a rank, against one process; (c) one "
           f"CcGAN iteration on two ranks; (d) the native dataset cache; (e) the folded upsample")
     parallel = data_parallel_path(device, card, {})
     print(json.dumps({"data_parallel": parallel}), flush=True)
+
+    phase(f"27/27 UK64 (scripts/UK64/run_ccdm.sh: dim 72, 1_2_4_4_8, resnet ILI + H(y), hard "
+          f"vicinity): training, batch {TRAIN_BATCH}, bf16, {UK64_STEPS} steps, then 2 labels x "
+          f"4 images at 10 DDIM steps")
+    uk64 = uk64_main_path(device, card, trained["train_images_per_s"])
+    print(json.dumps({"uk64": uk64}), flush=True)
+    phase(None)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

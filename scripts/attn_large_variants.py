@@ -3,13 +3,15 @@
 card, and the training step around them.
 
     python3 scripts/attn_large_variants.py [--root DIR]
-        [--variants | --train [--recipe] | --train-turns PARENT | --recipe-turns]
+        [--variants | --train [--recipe | --uk64] | --train-turns PARENT [--uk64]
+         | --recipe-turns]
 
 Times the wrappers of the ccdm_tpu_torch package under DIR (default: this
 checkout; another commit unpacked with `git archive` under build/ times
 that commit's wrappers with this checkout's helpers):
 - default: #2, #3, #4 and #5 in bf16 at chip_smoke.LARGE_SHAPES (B 128, B
-  32 at N 36864; phase 6's inputs): the event time of 20 back-to-back calls
+  32 at N 36864; phase 6's inputs) and UK64's (N 4096, C 72, B 128;
+  chip_smoke.UK64_LARGE): the event time of 20 back-to-back calls
   (chip_smoke.time_ms), the host's time to issue one (host_ms) and the
   card's own time by kernel name from torch.profiler (device_ms), as JSON
   lines, with the plan each call took;
@@ -27,6 +29,10 @@ that commit's wrappers with this checkout's helpers):
   the warm step's time (batch / warm images/s);
 - --train-turns PARENT: --train in four processes, PARENT, DIR, DIR,
   PARENT, to compare two commits' training on one card;
+- --train --uk64 (and --train-turns PARENT --uk64): the same at UK64's
+  widths (chip_smoke.UK64_ARGV: dim 72, 1_2_4_4_8, resnet ILI + H(y),
+  trained first in the process), 35 steps, where #4 and #5 take the tensor
+  cores at C 72 (padded to 96) and #2 and #3 the CUDA cores;
 - --train --recipe: the same with the CCDM recipe's flags
   (chip_smoke.RECIPE_FLAGS: resnet ILI, trained first in the process, and
   --use_Hy), so the profiled step includes fn_y2cov and H(y);
@@ -41,7 +47,6 @@ import argparse
 import ctypes
 import importlib.util
 import json
-import re
 import shutil
 import subprocess
 import sys
@@ -57,11 +62,6 @@ COMMITTED = {"kWgradBlocks": 264}
 VARIANTS = [COMMITTED, {"kWgradBlocks": 132}, {"kWgradBlocks": 528}]
 VARIANT_SHAPES = [(4096, 64), (4096, 128)]
 # the kernels of csrc/attn_block_large.cu, by the TPU kernel they serve
-GROUPS = {"#2": ("ctx_partial_kernel", "ctx_reduce_kernel", "ctx_tc_kernel", "ctx_merge_kernel"),
-          "#3": ("out_large_kernel", "out_tc_kernel"),
-          "#4": ("bwd_a_kernel", "bwd_a_tc_kernel"),
-          "#5": ("bwd_b_kernel", "bwd_b_tc_kernel", "wgrad_kernel", "wgrad_tc_kernel"),
-          "#4/#5 sums": ("sum_parts_kernel",)}
 PROFILE_STEP, TRAIN_STEPS = 33, 35
 LARGE = ("attn_ctx_large", "attn_out_large", "attn_bwd_a", "attn_bwd_b")
 
@@ -109,7 +109,7 @@ def large_calls(cs, n: int, c: int, batch: int, seed: int):
 
 @torch.no_grad()
 def host_and_device(cs, root: Path) -> None:
-    for i, (n, c) in enumerate(cs.LARGE_SHAPES):
+    for i, (n, c) in enumerate([*cs.LARGE_SHAPES, cs.UK64_LARGE]):
         batch = cs.LARGE_BATCH.get((n, c), cs.TRAIN_BATCH)
         for name, (kernel, _) in large_calls(cs, n, c, batch, i).items():
             kernel_no = 2 + LARGE.index(name)
@@ -171,60 +171,31 @@ def variants(cs) -> None:
         print(f"{name}: " + "; ".join(times), flush=True)
 
 
-def train(cs, root: Path, recipe: bool = False) -> None:
-    """--train: phase 8's training path (with `recipe`, phase 18's flags)
-    with one profiled warm step."""
+def train(cs, root: Path, recipe: bool = False, uk64: bool = False) -> None:
+    """--train: phase 8's training path (with `recipe`, phase 18's flags;
+    with `uk64`, phase 27's argv) with one profiled warm step."""
     from ccdm_tpu_torch import main as port_main
-    from ccdm_tpu_torch.training import trainer as tr
 
     run = HERE / "build" / "attn_large_variants_run"
     shutil.rmtree(run, ignore_errors=True)
-    argv = ["--root_path", str(run), "--device", "cuda", *cs.TRAIN_ARGV,
-            *(cs.RECIPE_FLAGS if recipe else []),
+    base = cs.UK64_ARGV if uk64 else [*cs.TRAIN_ARGV, *(cs.RECIPE_FLAGS if recipe else [])]
+    argv = ["--root_path", str(run), "--device", "cuda", *base,
             "--niters", str(TRAIN_STEPS), "--save_every", str(TRAIN_STEPS)]
-    step_of, profiled = tr.Trainer.train_step, {}
-
-    def train_step(self, *args, **kwargs):
-        if self.state.step + 1 != PROFILE_STEP:
-            return step_of(self, *args, **kwargs)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = step_of(self, *args, **kwargs)
-            torch.cuda.synchronize()
-            profiled["step_ms"] = (time.perf_counter() - t0) * 1e3
-        profiled["by_kernel"] = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-                                 if e.self_device_time_total > 0}
-        return out
-
-    tr.Trainer.train_step = train_step
     try:
-        port_main.main(argv)
-        torch.cuda.synchronize()
+        with cs.profiled_step(PROFILE_STEP, {}) as profiled:
+            port_main.main(argv)
+            torch.cuda.synchronize()
         log = [json.loads(line) for line in
                open(Path(port_main.results_folder(cs.parse_opts(argv))) / "train_log.jsonl")]
     finally:
-        tr.Trainer.train_step = step_of
         shutil.rmtree(run, ignore_errors=True)
     windows = [r["imgs_per_sec"] for r in log if cs.TRAIN_STEPS // 3 < r["step"] <= cs.TRAIN_STEPS]
-    by_kernel = profiled["by_kernel"]
-    groups = {g: 0.0 for g in GROUPS}
-    for key, ms in by_kernel.items():
-        for g, names in GROUPS.items():
-            if any(re.search(rf"::{k}[<(]", key) for k in names):
-                groups[g] += ms
-    device = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     warm = sum(windows) / len(windows)
-    warm_step_ms = cs.TRAIN_BATCH / warm * 1e3
     print(json.dumps({
-        "root": str(root), "recipe": recipe, "card": cs.card_line(),
-        "warm_images_per_s": warm, "windows_images_per_s": windows, "warm_step_ms": warm_step_ms,
+        "root": str(root), "recipe": recipe, "uk64": uk64, "card": cs.card_line(),
+        "warm_images_per_s": warm, "windows_images_per_s": windows,
         "profiled_step": PROFILE_STEP, "profiled_step_ms": profiled["step_ms"],
-        "device_ms": device, "device_idle_share_of_warm_step": 1 - device / warm_step_ms,
-        "device_ms_by_group": groups,
-        "rest_device_ms": device - sum(groups.values()),
-        "top_kernels": [[k[:120], ms] for k, ms in top]}), flush=True)
+        **cs.device_split(profiled["by_kernel"], cs.TRAIN_BATCH, warm)}), flush=True)
 
 
 def train_turns(runs: list) -> None:
@@ -240,10 +211,10 @@ def train_turns(runs: list) -> None:
                                f"{proc.stderr[-4000:]}")
         rows.append(json.loads(line[-1]))
         print(line[-1], flush=True)
-    print(json.dumps({"turns": [[row["root"], row["recipe"], row["warm_images_per_s"],
-                                 row["device_ms_by_group"], row["device_ms"],
-                                 row["device_idle_share_of_warm_step"]] for row in rows]}),
-          flush=True)
+    print(json.dumps({"turns": [[row["root"], row["recipe"], row["uk64"],
+                                 row["warm_images_per_s"], row["device_ms_by_group"],
+                                 row["device_ms"], row["device_idle_share_of_warm_step"]]
+                                for row in rows]}), flush=True)
 
 
 def main() -> int:
@@ -255,13 +226,16 @@ def main() -> int:
     mode.add_argument("--train-turns", type=Path, metavar="PARENT")
     mode.add_argument("--recipe-turns", action="store_true")
     parser.add_argument("--recipe", action="store_true", help="with --train: phase 18's flags")
+    parser.add_argument("--uk64", action="store_true",
+                        help="with --train or --train-turns: phase 27's UK64 argv")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("attn_large_variants: no CUDA device", file=sys.stderr)
         return 1
     if args.train_turns:
         parent, root = args.train_turns.resolve(), args.root.resolve()
-        train_turns([(parent, []), (root, []), (root, []), (parent, [])])
+        extra = ["--uk64"] if args.uk64 else []
+        train_turns([(parent, extra), (root, extra), (root, extra), (parent, extra)])
         return 0
     if args.recipe_turns:
         root = args.root.resolve()
@@ -273,7 +247,7 @@ def main() -> int:
     if args.variants:
         variants(cs)
     elif args.train:
-        train(cs, args.root, args.recipe)
+        train(cs, args.root, args.recipe, args.uk64)
     else:
         host_and_device(cs, args.root)
     return 0

@@ -11,6 +11,7 @@ its diagonal D x D blocks, the only ones the port keeps. The autograd
 Function that routes training through them is held against jax.vjp of the
 plain composition to 2e-3 in f32.
 
+Both plain versions are also held at UK64's C 72 (dim 72), N 2048.
 The tests marked `cuda` hold each CUDA kernel against its plain version on
 the card (skipped here). This file imports JAX only inside the tests that
 compare with it, so that on the card, which has no JAX, it runs as
@@ -68,12 +69,17 @@ def _torch(arrays, dtype=torch.float32):
     return [torch.from_numpy(np.array(a, np.float32)).to(dtype) for a in arrays]
 
 
+# (N, C): the 64x64 UNet's C 64, and UK64's C 72 (dim 72) at N 2048
+TWO_PASS_CASES = [pytest.param(2048, 64, id="2048"), pytest.param(4096, 64, id="4096"),
+                  pytest.param(2048, 72, id="2048-c72")]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [2048, 4096])
-def test_plain_two_pass_forward_matches_pallas(jab, n, dtype):
+@pytest.mark.parametrize("n,c", TWO_PASS_CASES)
+def test_plain_two_pass_forward_matches_pallas(jab, n, c, dtype):
     import jax.numpy as jnp
 
-    x, w, _ = _inputs(np.random.default_rng(0), 2, n, 64, 2.0 if dtype == "float32" else 1.0)
+    x, w, _ = _inputs(np.random.default_rng(0), 2, n, c, 2.0 if dtype == "float32" else 1.0)
     jx = jnp.asarray(x).astype(dtype)
     y, a, s, kmax = (np.asarray(t, np.float32) for t in jab._forward_pallas_large(
         jx, *map(jnp.asarray, w), HEADS, D, return_residuals=True))
@@ -91,11 +97,14 @@ def test_plain_two_pass_forward_matches_pallas(jab, n, dtype):
                                    atol=tol["atol"] * np.abs(want).max())
 
 
-@pytest.mark.parametrize("dtype,n", [("float32", 2048), ("float32", 4096), ("bfloat16", 2048)])
-def test_plain_fused_backward_matches_pallas(jab, n, dtype):
+@pytest.mark.parametrize("dtype,n,c", [
+    pytest.param(dtype, n, c, id=f"{dtype}-{n}" + ("-c72" if c == 72 else ""))
+    for dtype, n, c in (("float32", 2048, 64), ("float32", 4096, 64), ("bfloat16", 2048, 64),
+                        ("float32", 2048, 72), ("bfloat16", 2048, 72))])
+def test_plain_fused_backward_matches_pallas(jab, n, c, dtype):
     import jax.numpy as jnp
 
-    x, w, dy = _inputs(np.random.default_rng(1), 2, n, 64)
+    x, w, dy = _inputs(np.random.default_rng(1), 2, n, c)
     jx, jdy = jnp.asarray(x).astype(dtype), jnp.asarray(dy).astype(dtype)
     jw = list(map(jnp.asarray, w))
     _, a, s, kmax = jab._forward_pallas_large(jx, *jw, HEADS, D, return_residuals=True)
@@ -327,11 +336,12 @@ def test_cuda_autograd_function_matches_reference_autograd(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c", [(8, 4096, 64), (8, 4096, 128), (8, 2048, 64)])
+@pytest.mark.parametrize("b,n,c", [(8, 4096, 64), (8, 4096, 128), (8, 2048, 64), (8, 4096, 72)])
 def test_cuda_bwd_tensor_route_matches_plain(cuda, b, n, c):
-    """#4 and #5 in bf16 at B 8 (the smallest batch of the checks) and C 128
-    (the 128x128 UNet's 64^2 up level): the tensor-core route, at the bf16
-    bound; #5 nearer its plain version than one with d_a rounded to bf16."""
+    """#4 and #5 in bf16 at B 8 (the smallest batch of the checks), C 128
+    (the 128x128 UNet's 64^2 up level) and C 72 (UK64's top level, padded to
+    96 in shared memory): the tensor-core route, at the bf16 bound; #5
+    nearer its plain version than one with d_a rounded to bf16."""
     x, w, dy = _inputs(np.random.default_rng(6), b, n, c)
     tx, tdy = (t.to(cuda) for t in _torch([x, dy], torch.bfloat16))
     g_pre, wqkv, wout, bout, g_out = (t.to(cuda) for t in _torch(w))

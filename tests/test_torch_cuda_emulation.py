@@ -425,10 +425,12 @@ def _unet_attn_shapes(size, mults, dim=64):
 
 
 # (N, C) of the attention blocks of the RC-49 64x64 UNet (chip_smoke.FORWARD_SHAPES),
-# the 128x128 (mults 1_2_4_4_8_8) and the 192x192 (1_2_2_4_4_8_8) UNet
+# the 128x128 (mults 1_2_4_4_8_8) and the 192x192 (1_2_2_4_4_8_8) UNet, and
+# UK64's (dim 72, mults 1_2_4_4_8: C 72 to 576)
 UNET_ATTN_SHAPES = sorted(set(_unet_attn_shapes(64, (1, 2, 2, 4, 8)) +
                               _unet_attn_shapes(128, (1, 2, 4, 4, 8, 8)) +
-                              _unet_attn_shapes(192, (1, 2, 2, 4, 4, 8, 8))))
+                              _unet_attn_shapes(192, (1, 2, 2, 4, 4, 8, 8)) +
+                              _unet_attn_shapes(64, (1, 2, 4, 4, 8), dim=72)))
 
 
 @pytest.mark.parametrize("batch", [64, 128, 72, 8])
@@ -438,13 +440,15 @@ def test_emulated_attn_plan_at_the_unet_shapes(emulated, batch):
     where N <= 128, else split with min(tiles, max(1, floor(264 / B))) blocks
     a row in each pass (two an SM, one wave) and a workspace of their f32
     records (m, s, a: 4352 floats, two a block) and the bf16 ctx; f32, and
-    bf16 with heads other than 4 or C above 512, the CUDA cores through an
-    f32 qkv workspace."""
+    bf16 with heads other than 4 or C above 512 (UK64's N 16 C 576), the
+    CUDA cores through an f32 qkv workspace."""
     for n, c in UNET_ATTN_SHAPES:
         out = (ctypes.c_int * 3)()
         nbytes = emulated.ccdm_attn_block_plan(batch, n, c, HEADS, D, 1, out)
         route, tile, splits = ATTN_ROUTES[out[0]], out[1], out[2]
-        if n <= 128:
+        if c > 512:
+            assert route == "cores" and nbytes == (batch * n * 3 * F + batch * F * 32) * 4, (n, c)
+        elif n <= 128:
             assert (route, tile, splits, nbytes) == ("fused", 64, 1, 0), (n, c)
         else:
             want = min(-(-n // 64), max(1, 264 // batch))
@@ -621,16 +625,22 @@ def test_emulated_two_pass_plan_at_the_unet_shapes(emulated_large, batch):
     = 2 blocks an SM where their shared memory fits twice (C 64) and 1 (C
     128); #2's workspace its f32 records (2 a block, 2F + F D floats each),
     #3's none. f32 on the CUDA cores: #2 with the first design's splits and
-    its m, s and a partials, #3 a block per 32-token tile."""
+    its m, s and a partials, #3 a block per 32-token tile; so too bf16 at
+    UK64's C 72, not a multiple of 32."""
     up = lambda v: -(-v // 256) * 256
     for n, c in TWO_PASS_SHAPES:
         tiles = -(-n // 128)
         splits = min(tiles, max(1, (2 if c <= 64 else 1) * 132 // batch))
-        assert _large_plan(emulated_large, 2, batch, n, c, 1) == (
-            "tensor", 128, splits, 0, up(batch * splits * 2 * (2 * F + F * 32) * 4)), (n, c)
-        assert _large_plan(emulated_large, 3, batch, n, c, 1) == ("tensor", 128, splits, 0, 0)
         cores = min(-(-512 // batch), -(-n // 32))
         parts = batch * cores
+        if c % 32:
+            assert _large_plan(emulated_large, 2, batch, n, c, 1)[::2] == (
+                "cores", cores, 2 * up(parts * F * 4) + up(parts * F * 32 * 4)), (n, c)
+            assert _large_plan(emulated_large, 3, batch, n, c, 1) == ("cores", 32, n // 32, 0, 0)
+        else:
+            assert _large_plan(emulated_large, 2, batch, n, c, 1) == (
+                "tensor", 128, splits, 0, up(batch * splits * 2 * (2 * F + F * 32) * 4)), (n, c)
+            assert _large_plan(emulated_large, 3, batch, n, c, 1) == ("tensor", 128, splits, 0, 0)
         assert _large_plan(emulated_large, 2, batch, n, c, 0)[::2] == (
             "cores", cores, 2 * up(parts * F * 4) + up(parts * F * 32 * 4))
         assert _large_plan(emulated_large, 3, batch, n, c, 0) == ("cores", 32, n // 32, 0, 0)
@@ -711,11 +721,15 @@ def test_emulated_fused_backward_matches_plain(emulated_large, b, n, c, dtype):
     (2, 80, 128, 1, 0),    # C 128: Wqkv 100 KB resident, one ragged tile a row
     (1, 300, 96, 3, 0),    # three splits; the last tile's 44 tokens end inside warp 2
     (1, 200, 64, 2, 1),    # x one element past an aligned base: element loads
+    (1, 200, 72, 2, 0),    # C 72 (UK64's dim) padded to 96: two splits, a ragged tile
+    (1, 200, 72, 2, 1),    # ... x one element past an aligned base: element loads
+    (1, 300, 104, 3, 0),   # C 104 padded to 128, three splits
 ])
 def test_emulated_bwd_tensor_route_matches_plain(emulated_large, b, n, c, splits, x_offset):
     """The tensor-core route of #4 and #5 in the emulation (mma.sync,
     ldmatrix and cp.async with the ISA's fragment layouts) at the card's
-    bf16 bound, with the plan's splits."""
+    bf16 bound, with the plan's splits; at C not a multiple of 32 (C % 8
+    == 0) padded to whole 32-column blocks in shared memory, zero past C."""
     k = _large_case(b, n, c, "bfloat16", seed=n + c)
     plan_a, plan_b, got_a, got_b = _fused_backward(emulated_large, k, "bfloat16", x_offset)
     assert plan_a[:3] == plan_b[:3] == ("tensor", 128, splits)
@@ -778,13 +792,16 @@ def test_emulated_two_pass_other_dim_heads_match_plain(emulated_large, heads, dt
 # (N, C) of the two-pass blocks (N % 2048 == 0) of the three UNets: the
 # 64x64's N 4096 levels, the 128x128's 128^2 and 64^2 up levels, the 192x192's
 # 192^2 level; and N 2048, phase 6's shorter shape
-TWO_PASS_SHAPES = [(4096, 64), (16384, 64), (4096, 128), (36864, 64), (2048, 64)]
+TWO_PASS_SHAPES = [(4096, 64), (16384, 64), (4096, 128), (36864, 64), (2048, 64), (4096, 72)]
 
 
 def test_emulated_two_pass_shapes_are_the_unets():
-    two_pass = {(n, c) for size, mults in ((64, (1, 2, 2, 4, 8)), (128, (1, 2, 4, 4, 8, 8)),
-                                           (192, (1, 2, 2, 4, 4, 8, 8)))
-                for n, c in _unet_attn_shapes(size, mults) if n % 2048 == 0}
+    """...and UK64's N 4096 levels (dim 72, mults 1_2_4_4_8): C 72."""
+    two_pass = {(n, c) for size, mults, dim in ((64, (1, 2, 2, 4, 8), 64),
+                                                (128, (1, 2, 4, 4, 8, 8), 64),
+                                                (192, (1, 2, 2, 4, 4, 8, 8), 64),
+                                                (64, (1, 2, 4, 4, 8), 72))
+                for n, c in _unet_attn_shapes(size, mults, dim) if n % 2048 == 0}
     assert two_pass == set(TWO_PASS_SHAPES) - {(2048, 64)}
 
 
@@ -795,8 +812,9 @@ def test_emulated_bwd_plan_at_the_unet_shapes(emulated_large, batch):
     (one an SM, one wave); #4's workspace its f32 partials (d_ctx, dbout,
     dg_out, dWout), #5's xn and d_qkv in bf16, its dg_pre partials and
     min(264 / output tiles, ceil(B N / 32)) token splits of dWqkv (264
-    blocks of 64 x 128 outputs);
-    f32 on the CUDA cores with the first design's splits."""
+    blocks of 64 x 128 outputs), UK64's C 72 included (padded to 96 in
+    shared memory; its workspace at C 72); f32 on the CUDA cores with the
+    first design's splits."""
     up = lambda v: -(-v // 256) * 256
     for n, c in TWO_PASS_SHAPES:
         m, tiles = batch * n, -(-n // 128)
@@ -813,9 +831,10 @@ def test_emulated_bwd_plan_at_the_unet_shapes(emulated_large, batch):
         for kn in (4, 5):
             route, _, got, _, _ = _large_plan(emulated_large, kn, batch, n, c, 0)
             assert (route, got) == ("cores", cores)
-    # bf16 at other head counts or C: the CUDA cores
-    for n, c, heads in ((4096, 64, 2), (4096, 40, HEADS), (4096, 160, HEADS), (4096, 64, 8)):
-        assert _large_plan(emulated_large, 5, batch, n, c, 1, heads)[0] == "cores"
+    # bf16 at other head counts, C not a multiple of 8 or C above 128: the CUDA cores
+    for n, c, heads in ((4096, 64, 2), (4096, 36, HEADS), (4096, 160, HEADS), (4096, 64, 8)):
+        for kn in (4, 5):
+            assert _large_plan(emulated_large, kn, batch, n, c, 1, heads)[0] == "cores"
 
 
 # --------------------------------------- kernels #10 and #11 (resnet block)

@@ -15,6 +15,12 @@ become the layer's u and sigma buffers). Tolerances, each with its reason:
   attention gate moved off their initial values: outputs within 1e-5 of
   the largest |value| (a dozen f32 convs, ReLUs and tanh), and every
   statistic the train forward stored (BatchNorm, u, sigma) within 1e-5;
+  the same at 128x128 and 192x192 (5 blocks, from 6x6 at 192), B 2, with
+  one train step's gradient of every parameter (a weighted sum of the
+  train output) within 1e-5 of its largest |value|, in f64 on both sides
+  (jax.enable_x64): in f32 the train-mode BatchNorm statistics over 2 x
+  128^2 to 2 x 192^2 pixels, summed in another order by XLA and PyTorch,
+  move G's output by up to 1.7e-5;
 - DiffAugment on JAX's draws (re-derived from the key with JAX's fold_in
   and split order): translation and cutout exact (a gather and a mask),
   color and the default chain within 1e-6 (means in another order), and
@@ -192,16 +198,16 @@ def test_conditional_batch_norm_statistics(momentum):
 # ------------------------------------------------------------ the nets
 
 
-def _nets(arch):
+def _nets(arch, size=SIZE):
     if arch == "sngan":
-        return (jsngan.SNGANGenerator(dim_z=DIM_Z, nc=NC, img_size=SIZE, gene_ch=4),
-                jsngan.SNGANDiscriminator(nc=NC, img_size=SIZE, disc_ch=4),
-                sngan.SNGANGenerator(dim_z=DIM_Z, nc=NC, img_size=SIZE, gene_ch=4),
-                sngan.SNGANDiscriminator(nc=NC, img_size=SIZE, disc_ch=4))
-    return (jsagan.SAGANGenerator(dim_z=DIM_Z, nc=NC, img_size=SIZE, gene_ch=4),
-            jsagan.SAGANDiscriminator(nc=NC, img_size=SIZE, disc_ch=4),
-            sagan.SAGANGenerator(dim_z=DIM_Z, nc=NC, img_size=SIZE, gene_ch=4),
-            sagan.SAGANDiscriminator(nc=NC, img_size=SIZE, disc_ch=4))
+        return (jsngan.SNGANGenerator(dim_z=DIM_Z, nc=NC, img_size=size, gene_ch=4),
+                jsngan.SNGANDiscriminator(nc=NC, img_size=size, disc_ch=4),
+                sngan.SNGANGenerator(dim_z=DIM_Z, nc=NC, img_size=size, gene_ch=4),
+                sngan.SNGANDiscriminator(nc=NC, img_size=size, disc_ch=4))
+    return (jsagan.SAGANGenerator(dim_z=DIM_Z, nc=NC, img_size=size, gene_ch=4),
+            jsagan.SAGANDiscriminator(nc=NC, img_size=size, disc_ch=4),
+            sagan.SAGANGenerator(dim_z=DIM_Z, nc=NC, img_size=size, gene_ch=4),
+            sagan.SAGANDiscriminator(nc=NC, img_size=size, disc_ch=4))
 
 
 def _close(got, want):
@@ -209,23 +215,51 @@ def _close(got, want):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * max(1.0, np.abs(want).max()))
 
 
-@pytest.mark.parametrize("arch", ["sngan", "sagan"])
-def test_generator_and_discriminator_are_jaxs(arch):
+# (arch, image size, batch): the 64x64 nets, then the 128x128 and 192x192
+# ones (models/sngan.py: 5 blocks, from 6x6 at 192) with one train step, in f64
+NET_CASES = [pytest.param(arch, size, b, id=arch + ("" if size == SIZE else f"-{size}"))
+             for size, b in ((SIZE, B), (128, 2), (192, 2)) for arch in ("sngan", "sagan")]
+
+
+@pytest.mark.parametrize("arch,size,b", NET_CASES)
+def test_generator_and_discriminator_are_jaxs(arch, size, b):
+    step = size != SIZE  # the larger nets: f64, and one train step's gradient
+    with jax.enable_x64(step):
+        _nets_are_jaxs(arch, size, b, step)
+
+
+def _nets_are_jaxs(arch, size, b, step):
     rng = np.random.default_rng(4)
-    jG, jD, pG, pD = _nets(arch)
-    z = rng.normal(size=(B, DIM_Z)).astype(np.float32)
-    y = rng.uniform(size=(B, EMBED)).astype(np.float32)
-    x = rng.uniform(-1, 1, size=(B, SIZE, SIZE, NC)).astype(np.float32)
+    jG, jD, pG, pD = _nets(arch, size)
+    dt = np.float64 if step else np.float32
+    z = rng.normal(size=(b, DIM_Z)).astype(dt)
+    y = rng.uniform(size=(b, EMBED)).astype(dt)
+    x = rng.uniform(-1, 1, size=(b, size, size, NC)).astype(dt)
     gv = _variables(jG, z, y)
     dv = _variables(jD, x, y, seed=1)
+    if step:
+        gv, dv = (jax.tree_util.tree_map(lambda a: a.astype(dt), v) for v in (gv, dv))
+        pG.double()
+        pD.double()
     for jnet, pnet, v, args, port_args in ((jG, pG, gv, (z, y), (_t(z), _t(y))),
                                           (jD, pD, dv, (x, y), (_nchw(x), _t(y)))):
         pnet.load_state_dict(gan_state_dict_from_jax(v, pnet))
         kw = {"return_features": True} if jnet is jD and arch == "sngan" else {}
-        # eval, then train, in one compile
-        want_eval, (want, upd) = jax.jit(lambda v, *a: (
+        first = (lambda o: o[0]) if kw else (lambda o: o)
+        shape = jax.eval_shape(lambda v, *a: first(jnet.apply(v, *a, train=False, **kw)),
+                               v, *args).shape
+        r = rng.normal(size=shape).astype(dt)
+
+        def train_loss(params, v, *a):
+            out, _ = jnet.apply({"params": params, "batch_stats": v["batch_stats"]}, *a,
+                                train=True, mutable=["batch_stats"], **kw)
+            return jnp.sum(first(out) * r)
+
+        # eval, then train, then (step) the train gradient, in one compile
+        want_eval, (want, upd), want_grad = jax.jit(lambda v, *a: (
             jnet.apply(v, *a, train=False, **kw),
-            jnet.apply(v, *a, train=True, mutable=["batch_stats"], **kw)))(v, *args)
+            jnet.apply(v, *a, train=True, mutable=["batch_stats"], **kw),
+            jax.grad(train_loss)(v["params"], v, *a) if step else None))(v, *args)
         with torch.no_grad():
             got = pnet(*port_args, train=False, **kw)
         if kw:  # SNGAN's (out, phi): phi in NCHW order on both sides
@@ -239,6 +273,15 @@ def test_generator_and_discriminator_are_jaxs(arch):
             got, want = got[0], want[0]
         _close(_nhwc(got) if got.ndim == 4 else got.numpy(), want)
         _stats_close(pnet, jax.device_get(upd["batch_stats"]), v["params"])
+        if step:  # from the same weights and statistics, the train forward's gradient
+            pnet.load_state_dict(gan_state_dict_from_jax(v, pnet))
+            pnet.zero_grad(set_to_none=True)
+            out = first(pnet(*port_args, train=True, **kw))
+            out.backward(_nchw(r) if out.ndim == 4 else _t(r))
+            grads = gan_state_dict_from_jax({"params": jax.device_get(want_grad),
+                                             "batch_stats": v["batch_stats"]}, pnet)
+            for name, p in pnet.named_parameters():
+                _close(p.grad.numpy(), grads[name].numpy())
 
 
 # ---------------------------------------------------------- DiffAugment
