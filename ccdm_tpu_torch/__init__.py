@@ -9,3 +9,12 @@ Entry points run on "cuda" unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"
+
+import torch as _torch  # noqa: E402
+
+# PyTorch runs its CPU exp, log, sin, tanh, ... through the MKL it bundles
+# (VML). The first such call of a process, when it runs on two or more
+# threads, can compute the worker threads' share at a lower accuracy
+# (relative errors near 1e-4 where they are ~3e-8 otherwise). One call on a
+# single element, which runs on the calling thread alone, sets MKL up first.
+_torch.tanh(_torch.zeros(1))

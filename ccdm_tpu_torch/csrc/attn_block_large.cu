@@ -42,11 +42,11 @@
 // the tensor cores with few intermediates in device memory come near that.
 // Routes of #2-#5 (make_large_plan, exported as ccdm_attn_large_plan; a
 // function of the shape alone, never of a failure):
-//   - tensor cores, for bf16 at 4 heads of 32 and C up to 128, a multiple of
-//     32 for #2 and #3 and of 8 for #4 and #5 (every two-pass shape of the
-//     64x64, 128x128 and 192x192 UNets at dim 64; UK64's C 72 at dim 72
-//     takes it for #4 and #5 only): the sections "bf16 forward: tensor
-//     cores" and "bf16 backward: tensor cores" below;
+//   - tensor cores, for bf16 at 4 heads of 32 and C a multiple of 8 up to
+//     128, padded to whole 32-column blocks in shared memory (every
+//     two-pass shape of the 64x64, 128x128 and 192x192 UNets at dim 64, and
+//     UK64's C 72 at dim 72, padded to 96): the sections "bf16 forward:
+//     tensor cores" and "bf16 backward: tensor cores" below;
 //   - CUDA cores, for f32 (the checks whose bounds TF32 would break) and
 //     every other shape, at any D: the first design, every product as f32 FMAs from
 //     shared memory in register tiles of 8 tokens, the weight products
@@ -979,9 +979,9 @@ __device__ __forceinline__ void head_softmax(Acc& a, const Quad& q, int valid, f
 // summing the squares of its half of the padded row (cp / 16 chunks of 8)
 // in order, then the two halves; 1 / rms correctly rounded (__frsqrt_rn),
 // so that a plain version can form the same xn
-// (ops/attn_block.tensor_route_prenorm). Where #2-#5 all take the tensor
-// route (C % 32 == 0) they all form xn here: the k whose column max #2
-// writes is the k that #5 exponentiates.
+// (ops/attn_block.tensor_route_prenorm). #2-#5 take the tensor route at the
+// same shapes (C % 8 == 0) and all form xn here, at the same cp: the k
+// whose column max #2 writes is the k that #5 exponentiates.
 __device__ void warp_norm16(bf16* dst, const bf16* src, int ld, const float* g, int valid, int c,
                             int cp, float* inv_out, int lane) {
   const int r = lane >> 1, off = (lane & 1) * (cp / 2), chunks = cp / 16;
@@ -1054,10 +1054,12 @@ __device__ __forceinline__ void attn_rows(Acc (&o)[NC], const bf16* xw, int kc, 
 }
 
 // ------------------------------------------ bf16 forward: tensor cores
-// #2 and #3 in bf16 on the domain of #4 and #5's tensor route. Both walk
-// the 128-token tiles of a split of a batch row, the next tile's x loading
-// (cp.async) while they work on the current one, and both form xn with
-// warp_norm16, as #4 and #5 do.
+// #2 and #3 in bf16 on the domain of #4 and #5's tensor route, C padded
+// the same way (pad32, zeros past C: x's columns, Wk's, Wv's and Wq's rows,
+// Wout's columns and the vectors; the norms divide by the true C, and
+// nothing past C is stored). Both walk the 128-token tiles of a split of a
+// batch row, the next tile's x loading (cp.async) while they work on the
+// current one, and both form xn with warp_norm16, as #4 and #5 do.
 //   - #2 (ctx_tc_kernel): each warp normalises 16 rows of the tile in
 //     place; then, for each 64-row half, k and v = xn . Wkv (Wkv resident)
 //     in #1's split pass 1 (a 2 x 4 grid of warps, a head a warp column,
@@ -1073,9 +1075,9 @@ __device__ __forceinline__ void attn_rows(Acc (&o)[NC], const bf16* xw, int kc, 
 //     accumulators, y staged in bf16 in the warp's xn rows and stored 16
 //     bytes a lane.
 
-// #2's shared memory: Wk and Wv side by side [C][2 kBN + 8] (load_slab<2>),
-// g_pre [C] f32, two x tiles [kTM][C + 8] and the warps' online_update
-// scratch.
+// #2's shared memory at C (pad32 of the true C): Wk and Wv side by side
+// [C][2 kBN + 8] (load_slab<2>), g_pre [C] f32, two x tiles [kTM][C + 8] and
+// the warps' online_update scratch.
 struct CtxLayout {
   int w, g, x, scratch, total;
 };
@@ -1088,8 +1090,8 @@ __host__ __device__ inline CtxLayout ctx_layout(int c) {
   return l;
 }
 
-// #3's: Wq [C][kLF], Wout [F][C + 8], ctx [F][kLH], g_pre, bout, g_out [3][C]
-// f32, two x tiles and the xn tile [kTM][C + 8].
+// #3's, at C padded: Wq [C][kLF], Wout [F][C + 8], ctx [F][kLH], g_pre,
+// bout, g_out [3][C] f32, two x tiles and the xn tile [kTM][C + 8].
 struct OutLayout {
   int wq, wo, ctx, vec, x, xn, total;
 };
@@ -1105,30 +1107,36 @@ __host__ __device__ inline OutLayout out_layout(int c) {
 }
 
 // #2: block (z, b) folds the tiles of split z of batch row b and writes one
-// record per warp row to parts [B][splits][2][kPart].
+// record per warp row to parts [B][splits][2][kPart]. In shared memory C is
+// cp = pad32(c) wide; kPad where c < cp (else cp is c, the route's code at
+// C % 32 == 0).
+template <bool kPad>
 __global__ void __launch_bounds__(kThreads, 2)
 ctx_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
               const bf16* __restrict__ wqkv, float* __restrict__ parts, int n, int c,
               int splits, int vec) {
   extern __shared__ __align__(16) float smem[];
   char* base = reinterpret_cast<char*>(smem);
-  const CtxLayout l = ctx_layout(c);
+  const int cp = kPad ? pad32(c) : c;
+  const CtxLayout l = ctx_layout(cp);
   bf16* w_s = reinterpret_cast<bf16*>(base + l.w);
   float* gs = reinterpret_cast<float*>(base + l.g);
   bf16* xbuf = reinterpret_cast<bf16*>(base + l.x);
-  const int lc = ldc(c), w = threadIdx.x >> 5, wm = Lane().wm, b = blockIdx.y;
+  const int lc = ldc(cp), w = threadIdx.x >> 5, wm = Lane().wm, b = blockIdx.y;
   const TileRange tr(blockIdx.x, splits, (n + kTM - 1) / kTM);
   const bf16* xb = x + (size_t)b * n * c;
   char* scratch = base + l.scratch + w * kWarpScratch;
-  // tile `tile` into its buffer as one commit group (an empty one past t1)
+  // tile `tile` into its buffer as one commit group (an empty one past t1);
+  // columns c to cp zero-filled
   auto prefetch = [&](int tile) {
     if (tile < tr.t1)
       copy_rows(xbuf + ((tile - tr.t0) & 1) * kTM * lc, lc, xb + (size_t)tile * kTM * c, c, kTM,
-                min(kTM, n - tile * kTM), c, vec, threadIdx.x, kThreads);
+                min(kTM, n - tile * kTM), cp, vec, threadIdx.x, kThreads, kPad ? c : 1 << 30);
     cp_async_commit();
   };
-  for (int i = threadIdx.x; i < c; i += kThreads) gs[i] = g_pre[i];
-  load_slab<2>(w_s, WSlab{wqkv, 3 * kF, kF, kF, 3 * kF}, 0, c, c, vec);
+  for (int i = threadIdx.x; i < cp; i += kThreads) gs[i] = kPad && i >= c ? 0.f : g_pre[i];
+  // Wk and Wv's cp rows, zeros from row c on: every K slice mma_resident reads
+  load_slab<2>(w_s, WSlab{wqkv, 3 * kF, kF, kF, 3 * kF}, 0, cp, c, vec);
   prefetch(tr.t0);  // with the weights
   WarpCtx st;
   st.init();
@@ -1139,11 +1147,11 @@ ctx_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
     __syncthreads();
     const int rows = min(kTM, n - tile * kTM);
     warp_norm16(cur + w * 16 * lc, cur + w * 16 * lc, lc, gs, max(0, min(16, rows - w * 16)), c,
-                c, nullptr, threadIdx.x & 31);
+                cp, nullptr, threadIdx.x & 31);
     __syncthreads();
     for (int half = 0; half < 2; ++half) {
       float kv[2][2][4][4] = {};
-      mma_resident<2>(kv, cur + half * 64 * lc, lc, w_s, c);
+      mma_resident<2>(kv, cur + half * 64 * lc, lc, w_s, cp);
       online_update(st, kv[0], kv[1], rows - half * 64 - wm * 32, scratch);
     }
     __syncthreads();  // every warp is done with this buffer before it loads again
@@ -1170,15 +1178,19 @@ ctx_merge_kernel(const float* __restrict__ parts, float* __restrict__ kmax,
 }
 
 // #3: block (z, b) writes y for the tiles of split z of batch row b; each
-// warp its 16 rows of each tile, its x rows double-buffered.
-template <int NC>
+// warp its 16 rows of each tile, its x rows double-buffered. C = 32 NC =
+// pad32(c); kPad as for #4.
+template <int NC, bool kPad>
 __global__ void __launch_bounds__(kThreads, NC <= 2 ? 2 : 1)
 out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
               const bf16* __restrict__ wqkv, const bf16* __restrict__ ctx,
               const bf16* __restrict__ wout, const float* __restrict__ bout,
-              const float* __restrict__ g_out, bf16* __restrict__ y, int n, int splits,
+              const float* __restrict__ g_out, bf16* __restrict__ y, int n, int c_in, int splits,
               int vec) {
   constexpr int C = 32 * NC, LC = ldc(C);
+  const int c = kPad ? c_in : C;
+  const int kc = kPad ? (c + 15) / 16 * 16 : C;  // the K slices over C that hold a column < c
+  const int c_lim = kPad ? c : 1 << 30;          // copy_rows' zero-fill from column c on
   extern __shared__ __align__(16) float smem[];
   char* base = reinterpret_cast<char*>(smem);
   const OutLayout l = out_layout(C);
@@ -1197,18 +1209,19 @@ out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
   // the warp's rows of tile `tile` into its buffer as one commit group
   auto prefetch = [&](int tile) {
     if (tile < tr.t1)
-      copy_rows(xw[(tile - tr.t0) & 1], LC, x + (tok0 + (size_t)tile * kTM + r0) * C, C, 16,
-                rows_of(tile), C, vec, q.lane, 32);
+      copy_rows(xw[(tile - tr.t0) & 1], LC, x + (tok0 + (size_t)tile * kTM + r0) * c, c, 16,
+                rows_of(tile), C, vec, q.lane, 32, c_lim);
     cp_async_commit();
   };
 
-  copy_rows(wq_s, kLF, wqkv, 3 * kF, C, C, kF, vec, threadIdx.x, kThreads);
-  copy_rows(wo_s, LC, wout, C, kF, kF, C, vec, threadIdx.x, kThreads);
+  copy_rows(wq_s, kLF, wqkv, 3 * kF, C, c, kF, vec, threadIdx.x, kThreads);
+  copy_rows(wo_s, LC, wout, c, kF, kF, C, vec, threadIdx.x, kThreads, c_lim);
   copy_rows(ctx_s, kLH, ctx + (size_t)b * kF * kD, kD, kF, kF, kD, vec, threadIdx.x, kThreads);
   for (int i = threadIdx.x; i < C; i += kThreads) {
-    vs[i] = g_pre[i];
-    vs[C + i] = bout[i];
-    vs[2 * C + i] = g_out[i];
+    const bool in = !kPad || i < c;
+    vs[i] = in ? g_pre[i] : 0.f;
+    vs[C + i] = in ? bout[i] : 0.f;
+    vs[2 * C + i] = in ? g_out[i] : 0.f;
   }
   prefetch(tr.t0);
   cp_async_wait<0>();
@@ -1219,11 +1232,12 @@ out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
     cp_async_wait<1>();  // this tile's rows have landed
     __syncwarp();
     const int valid = rows_of(tile);
-    warp_norm16(xnw, cur, LC, vs, valid, C, C, nullptr, q.lane);
+    warp_norm16(xnw, cur, LC, vs, valid, c, C, nullptr, q.lane);
     __syncwarp();
     float o[NC][4][4] = {};
-    attn_rows<NC>(o, xnw, C, wq_s, ctx_s, wo_s, q, valid, nullptr, nullptr);
+    attn_rows<NC>(o, xnw, kc, wq_s, ctx_s, wo_s, q, valid, nullptr, nullptr);
     // o += bout; y = x + o r2 g_out with r2 = 1 / rms(o), as #4 recomputes it
+    // (o is 0 past c)
     float ss[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < NC; ++j)
@@ -1237,7 +1251,7 @@ out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
         }
     float r2[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) r2[h] = rsqrtf(quad_sum(ss[h]) / (float)C + 1e-12f);
+    for (int h = 0; h < 2; ++h) r2[h] = rsqrtf(quad_sum(ss[h]) / (float)c + 1e-12f);
     __syncwarp();  // every lane has read xn: y takes its place
 #pragma unroll
     for (int j = 0; j < NC; ++j)
@@ -1253,15 +1267,15 @@ out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g_pre,
           *reinterpret_cast<uint32_t*>(xnw + r * LC + col) = pack_bf16(yv[0], yv[1]);
         }
     __syncwarp();
-    bf16* yw = y + (tok0 + (size_t)tile * kTM + r0) * C;
-    for (int i = q.lane; i < valid * (C / 8); i += 32) {
-      const int r = i / (C / 8), ch = (i % (C / 8)) * 8;
+    bf16* yw = y + (tok0 + (size_t)tile * kTM + r0) * c;
+    for (int i = q.lane; i < valid * (c / 8); i += 32) {
+      const int r = i / (c / 8), ch = (i % (c / 8)) * 8;
       if (vec) {
-        *reinterpret_cast<uint4*>(yw + r * C + ch) =
+        *reinterpret_cast<uint4*>(yw + r * c + ch) =
             *reinterpret_cast<const uint4*>(xnw + r * LC + ch);
       } else {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) yw[r * C + ch + e] = xnw[r * LC + ch + e];
+        for (int e = 0; e < 8; ++e) yw[r * c + ch + e] = xnw[r * LC + ch + e];
       }
     }
     __syncwarp();  // y has left xn before the next tile's norm writes it
@@ -1864,11 +1878,11 @@ inline int clampi(long long v, int lo, long long hi) {
 }
 
 // Shared-memory bytes of a block of kernel 2-5's tensor-core route at C
-// (#4 and #5 at C padded to pad32).
+// (C padded to pad32).
 inline int tc_smem(int kernel, int c) {
   switch (kernel) {
-    case 2: return ctx_layout(c).total;
-    case 3: return out_layout(c).total;
+    case 2: return ctx_layout(pad32(c)).total;
+    case 3: return out_layout(pad32(c)).total;
     case 4: return bwd_a_layout(pad32(c)).total;
     default: return bwd_b_layout(pad32(c)).total;
   }
@@ -1883,15 +1897,14 @@ LargePlan make_large_plan(int kernel, int batch, int n, int c, int heads, int di
   }
   const long long dh = dim_head, f = (long long)heads * dh, m = (long long)batch * n;
   const int esz = is_bf16 ? 2 : 4;
-  // #4 and #5 pad C to whole 32-column blocks in shared memory and need
-  // 16-byte rows (C % 8 == 0); #2 and #3 take C a multiple of 32
-  const int c_step = kernel >= 4 ? 8 : 32;
-  const bool tensor = is_bf16 && heads == kHeads && dim_head == kD && c % c_step == 0 &&
+  // the four pad C to whole 32-column blocks in shared memory and need
+  // 16-byte rows (C % 8 == 0)
+  const bool tensor = is_bf16 && heads == kHeads && dim_head == kD && c % 8 == 0 &&
                       c <= kMaxC && tc_smem(kernel, c) <= kMaxSmem;
   if (tensor) {
     // splits a row: as many as fill one wave of the blocks an SM holds (two
-    // where their shared memory fits twice: #2 and #3 at C <= 64; #4 and #5
-    // hold over half an SM's at every C), at most one a tile
+    // where their shared memory fits twice: #2 and #3 at C <= 64, padded;
+    // #4 and #5 hold over half an SM's at every C), at most one a tile
     const int per_sm = tc_smem(kernel, c) <= kSmemTwoBlocks ? 2 : 1;
     p.route = kRouteTensor;
     p.tile = kTM;
@@ -2074,13 +2087,14 @@ int ctx_cores(const LargePlan& p, const void* x, const float* g_pre, const void*
   return check_last();
 }
 
+template <bool kPad>
 int ctx_tc(const LargePlan& p, const bf16* x, const float* g_pre, const bf16* wqkv, float* kmax,
            float* s, float* a, void* ws, int batch, int n_tok, int c_dim, int vec,
            cudaStream_t st) {
   float* parts = static_cast<float*>(ws);
-  int err = allow_smem<ctx_tc_kernel>(kMaxSmem);
+  int err = allow_smem<ctx_tc_kernel<kPad>>(kMaxSmem);
   if (err) return err;
-  ctx_tc_kernel<<<dim3(p.splits, batch), kThreads, ctx_layout(c_dim).total, st>>>(
+  ctx_tc_kernel<kPad><<<dim3(p.splits, batch), kThreads, ctx_layout(pad32(c_dim)).total, st>>>(
       x, g_pre, wqkv, parts, n_tok, c_dim, p.splits, vec);
   if ((err = check_last())) return err;
   ctx_merge_kernel<<<dim3(batch, kF * kD / kThreads), kThreads, 0, st>>>(parts, kmax, s, a,
@@ -2102,19 +2116,19 @@ int out_cores(const void* x, const float* g_pre, const void* wqkv, const void* c
   return check_last();
 }
 
-template <int NC>
+template <int NC, bool kPad>
 int out_tc(const LargePlan& p, const bf16* x, const float* g_pre, const bf16* wqkv,
            const bf16* ctx, const bf16* wout, const float* bout, const float* g_out, bf16* y,
-           int batch, int n_tok, int vec, cudaStream_t st) {
-  int err = allow_smem<out_tc_kernel<NC>>(kMaxSmem);
+           int batch, int n_tok, int c, int vec, cudaStream_t st) {
+  int err = allow_smem<out_tc_kernel<NC, kPad>>(kMaxSmem);
   if (err) return err;
-  out_tc_kernel<NC><<<dim3(p.splits, batch), kThreads, out_layout(32 * NC).total, st>>>(
-      x, g_pre, wqkv, ctx, wout, bout, g_out, y, n_tok, p.splits, vec);
+  out_tc_kernel<NC, kPad><<<dim3(p.splits, batch), kThreads, out_layout(32 * NC).total, st>>>(
+      x, g_pre, wqkv, ctx, wout, bout, g_out, y, n_tok, c, p.splits, vec);
   return check_last();
 }
 
 // f(NC, kPad), each a std::integral_constant: C's 32-column blocks and
-// whether C pads (#4's and #5's tensor route).
+// whether C pads (the tensor route of #3, #4 and #5).
 template <int NC, typename F>
 int with_pad(bool pad, F& f) {
   return pad ? f(std::integral_constant<int, NC>{}, std::true_type{})
@@ -2157,8 +2171,9 @@ extern "C" int ccdm_attn_ctx_large(const void* x, const float* g_pre, const void
                    : ctx_cores<float>(p, x, g_pre, wqkv, kmax, s, a, ws, batch, n_tok, c_dim,
                                       heads, dim_head, st);
   const int vec = aligned16(x) && aligned16(wqkv);
-  return ctx_tc(p, static_cast<const bf16*>(x), g_pre, static_cast<const bf16*>(wqkv), kmax, s,
-                a, ws, batch, n_tok, c_dim, vec, st);
+  const bf16 *xb = static_cast<const bf16*>(x), *wq = static_cast<const bf16*>(wqkv);
+  return c_dim % 32 ? ctx_tc<true>(p, xb, g_pre, wq, kmax, s, a, ws, batch, n_tok, c_dim, vec, st)
+                    : ctx_tc<false>(p, xb, g_pre, wq, kmax, s, a, ws, batch, n_tok, c_dim, vec, st);
 }
 
 // #3: y [B, N, C] in the activation type.
@@ -2180,12 +2195,10 @@ extern "C" int ccdm_attn_out_large(const void* x, const float* g_pre, const void
   const bf16 *xb = static_cast<const bf16*>(x), *wq = static_cast<const bf16*>(wqkv),
              *cb = static_cast<const bf16*>(ctx), *wo = static_cast<const bf16*>(wout);
   bf16* yb = static_cast<bf16*>(y);
-  switch (c_dim / 32) {
-    case 1: return out_tc<1>(p, xb, g_pre, wq, cb, wo, bout, g_out, yb, batch, n_tok, vec, st);
-    case 2: return out_tc<2>(p, xb, g_pre, wq, cb, wo, bout, g_out, yb, batch, n_tok, vec, st);
-    case 3: return out_tc<3>(p, xb, g_pre, wq, cb, wo, bout, g_out, yb, batch, n_tok, vec, st);
-    default: return out_tc<4>(p, xb, g_pre, wq, cb, wo, bout, g_out, yb, batch, n_tok, vec, st);
-  }
+  return by_blocks(c_dim, [&](auto nc, auto pad) {
+    return out_tc<decltype(nc)::value, decltype(pad)::value>(p, xb, g_pre, wq, cb, wo, bout, g_out,
+                                                             yb, batch, n_tok, c_dim, vec, st);
+  });
 }
 
 // The plan of one call of #2-#5 (kernel 2 to 5): writes the route (0 CUDA

@@ -13,7 +13,7 @@ module's `_dispatch`, `_can_fuse_bwd` and `_fwd` (attn_block.py:557-611):
   `attn_out_large`), saving the residuals (a, s, kmax); its backward is the
   fused kernels #4 + #5 (`attn_bwd_a`, `attn_bwd_b`); all four are in
   csrc/attn_block_large.cu, in bf16 on the tensor cores at the UNets' shapes
-  at dim 64 (`large_plan`; at UK64's C 72 #4 and #5 only);
+  at dim 64 and at UK64's C 72 (`large_plan`);
 - with a gradient otherwise: `_SinglePassBlock`, kernel #1 forward and the
   backward by autograd through `attn_block_reference`, as `jax.vjp` does.
 Every kernel takes any dim_head: the tensor-core routes take heads of
@@ -111,18 +111,21 @@ def ctx_large_reference(x2d, g_pre, wqkv, heads):
 
 def tensor_route_prenorm(x2d, g_pre):
     """xn in f32, before its bf16 rounding, as the tensor-core route of
-    kernels #2-#5 forms it at C % 32 == 0 (csrc/attn_block_large.cu,
-    warp_norm16; at other C, #4 and #5 halve the row padded with zeros to
-    whole 32-column blocks): the squares of each half of a row summed in
-    order, the two halves added, divided by C, plus 1e-12, then 1 / sqrt
-    correctly rounded to f32, and x inv g_pre. For bf16 x each square is
-    exact in f32, so the kernel's fmaf adds it as + does here."""
+    kernels #2-#5 forms it (csrc/attn_block_large.cu, warp_norm16): the row
+    padded with zeros to whole 32-column blocks (pad32: C 72 -> 96), the
+    squares of each half of the padded row summed in order, the two halves
+    added, divided by the true C, plus 1e-12, then 1 / sqrt correctly
+    rounded to f32, and x inv g_pre. For bf16 x each square is exact in
+    f32, so the kernel's fmaf adds it as + does here; the padding adds exact
+    zeros."""
     xf = x2d.float()
-    sq, half = xf * xf, x2d.shape[-1] // 2
+    c = x2d.shape[-1]
+    sq = torch.nn.functional.pad(xf * xf, (0, -(-c // 32) * 32 - c))
+    half = sq.shape[-1] // 2
     lo, hi = torch.zeros_like(sq[..., 0]), torch.zeros_like(sq[..., 0])
     for j in range(half):
         lo, hi = lo + sq[..., j], hi + sq[..., half + j]
-    v = (lo + hi) / x2d.shape[-1] + 1e-12
+    v = (lo + hi) / c + 1e-12
     inv = (1 / torch.sqrt(v.double())).float()
     return xf * inv[..., None] * g_pre.float()
 
@@ -268,9 +271,9 @@ def plan(batch: int, n_tok: int, c: int, heads: int, dtype: torch.dtype,
 class LargePlan(NamedTuple):
     """How csrc/attn_block_large.cu runs one call of kernel #2, #3, #4 or #5:
     route "cores" (CUDA cores: f32, or bf16 at heads != 4, dim_head != 32, C
-    above 128, or C not a multiple of 32 for #2 and #3 and of 8 for #4 and
-    #5) or "tensor" (bf16 on the tensor cores; #4 and #5 pad C to whole
-    32-column blocks in shared memory); the
+    above 128, or C not a multiple of 8) or "tensor" (bf16 on the tensor
+    cores; all four pad C to whole 32-column blocks in shared memory, UK64's
+    C 72 to 96); the
     tokens of a tile, the blocks per batch row, the token splits of the
     weight-gradient launch (#5 only, and #4 on the CUDA cores) and the
     workspace bytes (#3 needs none)."""

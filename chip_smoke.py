@@ -53,9 +53,8 @@ Phases, each announced on a flushed line before it starts:
      1e-1, atol 0.02 max(|g|, 1)); in f32 also #4 + #5 through the autograd
      Function against autograd through the plain block; in bf16 #5 nearer
      its plain version than one with d_a rounded to bf16 (check_rounding),
-     and #2-#5 on their tensor-core route but #2 and #3 at C 72 on the CUDA
-     cores (asserted, large_route, with tile and splits; kmax against the
-     tensor route's rounding points only where #2 takes it); each timed in
+     and #2-#5 on their tensor-core route, UK64's C 72 padded to 96
+     (asserted, large_route, with tile and splits); each timed in
      bf16 (event and host time, TFLOP/s, share of
      the bound); then #2 + #3 against #1 at sampling time (B 64, bf16, N
      4096 and 16384); then the block at dim_head 64 (2 heads; B 8, N 4096,
@@ -320,8 +319,8 @@ Phases, each announced on a flushed line before it starts:
      width cut: losses finite, parameters moved, launches exactly 8 of #1
      and 2 each of #2-#5 per step and 10 of #1 per sampling forward, none of
      the rest, every (B, N, C, dtype) of #1 among phase 3's and of #2-#5
-     among phase 6's, the routes at (128, 4096, 72) asserted (#4 and #5 the
-     tensor cores, #2 and #3 the CUDA cores), warm train images/s beside
+     among phase 6's, the routes at (128, 4096, 72) asserted (all four the
+     tensor cores, C padded to 96), warm train images/s beside
      phase 8's, and warm step 18 under torch.profiler: the card's time by
      kernel, #2-#5 apart, the card's idle share; then one JSON line
      {"uk64": ...}, the card's line again and the last line {"ok": true,
@@ -861,8 +860,8 @@ LARGE_BATCH = {(36864, 64): 32}
 # Cell-200 teacher's top level in f32 at B 64, phase 23's class UNet
 # training, and the flagship's top level in bf16 at B 64, a rank's rows in
 # phase 26's two-rank training; then UK64's two-pass level (dim 72) at B
-# 128 in bf16 and f32, phase 27's training, where #4 and #5 take the tensor
-# cores at C 72 (padded to 96) and #2 and #3 the CUDA cores
+# 128 in bf16 and f32, phase 27's training, where #2-#5 take the tensor
+# cores at C 72 (padded to 96)
 UK64_LARGE = (4096, 72)
 LARGE_CASES = ([(n, c, LARGE_BATCH.get((n, c), TRAIN_BATCH), (torch.bfloat16, torch.float32))
                 for n, c in LARGE_SHAPES] + [(4096, 32, 64, (torch.float32,)),
@@ -889,11 +888,11 @@ TRAIN_ARGV = ["--data_name", "synthetic", "--image_size", "64", "--model_channel
 EVAL_FORWARDS = 2 * 10  # UNet forwards of that sampling
 
 
-def large_route(name: str, c: int) -> str:
-    """The route kernel `name`'s plan must take in bf16 at 4 heads of 32
-    (C <= 128): the tensor cores, but for #2 and #3 at C not a multiple
-    of 32 (UK64's C 72), which keep the CUDA cores."""
-    return "cores" if name in LARGE[:2] and c % 32 else "tensor"
+def large_route(c: int) -> str:
+    """The route the plans of #2-#5 must take in bf16 at 4 heads of 32 (C
+    <= 128): the tensor cores at C % 8 == 0, C padded to whole 32-column
+    blocks in shared memory (UK64's C 72 to 96)."""
+    return "tensor" if c % 8 == 0 else "cores"
 
 
 def large_bound_parts(name: str, n: int, c: int, batch: int = TRAIN_BATCH,
@@ -969,7 +968,7 @@ def large_vs_plain(device) -> dict:
     LARGE_SHAPES in bf16 and f32, TF32 off, then the extra batches and
     UK64's C 72), timed in bf16 (event and host time, TFLOP/s and share of
     the bound; each kernel's route, asserted as large_route says: the
-    tensor cores, but #2 and #3 at C 72; tile and splits from its plan);
+    tensor cores, C 72 padded to 96; tile and splits from its plan);
     #2's bf16 kmax on the tensor route against the plain version at the
     route's rounding points, and at every shape against
     ctx_large_reference (kmax_check); #4 + #5 in f32 also
@@ -991,16 +990,14 @@ def large_vs_plain(device) -> dict:
             ra, rs, rkmax = attn_block.ctx_large_reference(x, g_pre, wqkv, HEADS)
             fwd = (2e-3, 2e-4) if dt == torch.float32 else (3e-2, 3e-2)
             if dt == torch.bfloat16:
-                # on the tensor route the plain version at its rounding points
-                # (xn as warp_norm16 forms it), then ctx_large_reference
-                if large_route("attn_ctx_large", c) == "tensor":
-                    own = attn_block.ctx_large_tensor_reference(x, g_pre, wqkv, HEADS)[2]
-                    err["kmax"] = check_close(kmax, own, 1e-5, 1e-5 * float(own.abs().max()),
-                                              f"#2 kmax {tag}")
-                    del own
+                # the plain version at the tensor route's rounding points (xn
+                # as warp_norm16 forms it), then ctx_large_reference
+                own = attn_block.ctx_large_tensor_reference(x, g_pre, wqkv, HEADS)[2]
+                err["kmax"] = check_close(kmax, own, 1e-5, 1e-5 * float(own.abs().max()),
+                                          f"#2 kmax {tag}")
+                del own
                 err["kmax_plain"], row_flips = kmax_check(kmax, rkmax, x, g_pre, wqkv,
                                                           f"#2 kmax against the plain #2 {tag}")
-                err.setdefault("kmax", err["kmax_plain"])
             else:
                 err["kmax"] = check_close(kmax, rkmax, 1e-5, 1e-5 * float(rkmax.abs().max()),
                                           f"#2 kmax {tag}")
@@ -1052,9 +1049,9 @@ def large_vs_plain(device) -> dict:
                     t["tflops"] = large_flops(name, n, c, batch) / t["ms"] / 1e9
                     t["share_of_bound"] = t["bound_ms"] / t["ms"]
                     pl = attn_block.large_plan(2 + LARGE.index(name), batch, n, c, HEADS, dt)
-                    if pl.route != large_route(name, c):
+                    if pl.route != large_route(c):
                         raise AssertionError(f"{name} {tag} took the {pl.route} route, not "
-                                             f"the {large_route(name, c)} route")
+                                             f"the {large_route(c)} route")
                     t.update(route=pl.route, tile=pl.tile, splits=pl.splits)
                     if name == "attn_bwd_b":
                         t["wgrad_splits"] = pl.wgrad_splits
@@ -1471,7 +1468,7 @@ def device_split(by_kernel: dict, batch: int, warm_images_per_s: float) -> dict:
 def uk64_checks(card: str, profiled: dict, phase8_ips: float):
     """Phase 27's own checks: the parameters moved from the seed-0 dim-72
     UNet, the routes #2-#5 planned at UK64's two-pass shape (the tensor
-    cores for #4 and #5, the CUDA cores for #2 and #3), the warm rate and
+    cores for all four, C padded to 96), the warm rate and
     the profiled warm step's card time by kernel."""
     initial = Unet(dim=72, dim_mults=UK64_MULTS, in_channels=3, dtype=torch.bfloat16,
                    seed=0).state_dict()
@@ -1485,7 +1482,7 @@ def uk64_checks(card: str, profiled: dict, phase8_ips: float):
                                  f"ema_step {state.ema_step}")
         routes = {name: attn_block.large_plan(2 + LARGE.index(name), TRAIN_BATCH, *UK64_LARGE,
                                               HEADS, torch.bfloat16).route for name in LARGE}
-        want = {name: large_route(name, UK64_LARGE[1]) for name in LARGE}
+        want = {name: large_route(UK64_LARGE[1]) for name in LARGE}
         if routes != want:
             raise AssertionError(f"routes at (B {TRAIN_BATCH}, N {UK64_LARGE[0]}, C "
                                  f"{UK64_LARGE[1]}): {routes}, expected {want}")

@@ -31,8 +31,8 @@ that commit's wrappers with this checkout's helpers):
   PARENT, to compare two commits' training on one card;
 - --train --uk64 (and --train-turns PARENT --uk64): the same at UK64's
   widths (chip_smoke.UK64_ARGV: dim 72, 1_2_4_4_8, resnet ILI + H(y),
-  trained first in the process), 35 steps, where #4 and #5 take the tensor
-  cores at C 72 (padded to 96) and #2 and #3 the CUDA cores;
+  trained first in the process), 35 steps, where #2-#5 take the tensor
+  cores at C 72 (padded to 96);
 - --train --recipe: the same with the CCDM recipe's flags
   (chip_smoke.RECIPE_FLAGS: resnet ILI, trained first in the process, and
   --use_Hy), so the profiled step includes fn_y2cov and H(y);

@@ -211,15 +211,44 @@ def test_dim_head_64_matches_jax(n, grad):
         close(t.grad, ref, name)
 
 
-def test_tensor_route_reference_matches_plain():
-    """The plain #2 at the rounding points of its bf16 tensor-core route
-    (ctx_large_tensor_reference: xn as warp_norm16 forms it) against the
-    plain #2 (ctx_large_reference) at phase 6's bounds: a and s within 3e-2
-    of their largest value; kmax within 1e-5 of its largest |kmax| but in
-    columns where the two round an element of xn to different bf16
-    neighbours, each then within that step times its weight, at most 1 in
-    1000 (chip_smoke.kmax_check)."""
-    x, w, _ = _inputs(np.random.default_rng(8), 2, 4096, 128)
+def _unpadded_prenorm(x2d, g_pre):
+    """xn with the row's squares halved at C // 2, no padding: warp_norm16's
+    formula where C % 32 == 0, and not at C 72."""
+    xf = x2d.float()
+    sq, half = xf * xf, x2d.shape[-1] // 2
+    lo, hi = torch.zeros_like(sq[..., 0]), torch.zeros_like(sq[..., 0])
+    for j in range(half):
+        lo, hi = lo + sq[..., j], hi + sq[..., half + j]
+    inv = (1 / torch.sqrt(((lo + hi) / x2d.shape[-1] + 1e-12).double())).float()
+    return xf * inv[..., None] * g_pre.float()
+
+
+@pytest.mark.parametrize("c", [64, 128, 72])
+def test_tensor_route_prenorm_is_the_kernels_formula(c):
+    """tensor_route_prenorm as warp_norm16 forms xn at cp = pad32(C): at C
+    72 bit-equal to a hand-written version (the squares zero-padded to 96,
+    each half of 48 summed in order, the halves added, over the true C 72);
+    at C 64 and 128 (no padding) bit-equal to the formula before padding."""
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.normal(0, 1, (3, 50, c)).astype(np.float32)).bfloat16()
+    g_pre = torch.from_numpy(rng.normal(1, 0.5, c).astype(np.float32))
+    got = attn_block.tensor_route_prenorm(x, g_pre)
+    if c % 32:
+        xf = x.float()
+        sq = torch.cat([xf * xf, torch.zeros(3, 50, 96 - c)], -1)
+        lo, hi = torch.zeros(3, 50), torch.zeros(3, 50)
+        for j in range(48):
+            lo, hi = lo + sq[..., j], hi + sq[..., 48 + j]
+        inv = (1 / torch.sqrt(((lo + hi) / c + 1e-12).double())).float()
+        want = xf * inv[..., None] * g_pre
+        assert not torch.equal(got, _unpadded_prenorm(x, g_pre))  # the halves moved
+    else:
+        want = _unpadded_prenorm(x, g_pre)
+    assert torch.equal(got, want)
+
+
+def _tensor_route_reference_matches_plain(c):
+    x, w, _ = _inputs(np.random.default_rng(8), 2, 4096, c)
     tx = _torch([x], torch.bfloat16)[0]
     g_pre, wqkv = _torch([w[0], w[1]])
     got = attn_block.ctx_large_tensor_reference(tx, g_pre, wqkv, HEADS)
@@ -233,6 +262,22 @@ def test_tensor_route_reference_matches_plain():
     flip = (step[:, :, None] * wqkv[:, F:2 * F].abs()[None]).amax(1)
     assert not bool((bad & (diff > atol + flip)).any())
     assert int(bad.sum()) <= max(1, bad.numel() // 1000)
+
+
+def test_tensor_route_reference_matches_plain():
+    """The plain #2 at the rounding points of its bf16 tensor-core route
+    (ctx_large_tensor_reference: xn as warp_norm16 forms it) against the
+    plain #2 (ctx_large_reference) at phase 6's bounds: a and s within 3e-2
+    of their largest value; kmax within 1e-5 of its largest |kmax| but in
+    columns where the two round an element of xn to different bf16
+    neighbours, each then within that step times its weight, at most 1 in
+    1000 (chip_smoke.kmax_check). C 128."""
+    _tensor_route_reference_matches_plain(128)
+
+
+def test_tensor_route_reference_matches_plain_at_uk64():
+    """The same at UK64's C 72, where the route pads xn's row to 96."""
+    _tensor_route_reference_matches_plain(72)
 
 
 def test_kernel_source_exports_the_four_entry_points():
@@ -368,9 +413,10 @@ def test_cuda_bwd_tensor_route_matches_plain(cuda, b, n, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c", [(8, 4096, 64), (8, 4096, 128), (8, 2048, 64)])
+@pytest.mark.parametrize("b,n,c", [(8, 4096, 64), (8, 4096, 128), (8, 2048, 64), (8, 4096, 72)])
 def test_cuda_two_pass_tensor_route_matches_plain(cuda, b, n, c):
-    """#2 and #3 in bf16 at B 8 on their tensor-core route, at phase 6's
+    """#2 and #3 in bf16 at B 8 on their tensor-core route (C 72, UK64's
+    top level, padded to 96 in shared memory), at phase 6's
     bounds: kmax within 1e-5 of the plain version at the route's rounding
     points, a and s within 3e-2 of their largest value, y within 3e-2
     relative to max(|y|, |y - x|); and bit-equal with x (and y) one element

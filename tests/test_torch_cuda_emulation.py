@@ -585,6 +585,8 @@ def test_emulated_two_pass_forward_matches_plain(emulated_large, b, n, c, dtype)
     ("", 1, 200, 64, 2, 1, None),       # x one element past an aligned base: element loads
     ("_short", 1, 600, 64, 4, 0, 560),  # k jumps late in the last split, its second tile
     ("_short", 2, 520, 128, 1, 0, 400),  # ... in the fourth of a split's five tiles, C 128
+    ("", 1, 200, 72, 2, 0, None),       # C 72 (UK64's dim) padded to 96: two splits, a ragged tile
+    ("", 1, 200, 72, 2, 1, None),       # ... x one element past an aligned base: element loads
 ])
 def test_emulated_two_pass_tensor_route_matches_plain(request, lib, b, n, c, splits, x_offset,
                                                       jump):
@@ -593,7 +595,9 @@ def test_emulated_two_pass_tensor_route_matches_plain(request, lib, b, n, c, spl
     the plan's splits, at phase 6's bounds: kmax within 1e-5 of the plain
     version at the route's rounding points (ctx_large_tensor_reference,
     whose xn is the kernel's) and of ctx_large_reference; a and s within
-    3e-2 of their largest value; y within 3e-2 relative to max(|y|, |y - x|)."""
+    3e-2 of their largest value; y within 3e-2 relative to max(|y|, |y - x|).
+    At C not a multiple of 32 (C % 8 == 0) padded to whole 32-column blocks
+    in shared memory, zero past C."""
     from ccdm_tpu_torch.ops import attn_block as ab
 
     lib = request.getfixturevalue("emulated_large" + lib)
@@ -624,27 +628,28 @@ def test_emulated_two_pass_plan_at_the_unet_shapes(emulated_large, batch):
     cores, 128-token tiles, min(tiles, floor(132 k / B)) blocks a row with k
     = 2 blocks an SM where their shared memory fits twice (C 64) and 1 (C
     128); #2's workspace its f32 records (2 a block, 2F + F D floats each),
-    #3's none. f32 on the CUDA cores: #2 with the first design's splits and
-    its m, s and a partials, #3 a block per 32-token tile; so too bf16 at
-    UK64's C 72, not a multiple of 32."""
+    #3's none; UK64's C 72 too, padded to 96 (one block an SM). f32 on the
+    CUDA cores: #2 with the first design's splits and its m, s and a
+    partials, #3 a block per 32-token tile."""
     up = lambda v: -(-v // 256) * 256
     for n, c in TWO_PASS_SHAPES:
         tiles = -(-n // 128)
         splits = min(tiles, max(1, (2 if c <= 64 else 1) * 132 // batch))
         cores = min(-(-512 // batch), -(-n // 32))
         parts = batch * cores
-        if c % 32:
-            assert _large_plan(emulated_large, 2, batch, n, c, 1)[::2] == (
-                "cores", cores, 2 * up(parts * F * 4) + up(parts * F * 32 * 4)), (n, c)
-            assert _large_plan(emulated_large, 3, batch, n, c, 1) == ("cores", 32, n // 32, 0, 0)
-        else:
-            assert _large_plan(emulated_large, 2, batch, n, c, 1) == (
-                "tensor", 128, splits, 0, up(batch * splits * 2 * (2 * F + F * 32) * 4)), (n, c)
-            assert _large_plan(emulated_large, 3, batch, n, c, 1) == ("tensor", 128, splits, 0, 0)
+        assert _large_plan(emulated_large, 2, batch, n, c, 1) == (
+            "tensor", 128, splits, 0, up(batch * splits * 2 * (2 * F + F * 32) * 4)), (n, c)
+        assert _large_plan(emulated_large, 3, batch, n, c, 1) == ("tensor", 128, splits, 0, 0)
         assert _large_plan(emulated_large, 2, batch, n, c, 0)[::2] == (
             "cores", cores, 2 * up(parts * F * 4) + up(parts * F * 32 * 4))
         assert _large_plan(emulated_large, 3, batch, n, c, 0) == ("cores", 32, n // 32, 0, 0)
-    for n, c, heads in ((4096, 64, 2), (4096, 40, HEADS), (4096, 160, HEADS)):
+    # C 40 pads to 64 on the tensor cores, two blocks an SM; bf16 at other
+    # head counts, C not a multiple of 8 or C above 128: the CUDA cores
+    splits = min(32, max(1, 264 // batch))
+    assert _large_plan(emulated_large, 2, batch, 4096, 40, 1) == (
+        "tensor", 128, splits, 0, up(batch * splits * 2 * (2 * F + F * 32) * 4))
+    assert _large_plan(emulated_large, 3, batch, 4096, 40, 1) == ("tensor", 128, splits, 0, 0)
+    for n, c, heads in ((4096, 64, 2), (4096, 36, HEADS), (4096, 160, HEADS)):
         for kernel in (2, 3):
             assert _large_plan(emulated_large, kernel, batch, n, c, 1, heads)[0] == "cores"
 
