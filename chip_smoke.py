@@ -25,6 +25,11 @@ Phases, each announced on a flushed line before it starts:
      of one B-64 forward of the 64x64 UNet; then bf16 at every shape again
      at the other batches the main paths give #1 (128, 72, 8, 1, 4), the
      same checks (the f32 one at C <= 256) and route assertion, untimed;
+     then phase 28's batches: UK128's micro-batch of 32 and UK192's of 16
+     at their single-pass levels, the same checks, and B 400
+     (the CFG forward of 200 images) at every UK128 and UK192 shape, held
+     on rows 0, 1, 199 and 399 (the plain version's f32 [B, N, 3F] at B 400
+     would take 22.6 GB at N 36864);
      then f32 at B 128 at the 64x64 UNet's levels (phase 21's f32 UNets),
      and at B 80 and B 40 at the Cell-200 teacher's (phase 23's CFG rows
      and guided batch), the f32 bounds above;
@@ -43,7 +48,9 @@ Phases, each announced on a flushed line before it starts:
      teacher's top level, B 128: (N, C) (4096, 64), (2048, 64), (16384, 64),
      (4096, 128), (36864, 64) at B 32, and (4096, 32), in bf16 and in f32,
      (4096, 32) in f32 at B 64 (phase 23's class UNet training), and
-     UK64's (4096, 72) in bf16 and f32 (phase 27's training):
+     UK64's (4096, 72) in bf16 and f32 (phase 27's training), and phase
+     28's micro-batches in bf16 and f32: B 32 at (16384, 64), (4096, 64)
+     and (4096, 128) (UK128), B 16 at (36864, 64) (UK192):
      forward bounds as phase 3 (a and s relative
      to their largest value), kmax within 1e-5 of its largest value (in
      bf16 against the plain version at the tensor route's rounding points,
@@ -193,7 +200,10 @@ Phases, each announced on a flushed line before it starts:
      port's steeringangle_from_arrays shifts the labels) at phase 8's
      width, batch and dtype, 20 steps, then every raw label x 4 images at
      10 DDIM steps (CFG forwards of B 8), then --comp_FID --FID_radius 2
-     with PRDC, NIQE, intra-class FID and the kNN, FFT and t-SNE analyses,
+     over EVAL_CENTERS sliding windows (40 centers 4 apart: the radius-2
+     windows still cover the range; cut from the 157 of --FID_num_centers
+     -1 to pay for phase 28) with PRDC, NIQE, intra-class FID and the kNN,
+     FFT and t-SNE analyses,
      the eval backbones trained 1 epoch each on the card: launches exactly
      8 of #1 and 2 each of #2-#5 per step and 10 of #1 per sampling
      forward, none of the rest; every metric finite; seconds per epoch of
@@ -323,13 +333,36 @@ Phases, each announced on a flushed line before it starts:
      tensor cores, C padded to 96), warm train images/s beside
      phase 8's, and warm step 18 under torch.profiler: the card's time by
      kernel, #2-#5 apart, the card's idle share; then one JSON line
-     {"uk64": ...}, the card's line again and the last line {"ok": true,
-     "device": {...}}.
+     {"uk64": ...};
+  28. UK128 and UK192 (highres_main_path): `python -m ccdm_tpu_torch.main`
+     with scripts/UK128/run_ccdm.sh's and scripts/UK192/run_ccdm.sh's flags
+     as they are (highres_argv: dim 64, 1_2_4_4_8_8 at 128^2 and
+     1_2_2_4_4_8_8 at 192^2, bf16, batch 32 x 2 and 16 x 4 accumulation
+     steps, lr 1e-5, resnet y2h ILI, H(y), the hard vicinity, cond_scale
+     2.0, --samp_batch_size 200) but the y2cov embedding, sinusoidal for
+     the scripts' resnet (its ILI diverges at these sizes: ROADMAP C.11),
+     cut in the data (make_synthetic at 128^2 and 192^2), the steps (10),
+     the y2h ILI epochs (phase 18's), --dump_fake_data (no h5py on the
+     card's machine) and the DDIM steps after training (10 and 5), no
+     width or depth cut and not the
+     sampler's batch: one label x 200 images, one 400-row CFG forward a
+     step: losses finite, parameters moved, launches exactly as
+     highres_launches derives them (UK128: 8 of #1 and 4 each of #2-#5 a
+     micro-batch, 12 of #1 a sampling forward; UK192: 12 and 2, 14), none of
+     the rest, every (B, N, C, dtype) of #1 among phase 3's and of #2-#5
+     among phase 6's, every route the bf16 tensor cores' (highres_routes),
+     200 images uint8 and not constant; beside the card's line the warm
+     train images/s, warm step 9 under torch.profiler by kernel, the ms of a
+     sampling step (CUDA events), the peak device memory before training,
+     in training and in sampling, the bytes of the milestone and of
+     embed_models/ and the ILI seconds an epoch; then one JSON line
+     {"highres": ...}, the card's line again and the last line {"ok":
+     true, "device": {...}}.
 The five kernel libraries build in parallel, one nvcc each (phase 2). Each
-main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21, 22, 23, 26, 27) starts
-from launch counts set to 0 and reads them just after; the paths of phases
-5, 8, 11, 12, 18, 19, 20, 21, 23 and 27 launch none of #6-#9 and #12, phase
-22's and phase 23's GANs none of #1-#12. TF32 is off for the whole run (it
+main path (phases 5, 8, 11, 12, 16, 18, 19, 20, 21, 22, 23, 26, 27, 28)
+starts from launch counts set to 0 and reads them just after; the paths of
+phases 5, 8, 11, 12, 18, 19, 20, 21, 23, 27 and 28 launch none of #6-#9 and
+#12, phase 22's and phase 23's GANs none of #1-#12. TF32 is off for the whole run (it
 only touches the f32 checks and the f32 convolutions). Each phase's seconds
 are printed after it. Any failed phase raises and the script exits
 non-zero; a hang becomes a stack dump and a non-zero exit after 1100 s. It
@@ -406,10 +439,11 @@ assert unet_attn_shapes(64, UNET["dim_mults"]) == FORWARD_SHAPES
 # 1_2_4_4_8_8) and 192x192 (uk192, mults 1_2_2_4_4_8_8) UNets, then the other
 # shapes of those two: every shape #1 meets on the three models. A shape's
 # index seeds its inputs.
+UK128_MULTS, UK192_MULTS = (1, 2, 4, 4, 8, 8), (1, 2, 2, 4, 4, 8, 8)
+UK_HIGHRES_SHAPES = sorted(set(unet_attn_shapes(128, UK128_MULTS) +
+                               unet_attn_shapes(192, UK192_MULTS)), reverse=True)
 CHECK_SHAPES = sorted(set(FORWARD_SHAPES), reverse=True) + [(16384, 64), (36864, 64)]
-CHECK_SHAPES += sorted(set(unet_attn_shapes(128, (1, 2, 4, 4, 8, 8)) +
-                           unet_attn_shapes(192, (1, 2, 2, 4, 4, 8, 8))) - set(CHECK_SHAPES),
-                       reverse=True)
+CHECK_SHAPES += [s for s in UK_HIGHRES_SHAPES if s not in CHECK_SHAPES]
 # then those of the Cell-200 teacher (64x64, dim 32, mults 1_2_2_4; C 32 to
 # 128) that the three UNets lack
 CELL200_SHAPES = unet_attn_shapes(64, (1, 2, 2, 4), dim=32)
@@ -584,6 +618,44 @@ def attn_bf16_check(n: int, c: int, batch: int, device, seed: int) -> tuple:
     return rounded, plain, xb, wb
 
 
+# phase 28's batches of #1: UK128's and UK192's micro-batches (32, 16) at
+# their single-pass levels (N not a multiple of 2048), and
+# the CFG forward of their sampling (2 x --samp_batch_size 200 rows) at every
+# level; at B 400 the plain version runs on these rows of the batch alone
+HIGHRES_SINGLE_PASS = {
+    batch: sorted({(n, c) for n, c in unet_attn_shapes(size, mults)
+                   if not attn_block.takes_two_pass(n, F)}, reverse=True)
+    for batch, size, mults in ((32, 128, UK128_MULTS), (16, 192, UK192_MULTS))}
+HIGHRES_ROWS = 400
+HIGHRES_HELD_ROWS = (0, 1, 199, 399)
+
+
+def rows_bf16_check(n: int, c: int, batch: int, device, seed: int) -> tuple:
+    """#1 in bf16 on the whole batch (x ~ N(0, 1), drawn on the card), held
+    on HIGHRES_HELD_ROWS as attn_bf16_check holds a whole batch: the kernel
+    computes each batch row on its own, and the plain version's f32
+    intermediates at B 400 (at N 36864 [B, N, 3F] alone 22.6 GB) do not fit
+    beside it."""
+    rows = list(HIGHRES_HELD_ROWS)
+    g = torch.Generator(device=device).manual_seed(seed)
+    xb = torch.randn(batch, n, c, generator=g, device=device).bfloat16()
+    _, w = block_inputs(1, c, 1, device, seed=seed, x_std=1.0)
+    wb = [t.bfloat16() for t in w]
+    got = attn_block.fused_attn_block(xb, *wb, HEADS, DIM_HEAD)[rows]
+    xr = xb[rows]
+    del xb
+    xf = xr.float()
+
+    def err(want, what: str) -> float:
+        return check_close(got, want, 3e-2, 3e-2, f"bf16 B={batch} N={n} C={c} rows {rows} "
+                           f"({what})", scale=torch.maximum(want.abs(), (want - xf).abs()))
+
+    rounded = err(attn_rounded_reference(xr, *wb).float(), "plain at its rounding points")
+    plain = err(attn_block.attn_block_reference(xf, *(t.float() for t in wb), HEADS, DIM_HEAD),
+                "plain in f32") if holds_f32_plain(n, c, batch) else None
+    return rounded, plain
+
+
 @torch.no_grad()
 def kernel_vs_plain(device) -> tuple[dict, dict]:
     """Phase 3: per shape, errors in bf16 and f32 and times in bf16 at B 64;
@@ -626,6 +698,33 @@ def kernel_vs_plain(device) -> tuple[dict, dict]:
               f"{max(e for pair in errs.values() for e in pair if e is not None):.3e} "
               f"(against the rounded plain version, then the f32 one); {json.dumps(errs)}",
               flush=True)
+    # UK128's and UK192's micro-batches (phase 28) at their single-pass
+    # levels: bf16, untimed, as the batches above
+    for batch, levels in HIGHRES_SINGLE_PASS.items():
+        errs = {}
+        for i, (n, c) in enumerate(levels):
+            route, splits = attn_route_of(batch, n, c)
+            errs[f"N{n}_C{c} {route} x{splits}"] = attn_bf16_check(n, c, batch, device,
+                                                                   seed=500 + i)[:2]
+            torch.cuda.empty_cache()
+        by_batch[f"B{batch}"] = errs
+        print(f"   B={batch} bf16 (phase 28's micro-batch): {len(errs)} shapes within the "
+              f"bound, max abs err "
+              f"{max(e for pair in errs.values() for e in pair if e is not None):.3e} (against "
+              f"the rounded plain version, then the f32 one); {json.dumps(errs)}", flush=True)
+    # phase 28's sampling: one CFG forward of 2 x 200 rows at every shape of
+    # UK128 and UK192, held on rows of the batch
+    errs = {}
+    for i, (n, c) in enumerate(UK_HIGHRES_SHAPES):
+        route, splits = attn_route_of(HIGHRES_ROWS, n, c)
+        errs[f"N{n}_C{c} {route} x{splits}"] = rows_bf16_check(n, c, HIGHRES_ROWS, device,
+                                                               seed=600 + i)
+        torch.cuda.empty_cache()
+    by_batch[f"B{HIGHRES_ROWS}_rows"] = errs
+    print(f"   B={HIGHRES_ROWS} bf16 (phase 28's CFG forward; the plain version on rows "
+          f"{list(HIGHRES_HELD_ROWS)}): {len(errs)} shapes within the bound, max abs err "
+          f"{max(e for pair in errs.values() for e in pair if e is not None):.3e}; "
+          f"{json.dumps(errs)}", flush=True)
     # f32 at the training batch, every level of the 64x64 UNet: the DMD
     # phase's teacher and fake UNet run #1 in f32 there
     errs = {}
@@ -861,13 +960,17 @@ LARGE_BATCH = {(36864, 64): 32}
 # training, and the flagship's top level in bf16 at B 64, a rank's rows in
 # phase 26's two-rank training; then UK64's two-pass level (dim 72) at B
 # 128 in bf16 and f32, phase 27's training, where #2-#5 take the tensor
-# cores at C 72 (padded to 96)
+# cores at C 72 (padded to 96); then phase 28's micro-batches at their
+# two-pass levels in bf16 and f32: UK128's 32 at N 16384 and 4096, UK192's
+# 16 at N 36864 (the plans split by batch: a new batch is a new case)
 UK64_LARGE = (4096, 72)
+HIGHRES_LARGE = [(16384, 64, 32), (4096, 64, 32), (4096, 128, 32), (36864, 64, 16)]
 LARGE_CASES = ([(n, c, LARGE_BATCH.get((n, c), TRAIN_BATCH), (torch.bfloat16, torch.float32))
                 for n, c in LARGE_SHAPES] + [(4096, 32, 64, (torch.float32,)),
                                              (4096, 64, 64, (torch.bfloat16,)),
                                              (*UK64_LARGE, TRAIN_BATCH,
-                                              (torch.bfloat16, torch.float32))])
+                                              (torch.bfloat16, torch.float32))]
+               + [(n, c, b, (torch.bfloat16, torch.float32)) for n, c, b in HIGHRES_LARGE])
 LARGE = ("attn_ctx_large", "attn_out_large", "attn_bwd_a", "attn_bwd_b")
 LARGE_OUTPUTS = {"attn_ctx_large": ("kmax", "a", "s"), "attn_out_large": ("y",),
                  "attn_bwd_a": ("do", "d_ctx", "d_wout", "d_bout", "d_gout"),
@@ -1529,6 +1632,248 @@ def uk64_main_path(device, card: str, phase8_ips: float) -> dict:
     return out
 
 
+# ----------------------- UK128 and UK192: the shipped higher resolutions
+
+HIGHRES_STEPS = 10
+HIGHRES_PROFILE_STEP = 9  # the warm step phase 28 traces
+HIGHRES_SAMPLES = 200     # the scripts' --samp_batch_size and --nfake_per_label
+# scripts/UK128/run_ccdm.sh and scripts/UK192/run_ccdm.sh: their flags as
+# they are, under UK64_ARGV's keys (128x128, dim 64, 1_2_4_4_8_8, batch 32 x
+# 2 accumulation steps, DDIM 150; 192x192, 1_2_2_4_4_8_8, batch 16 x 4, DDIM
+# 100; both bf16, lr 1e-5, resnet ILI + H(y), the hard vicinity with
+# kernel_sigma and kappa from the data, cond_scale 2.0, --samp_batch_size
+# 200). Cut: the data (make_synthetic's 512 images at 128^2 and 192^2 for
+# UTKFace's), the steps (10 of 200000 and 300000, a milestone at the last),
+# the y2h ILI epochs (phase 18's: 2 CNN and 20 MLP epochs), --dump_fake_data
+# (the card's machine has no h5py; the sampling's PNG grid is still
+# written) and the DDIM steps of the sampling after training (10 of 150 at
+# UK128, 5 of 100 at UK192). The sampling is not cut in width: one eval
+# label x 200 images, one CFG forward of 400 rows a step. No width or depth
+# of the model is cut. One flag differs: H(y) takes the default
+# --y2cov_embed_type sinusoidal for the scripts' resnet, whose ILI diverges
+# at 128^2 and 192^2 on make_synthetic's images in both packages (the y2cov
+# CNN's eval features past 1e5 after two steps in 3 of 8 JAX seeds and 4 of
+# 8 of the port's at 192^2; on the card fn_y2cov NaN, zero or constant in y
+# in 7 of 8 (size, epoch cut) runs, and not the same from one run to the
+# next: scripts/y2cov_ili.py, ROADMAP C.11). The y2h is the scripts' resnet.
+HIGHRES = {
+    "uk128": dict(size=128, mults=(1, 2, 4, 4, 8, 8), batch=32, acc=2, sample_steps=10),
+    "uk192": dict(size=192, mults=(1, 2, 2, 4, 4, 8, 8), batch=16, acc=4, sample_steps=5),
+}
+
+
+def highres_argv(cfg: dict) -> list:
+    return ["--data_name", "synthetic", "--image_size", str(cfg["size"]), "--train_amp",
+            "--pred_objective", "pred_x0", "--model_channels", "64", "--cond_drop_prob", "0.1",
+            "--channel_mult", "_".join(map(str, cfg["mults"])), "--use_Hy",
+            "--y2h_embed_type", "resnet", "--y2cov_embed_type", "sinusoidal",
+            "--train_lr", "1e-5", "--train_timesteps", "1000",
+            "--train_batch_size", str(cfg["batch"]),
+            "--gradient_accumulate_every", str(cfg["acc"]),
+            "--kernel_sigma", "-1.0", "--threshold_type", "hard", "--kappa", "-1.0",
+            "--sample_every", "10000", "--sample_cond_scale", "2.0", "--sampler", "ddim",
+            "--samp_batch_size", str(HIGHRES_SAMPLES), "--seed", "0", "--log_every", "1",
+            "--niters", str(HIGHRES_STEPS), "--save_every", str(HIGHRES_STEPS),
+            "--epoch_cnn_embed", "2", "--epoch_net_y2h", "20",
+            "--eval_mode", "4", "--FID_num_centers", "1",
+            "--nfake_per_label", str(HIGHRES_SAMPLES),
+            "--sample_timesteps", str(cfg["sample_steps"])]
+
+
+def highres_launches(cfg: dict) -> dict:
+    """The exact launches of a phase-28 run: per micro-batch, #1 at each
+    single-pass level and #2-#5 at each two-pass one (takes_two_pass), times
+    the accumulation steps and the steps; #1 at every level of each CFG
+    forward of the sampling (no gradient: #1 at every N)."""
+    shapes = unet_attn_shapes(cfg["size"], cfg["mults"])
+    two = sum(attn_block.takes_two_pass(n, F) for n, _ in shapes)
+    micro = HIGHRES_STEPS * cfg["acc"]
+    return {"attn_block": (len(shapes) - two) * micro + len(shapes) * cfg["sample_steps"],
+            **{k: two * micro for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}}
+
+
+def _folder_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+@contextlib.contextmanager
+def highres_records(record: dict):
+    """Around main.py's run: the peak of device memory before training (the
+    data, the ILI nets, the models), in the training loop and in the
+    sampling after training (torch.cuda.max_memory_allocated, reset at each
+    boundary); the seconds from the run's start to the training loop; the
+    event time of each CFG forward of the sampling; and the images the
+    sampling returned."""
+    from ccdm_tpu_torch.training import trainer as trainer_mod
+
+    train, sample, predict = (trainer_mod.Trainer.train, trainer_mod.sample_given_labels,
+                              GaussianDiffusion.model_predictions)
+    record["forward_ms"] = []
+
+    def train_spy(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        record["setup_peak_bytes"] = torch.cuda.max_memory_allocated()
+        record["setup_s"] = time.perf_counter() - record["start"]
+        torch.cuda.reset_peak_memory_stats()
+        out = train(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        record["train_peak_bytes"] = torch.cuda.max_memory_allocated()
+        return out
+
+    def sample_spy(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        images, labels = sample(*args, **kwargs)
+        record["sample_s"] = time.perf_counter() - t0
+        record["sample_peak_bytes"] = torch.cuda.max_memory_allocated()
+        record["images"] = images
+        return images, labels
+
+    def predict_spy(self, x, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = predict(self, x, *args, **kwargs)
+        end.record()
+        end.synchronize()
+        record["forward_ms"].append((x.shape[0], start.elapsed_time(end)))
+        return out
+
+    trainer_mod.Trainer.train, trainer_mod.sample_given_labels = train_spy, sample_spy
+    GaussianDiffusion.model_predictions = predict_spy
+    torch.cuda.reset_peak_memory_stats()
+    record["start"] = time.perf_counter()
+    try:
+        yield record
+    finally:
+        trainer_mod.Trainer.train, trainer_mod.sample_given_labels = train, sample
+        GaussianDiffusion.model_predictions = predict
+
+
+def highres_checks(card: str, name: str, cfg: dict, profiled: dict, record: dict):
+    """Phase 28's own checks for one configuration: the parameters moved
+    from the seed-0 UNet, every #1-#5 launch on its bf16 tensor-core route,
+    the sampling's 200 images (uint8, not constant, each CFG forward 400
+    rows); the warm rate, the profiled warm step by kernel, the forward's
+    ms, the peaks of device memory, the bytes of the milestone and of
+    embed_models/ and the ILI seconds an epoch, each printed beside the
+    card's name and power limit."""
+    initial = Unet(dim=64, dim_mults=cfg["mults"], in_channels=3, dtype=torch.bfloat16,
+                   seed=0).state_dict()
+    eff = cfg["batch"] * cfg["acc"]
+
+    def checks(trainer, argv, log) -> dict:
+        from ccdm_tpu_torch.main import results_folder
+
+        state = trainer.state
+        moved = max(float((p.detach().cpu() - initial[k]).abs().max())
+                    for k, p in state.model.named_parameters())
+        if not moved > 0 or state.step != HIGHRES_STEPS or state.ema_step != HIGHRES_STEPS:
+            raise AssertionError(f"{name}: params moved {moved}, step {state.step}, "
+                                 f"ema_step {state.ema_step}")
+        images = record["images"]
+        size = cfg["size"]
+        if images.dtype != np.uint8 or images.shape != (HIGHRES_SAMPLES, size, size, 3) \
+                or images.std() == 0:
+            raise AssertionError(f"{name}: sampling gave {images.dtype} {images.shape}, std "
+                                 f"{images.std()}")
+        rows = [b for b, _ in record["forward_ms"]]  # x's rows; the CFG forward's are twice
+        if rows != [HIGHRES_SAMPLES] * cfg["sample_steps"]:
+            raise AssertionError(f"{name}: sampling steps of {rows} images")
+        fwd = [ms for _, ms in record["forward_ms"]]
+        warm_fwd = sorted(fwd[1:])[len(fwd[1:]) // 2] if len(fwd) > 1 else fwd[0]
+        results = Path(results_folder(parse_opts(argv)))
+        milestone = _folder_bytes(results / f"model-{HIGHRES_STEPS}")
+        embed = results.parent / "embed_models"
+        embed_bytes = {p.name: _folder_bytes(p) if p.is_dir() else p.stat().st_size
+                       for p in sorted(embed.iterdir())}
+        stages = dict(ili.STAGE_SECONDS)
+        warm = [r["imgs_per_sec"] for r in log
+                if HIGHRES_STEPS // 3 < r["step"] < HIGHRES_PROFILE_STEP]
+        ips = sum(warm) / len(warm)
+        split = device_split(profiled["by_kernel"], eff, ips)
+        gib = lambda v: v / 2 ** 30
+        print(f"   {name}: params moved by up to {moved:.3e}; ema_step {state.ema_step}; warm "
+              f"train {ips:.2f} images/s (the logged steps after {HIGHRES_STEPS // 3} and before "
+              f"{HIGHRES_PROFILE_STEP}, batch {cfg['batch']} x {cfg['acc']}, bf16) on {card}",
+              flush=True)
+        print(f"   {name}: step {HIGHRES_PROFILE_STEP} (torch.profiler): host "
+              f"{profiled['step_ms']:.2f} ms, card {split['device_ms']:.2f} ms, #2-#5 "
+              f"{split['large_device_ms']:.3f} ms {json.dumps(split['device_ms_by_group'])}, the "
+              f"rest {split['rest_device_ms']:.2f} ms; idle "
+              f"{100 * split['device_idle_share_of_warm_step']:.1f}% of a warm step on {card}",
+              flush=True)
+        print(f"   {name}: sampling 1 label x {HIGHRES_SAMPLES} images, {cfg['sample_steps']} DDIM "
+              f"steps of one {2 * HIGHRES_SAMPLES}-row CFG forward: {warm_fwd:.2f} ms a step "
+              f"(median after the first; the first {fwd[0]:.2f} ms), {record['sample_s']:.2f} s in "
+              f"all; uint8 {images.shape}, std {images.std():.2f} on {card}", flush=True)
+        print(f"   {name}: peak device memory {gib(record['setup_peak_bytes']):.2f} GiB before "
+              f"training (data, ILI nets, models; {record['setup_s']:.1f} s), "
+              f"{gib(record['train_peak_bytes']):.2f} GiB training, "
+              f"{gib(record['sample_peak_bytes']):.2f} GiB sampling on {card}", flush=True)
+        print(f"   {name}: milestone {milestone / 1e6:.1f} MB; embed_models/ "
+              f"{ {k: round(v / 1e6, 1) for k, v in embed_bytes.items()} } MB; ILI seconds an "
+              f"epoch {json.dumps({k: round(v, 3) for k, v in stages.items()})} on {card}",
+              flush=True)
+        return {"params_moved": moved, "train_images_per_s": ips,
+                "profiled_step": HIGHRES_PROFILE_STEP, "profiled_step_ms": profiled["step_ms"],
+                **split, "sample_forward_ms": warm_fwd, "sample_first_forward_ms": fwd[0],
+                "sample_seconds": record["sample_s"],
+                "peak_bytes": {k: record[f"{k}_peak_bytes"] for k in ("setup", "train", "sample")},
+                "setup_seconds": record["setup_s"], "milestone_bytes": milestone,
+                "embed_models_bytes": embed_bytes, "ili_seconds_per_epoch": stages,
+                "card": card}
+
+    return checks
+
+
+def highres_routes(name: str, shapes: set, two_pass: set) -> dict:
+    """Every (B, N, C) at which #1 launched on its bf16 tensor-core route
+    (fused or split, with the splits attn_route_of derives) and #2-#5 on
+    theirs (large_route)."""
+    routes = {}
+    for b, n, c, dt in sorted(shapes):
+        if dt != "bfloat16":
+            raise AssertionError(f"{name}: #1 launched in {dt} at ({b}, {n}, {c})")
+        route, splits = attn_route_of(b, n, c)
+        if route not in ("fused", "split"):
+            raise AssertionError(f"{name}: #1 at ({b}, {n}, {c}) on the {route} route")
+        routes[f"#1 B{b} N{n} C{c}"] = f"{route} x{splits}"
+    for b, n, c, dt in sorted(two_pass):
+        for kernel in LARGE:
+            pl = attn_block.large_plan(2 + LARGE.index(kernel), b, n, c, HEADS, torch.bfloat16)
+            if dt != "bfloat16" or pl.route != "tensor" or large_route(c) != "tensor":
+                raise AssertionError(f"{name}: {kernel} at ({b}, {n}, {c}, {dt}) on the "
+                                     f"{pl.route} route")
+            routes[f"{kernel} B{b} N{n} C{c}"] = f"{pl.route} x{pl.splits}"
+    return routes
+
+
+def highres_main_path(device, card: str) -> dict:
+    """Phase 28: UK128's and UK192's training through `python -m
+    ccdm_tpu_torch.main` (highres_argv), then the sampling after training
+    (one label x 200 images): exact launches (highres_launches), every
+    (B, N, C, dtype) of #1 among phase 3's and of #2-#5 among phase 6's,
+    every route the bf16 tensor cores', and highres_checks."""
+    out = {}
+    for name, cfg in HIGHRES.items():
+        with attn_shapes() as shapes, large_shapes() as two_pass, \
+                profiled_step(HIGHRES_PROFILE_STEP, {}) as profiled, \
+                highres_records({}) as record:
+            run = train_main_path(device, card, highres_argv(cfg), HIGHRES_STEPS,
+                                  highres_launches(cfg), False,
+                                  highres_checks(card, name, cfg, profiled, record))
+        run["attn_shapes"] = checked_in_phase_3(shapes)
+        run["large_shapes"] = checked_in_phase_6(two_pass)
+        run["routes"] = highres_routes(name, shapes, two_pass)
+        print(f"   {name}: #1 launched at (B, N, C, dtype) {run['attn_shapes']}, #2-#5 at "
+              f"{run['large_shapes']}, each checked against its plain version in phase 3 or 6; "
+              f"routes {json.dumps(run['routes'])}", flush=True)
+        out[name] = run
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------ the rest of main.py's training entry
 
 MULTIDIM_STEPS = 20
@@ -1609,9 +1954,13 @@ def attn_shapes():
 def checked_in_phase_3(shapes: set) -> list:
     """The (B, N, C, dtype) launched, each asserted to be among those phase
     3 held #1 to its plain version at: bf16 at ATTN_BATCHES x CHECK_SHAPES,
-    f32 at B BATCH x CHECK_SHAPES, B TRAIN_BATCH x FORWARD_SHAPES and
+    at HIGHRES_SINGLE_PASS's batches and levels and at B HIGHRES_ROWS x
+    UK_HIGHRES_SHAPES, f32 at B BATCH x CHECK_SHAPES, B TRAIN_BATCH x FORWARD_SHAPES and
     BASE_F32_BATCHES x CELL200_SHAPES."""
     checked = ({(b, n, c, "bfloat16") for b in ATTN_BATCHES for n, c in CHECK_SHAPES}
+               | {(b, n, c, "bfloat16") for b, levels in HIGHRES_SINGLE_PASS.items()
+                  for n, c in levels}
+               | {(HIGHRES_ROWS, n, c, "bfloat16") for n, c in UK_HIGHRES_SHAPES}
                | {(BATCH, n, c, "float32") for n, c in CHECK_SHAPES}
                | {(TRAIN_BATCH, n, c, "float32") for n, c in FORWARD_SHAPES}
                | {(b, n, c, "float32") for b in BASE_F32_BATCHES for n, c in CELL200_SHAPES})
@@ -1830,6 +2179,7 @@ EVAL_STEPS = 20
 EVAL_NFAKE = 4                               # one batch of 4 a label: CFG forwards of B 8
 EVAL_SAMPLE_FORWARDS = len(EVAL_ANGLES) * 10  # 10 DDIM steps for each of the 100 labels
 EVAL_FEATURE_IMAGES = 64
+EVAL_CENTERS = 40  # the protocol's sliding windows (157 at --FID_num_centers -1)
 # AE features on the card against the CPU, f32 (the port sets TF32 off): rtol = atol.
 # On an H100 they agree to ~2e-7; the same forward with cuDNN's TF32 on is
 # ~8e-5 off, so 1e-5 tells the two apart where 1e-4 would not
@@ -1845,7 +2195,8 @@ EVAL_ARGV = ["--data_name", "SteeringAngle", "--min_label", "-80", "--max_label"
              "--niters", str(EVAL_STEPS), "--save_every", str(EVAL_STEPS), "--log_every", "5",
              "--seed", "0", "--eval_mode", "2", "--nfake_per_label", str(EVAL_NFAKE),
              "--samp_batch_size", str(EVAL_NFAKE), "--sample_timesteps", "10",
-             "--comp_FID", "--FID_radius", "2", "--comp_prdc", "--comp_niqe",
+             "--comp_FID", "--FID_radius", "2", "--FID_num_centers", str(EVAL_CENTERS),
+             "--comp_prdc", "--comp_niqe",
              "--comp_intra_fid", "--knn_analysis", "--frequency_analysis", "--tsne_analysis",
              "--epochs_eval_ae", "1", "--epochs_eval_cnn", "1",
              "--eval_ckpt_path", str(EVAL_RUN)]
@@ -2021,7 +2372,7 @@ def eval_checks(card: str, record: dict):
 DMD_STEPS = 12
 DMD_SAGAN_STEPS = 2
 DMD_NFAKE = 4          # one-step images of each of the 100 eval labels
-DMD_CENTERS = 10       # the student's sliding windows (phase 20: 157 at radius 2)
+DMD_CENTERS = 10       # the student's sliding windows (phase 20: EVAL_CENTERS)
 DMD_GEN_BATCH = 200
 # SNGAN's D on the card against the CPU, full f32: rtol = atol. G's bound is
 # five times that: its own f32 rounding is ~1.2e-5 from its f64 forward on
@@ -4220,12 +4571,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("1/27 device")
+    phase("1/28 device")
     card = card_line()
     print(f"   {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/27 build")
+    phase("2/28 build")
     libraries = ("attn_block", "attn_block_large", "resnet_block", "linear_attention",
                  "style_ops")
     t0 = time.perf_counter()
@@ -4240,26 +4591,26 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("   " + line.strip(), flush=True)
 
-    phase("3/27 attn_block kernel against its plain version")
+    phase("3/28 attn_block kernel against its plain version")
     rows, rows_by_batch = kernel_vs_plain(device)
 
-    phase("4/27 full-width UNet and sampler, kernel against plain attention (f32)")
+    phase("4/28 full-width UNet and sampler, kernel against plain attention (f32)")
     parity = model_parity(device)
 
-    phase("5/27 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
+    phase("5/28 main path: SamplerService over HTTP, bf16, batch 32, 250 DDIM steps")
     served = serve_main_path(device, card)
 
-    phase("6/27 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
+    phase("6/28 kernels #2-#5 against their plain versions at the UNets' two-pass shapes, "
           "bf16 and f32")
     large_rows = large_vs_plain(device)
     two_vs_one = two_pass_vs_single_pass(device)
     other_dim_head = dim_head_vs_plain(device)
 
-    phase("7/27 full-width f32 UNet, one loss + backward, kernels against plain attention")
+    phase("7/28 full-width f32 UNet, one loss + backward, kernels against plain attention")
     grads = grad_parity(device)
     grads_hy = grad_parity(device, use_hy=True)
 
-    phase(f"8/27 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
+    phase(f"8/28 main path: training, batch {TRAIN_BATCH}, bf16, {TRAIN_STEPS} steps, then "
           "serving from its milestone")
     trained = train_main_path(
         device, card, TRAIN_ARGV, TRAIN_STEPS,
@@ -4267,18 +4618,18 @@ def main() -> int:
          **{k: 2 * TRAIN_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, train_checks(card))
 
-    phase("9/27 kernels #10 and #11 (the fused resnet block) against their plain versions, "
+    phase("9/28 kernels #10 and #11 (the fused resnet block) against their plain versions, "
           "f32 and bf16")
     resnet_rows = resnet_vs_plain(device)
 
-    phase("10/27 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
+    phase("10/28 full-width f32 UNet and sampler, CCDM_TPU_FUSED_RESBLOCK on against off")
     fused_parity = fused_model_parity(device)
 
-    phase(f"11/27 main path with the switch on: SamplerService over HTTP, bf16, batch "
+    phase(f"11/28 main path with the switch on: SamplerService over HTTP, bf16, batch "
           f"{SERVE_BATCH}, {FUSED_STEPS} DDIM steps; then --sampler ddpm")
     fused_served = fused_serve_main_path(device, card)
 
-    phase(f"12/27 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
+    phase(f"12/28 main path with the switch on: training, batch {TRAIN_BATCH}, bf16, "
           f"{FUSED_TRAIN_STEPS} steps, its EMA grid and the sampling after training")
     fused_trained = train_main_path(
         device, card, FUSED_TRAIN_ARGV, FUSED_TRAIN_STEPS,
@@ -4289,24 +4640,24 @@ def main() -> int:
          **{k: 0 for k in NEW_KERNELS}},
         True, fused_train_checks(card))
 
-    phase("13/27 kernels #6 and #9 (standalone linear attention) against their plain versions")
+    phase("13/28 kernels #6 and #9 (standalone linear attention) against their plain versions")
     la_rows = la_vs_plain(device)
 
-    phase("14/27 kernels #7 + #8 (its two-pass form) against their plain versions")
+    phase("14/28 kernels #7 + #8 (its two-pass form) against their plain versions")
     tp_rows = twopass_vs_plain(device)
 
-    phase("15/27 kernel #12 (bias_act) against its plain version")
+    phase("15/28 kernel #12 (bias_act) against its plain version")
     ba_rows = bias_act_vs_plain(device)
 
-    phase("16/27 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
+    phase("16/28 this slice's path: PreNormResidual(LinearAttention) at the UNet's ten levels, "
           "the two-pass route, linear_attention_per_head, bias_act")
     la_path = la_main_path(device)
 
-    phase("17/27 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
+    phase("17/28 PreNormResidual(LinearAttention), one f32 loss + backward, B 128, N 4096, "
           "kernel forward against the plain route")
     la_grads = la_grad_parity(device)
 
-    phase(f"18/27 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
+    phase(f"18/28 the CCDM recipe: resnet ILI + H(y) through training, batch {TRAIN_BATCH}, "
           f"bf16, {RECIPE_STEPS} steps, then serving from its milestone")
     recipe = train_main_path(
         device, card, RECIPE_ARGV, RECIPE_STEPS,
@@ -4314,7 +4665,7 @@ def main() -> int:
          **{k: 2 * RECIPE_STEPS for k in LARGE}, **{k: 0 for k in (*RESNET, *NEW_KERNELS)}},
         False, recipe_checks(card, trained["train_images_per_s"]))
 
-    phase(f"19/27 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
+    phase(f"19/28 the rest of main.py's training entry: (a) multi-dim labels (synthetic_power, "
           f"{MULTIDIM_DIMS} dims, shv, resnet ILI, cross_attention), batch {TRAIN_BATCH}, bf16, "
           f"{MULTIDIM_STEPS} steps; (a') the same with the sinusoidal y2h, {ANALYTIC_STEPS} "
           f"steps; (b) the elastic aux loss, the trajectory GIF and the interpolation, "
@@ -4344,7 +4695,7 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C, dtype) {multidim['attn_shapes']} in this phase, each "
           f"checked against its plain version in phase 3", flush=True)
 
-    phase(f"20/27 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
+    phase(f"20/28 the eval protocol: SteeringAngle 64x64 built in memory (signed labels), "
           f"training, batch {TRAIN_BATCH}, bf16, {EVAL_STEPS} steps, {len(EVAL_ANGLES)} labels x "
           f"{EVAL_NFAKE} images at 10 DDIM steps, then --comp_FID with PRDC, NIQE, iFID and "
           f"the analyses")
@@ -4363,7 +4714,7 @@ def main() -> int:
         shutil.rmtree(EVAL_RUN, ignore_errors=True)
         raise
 
-    phase(f"21/27 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
+    phase(f"21/28 DMD2-M: dmd_main on phase 20's run (its milestone the f32 teacher, its "
           f"backbones), SNGAN 64/64/256, batch {TRAIN_BATCH}, 2 D steps, DiffAugment, "
           f"{DMD_STEPS} iterations, {len(EVAL_ANGLES)} labels x {DMD_NFAKE} one-step images, "
           f"--comp_FID ({DMD_CENTERS} windows), --interpolation --sefa; SAGAN "
@@ -4372,13 +4723,13 @@ def main() -> int:
     print(f"   #1 launched at (B, N, C, dtype) {dmd['attn_shapes']} in this phase, each checked "
           f"against its plain version in phase 3", flush=True)
 
-    phase(f"22/27 the ADM and ViT denoisers: main.py --architecture adm (64, 1_2_4_8, attention "
+    phase(f"22/28 the ADM and ViT denoisers: main.py --architecture adm (64, 1_2_4_8, attention "
           f"at 4_8), batch {TRAIN_BATCH}, {ADM_STEPS} steps, then --architecture vit (width 512, "
           f"8 blocks, 4096 tokens), batch {VIT_BATCH}, {VIT_STEPS} steps; each sampled, served "
           f"over HTTP and held against the CPU")
     denoisers = denoisers_main_path(device, card)
 
-    phase(f"23/27 the baselines: (a) ccgan_main SNGAN 64/64/256, batch 64, hard, Dual-NDA "
+    phase(f"23/28 the baselines: (a) ccgan_main SNGAN 64/64/256, batch 64, hard, Dual-NDA "
           f"from iteration 10, {BASE_GAN_STEPS} iterations in two calls, (a') SAGAN soft "
           f"vanilla, {BASE_SHORT_STEPS} iterations; (b) classgan_main studiogan D2D-CE "
           f"{BASE_GAN_STEPS} and ADC {BASE_SHORT_STEPS} iterations; (c) cfg and (d) admg: the "
@@ -4386,7 +4737,7 @@ def main() -> int:
           f"{BASE_FAKES} fakes at {BASE_SAMPLE_STEPS} steps")
     baselines = baselines_main_path(device, card)
 
-    phase("24/27 kernels")
+    phase("24/28 kernels")
     fwd = [rows[f"N{n}_C{c}"] for n, c in FORWARD_SHAPES]
     # the ten launches run one after another: their least time is the sum
     # of theirs, bound by whichever of bytes or operations gives more of it
@@ -4472,21 +4823,28 @@ def main() -> int:
     kernels += slice4_kernel_rows(la_rows, tp_rows, ba_rows, la_path, la_grads, card)
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    phase("25/27 the card")
+    phase("25/28 the card")
     print(card, flush=True)
 
-    phase(f"26/27 data parallelism: (a) main.py under the env triplet at world 1 over NCCL, "
+    phase(f"26/28 data parallelism: (a) main.py under the env triplet at world 1 over NCCL, "
           f"{DP_WORLD1_STEPS} steps, against the same run without it; (b) two ranks on one card "
           f"over gloo, {DP_STEPS} train steps at 64 rows a rank, against one process; (c) one "
           f"CcGAN iteration on two ranks; (d) the native dataset cache; (e) the folded upsample")
     parallel = data_parallel_path(device, card, {})
     print(json.dumps({"data_parallel": parallel}), flush=True)
 
-    phase(f"27/27 UK64 (scripts/UK64/run_ccdm.sh: dim 72, 1_2_4_4_8, resnet ILI + H(y), hard "
+    phase(f"27/28 UK64 (scripts/UK64/run_ccdm.sh: dim 72, 1_2_4_4_8, resnet ILI + H(y), hard "
           f"vicinity): training, batch {TRAIN_BATCH}, bf16, {UK64_STEPS} steps, then 2 labels x "
           f"4 images at 10 DDIM steps")
     uk64 = uk64_main_path(device, card, trained["train_images_per_s"])
     print(json.dumps({"uk64": uk64}), flush=True)
+
+    phase(f"28/28 UK128 and UK192 (scripts/UK128, scripts/UK192/run_ccdm.sh: dim 64, "
+          f"1_2_4_4_8_8 and 1_2_2_4_4_8_8, resnet y2h ILI, H(y) with the sinusoidal y2cov): "
+          f"training, batch 32 x 2 and 16 x 4, bf16, {HIGHRES_STEPS} steps each, then 1 label "
+          f"x {HIGHRES_SAMPLES} images, one {2 * HIGHRES_SAMPLES}-row CFG forward a DDIM step")
+    highres = highres_main_path(device, card)
+    print(json.dumps({"highres": highres}), flush=True)
     phase(None)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

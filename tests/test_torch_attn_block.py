@@ -231,3 +231,30 @@ def test_cuda_bf16_other_shapes_take_the_cuda_cores(heads, c):
     want = attn_block.attn_block_reference(*(a.float() for a in args), heads, DIM_HEAD)
     scale = torch.maximum(want.abs(), (want - args[0].float()).abs())
     assert bool(((got - want).abs() <= 3e-2 + 3e-2 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(36864, 64), (2304, 128), (9, 512)])
+def test_cuda_bf16_at_the_sampling_batch_of_200_images(n, c):
+    """Kernel #1 in bf16 at B 400, the CFG forward of UK128's and UK192's
+    sampling (--samp_batch_size 200), on the route the plan gives it: the
+    split route with one block a row at N 36864 (B N C 9.4e8), the fused
+    route at the 3x3 level. The kernel computes each batch row on its own,
+    so the plain version runs on rows 0, 1, 199 and 399 alone (at N 36864 its
+    f32 [B, N, 3F] intermediates for all 400 rows would take 22.6 GB), at
+    chip_smoke.py's bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    b, rows = 400, [0, 1, 199, 399]
+    g = torch.Generator(device="cuda").manual_seed(n + c)
+    x = torch.randn(b, n, c, generator=g, device="cuda").bfloat16()
+    _, w = _inputs(np.random.default_rng(n), 1, 1, c)
+    args = [x, *(torch.from_numpy(a).cuda().bfloat16() for a in w)]
+    plan = attn_block.plan(b, n, c, HEADS, torch.bfloat16)
+    assert (plan.route, plan.splits) == ("fused" if n <= 128 else "split", 1)
+    got = attn_block.fused_attn_block(*args, HEADS, DIM_HEAD)[rows].float()
+    want = attn_block.attn_block_reference(*(a.float() for a in (x[rows], *args[1:])), HEADS,
+                                           DIM_HEAD)
+    scale = torch.maximum(want.abs(), (want - x[rows].float()).abs())
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= 3e-2 + 3e-2 * scale).all())
